@@ -1,0 +1,88 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled with ``nvcc``
+for ``sm_90a`` into ``build/repro_torch_kernels/`` at the repository root, at
+first use and from the sources in the checkout only, then loaded with
+``ctypes``. A library is named after a hash of its source and flags, so an
+edited source is rebuilt and an unchanged one is reused. Nothing here runs
+at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "build", "load"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+
+#: ``--fmad=false``: a*b+c rounds twice, as in the plain PyTorch version
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+#: seconds each library took to build in this process (0.0 when it was reused)
+BUILD_SECONDS: dict[str, float] = {}
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``CUDA_HOME``, ``/usr/local/cuda`` or ``PATH``; raises if none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for cand in candidates:
+        if cand.is_file():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH): the "
+                           "port's CUDA kernels are built on the machine with the card")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns the path."""
+    out = _library_path(name)
+    if out.exists():
+        BUILD_SECONDS.setdefault(name, 0.0)
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # compile to a private name, then rename: a concurrent build never loads half a file
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _LOADED:
+        _LOADED[name] = ctypes.CDLL(str(build(name)))
+    return _LOADED[name]
