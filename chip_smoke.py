@@ -5,29 +5,45 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds every kernel against its plain PyTorch version on the card, drives
-the port's main path — ``simulate(EngineSpec(engine="cohort-fused",
-scheduler="potus", device="cuda"))`` on the I=16384 serving fleet — counts
-the kernel launches of that run, checks the results, and prints:
+It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, all started together), holds every kernel against
+its plain PyTorch version on the card, and drives the port's two ported
+paths on the I=16384 serving fleet, counting the kernel launches of each:
 
-* the card's name and power limit, the torch/CUDA versions, build seconds;
+* main path 1 — ``simulate(EngineSpec(engine="cohort-fused",
+  scheduler="potus", device="cuda"))``: the slot kernel (``potus_slot``);
+* main path 2 — ``simulate(EngineSpec(engine="jax", scheduler="potus",
+  device="cuda"))``, the plain scan engine (the Fig. 5 path): the fused
+  schedule kernel (``potus_schedule``); and its ``scheduler="potus-loop"``
+  route, on an I=1024 fleet: the price kernel (``potus_price``).
+
+It checks the results and prints:
+
+* the card's name and power limit, the torch/CUDA versions and build
+  seconds;
 * per check, the largest difference kernel vs plain version;
-* per phase kernel, its device time; per call, kernel, plain and bound ms;
-* the main path's wall ms per slot, its metrics and the device busy share;
+* per kernel, one call's kernel, plain and bound ms at the main path's
+  shapes (and, for the slot kernel, each phase's device time);
+* per main path, its wall ms per slot, its metrics, the device busy share,
+  the top device items and (path 2) the peak device memory;
+* each comparison of the kernel route with the plain route;
 * one JSON line ``{"kernels": [...]}``, then, last,
   ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, so the exit code is not 0 and the last line is not
-printed. Without a CUDA device it exits with code 2 and prints no result.
-It imports nothing of the JAX package.
+Float32 matrix products run in full f32: TF32 is switched off for cuBLAS
+and cuDNN before anything runs. Any failed check raises, so the exit code
+is not 0 and the last line is not printed. Without a CUDA device it exits
+with code 2 and prints no result. It imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +53,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # the I=16384 serving fleet of benchmarks/systems_bench.py:137 (_cohort_fleet)
 FLEET_I, FLEET_T, FLEET_W, FLEET_V, FLEET_AGE_CAP = 16384, 128, 4, 2.0, 64
+# the potus-loop route runs max_succ argmin passes per slot (3072 at I=16384,
+# seconds per slot), so its fleet is cut to I=1024 until the loop gets a kernel
+LOOP_I = 1024
+KERNELS = ("potus_slot", "potus_schedule", "potus_price")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
@@ -205,6 +225,372 @@ def device_times(prof):
     return sorted(rows, key=lambda r: -r[2])
 
 
+# ---------------------------------------------------------------------------
+# the plain scan engine (engine="jax") and its two kernels
+# ---------------------------------------------------------------------------
+
+def sched_args(prob, U, state, pq):
+    """The kernels' inputs at one slot: (U, q_in, q_out, kc, comp, mask)."""
+    return (U, state.q_in, pq.effective_qout(prob, state), prob.inst_container,
+            prob.inst_comp, prob.edge_mask)
+
+
+def kernel_bound(args, gamma=None):
+    """Bytes (each input read once, X or l written once) and operations
+    (five per DAG edge of this state, plus the water-fill per row) of one
+    call of the schedule (``gamma`` given) or the price kernel."""
+    U, q_in, q_out, kc, comp, mask = args
+    I, C = q_out.shape
+    nbytes = sum(x.numel() * x.element_size() for x in args) + 4 * I * I
+    nops = 5 * int(mask.sum())
+    if gamma is not None:
+        nbytes += gamma.numel() * 4
+        nops += I * C * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, nops / PEAK_F32_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, nops
+
+
+def max_err(a, b) -> float:
+    """Largest |a - b| over the entries finite in both; +inf must sit in the
+    same places (checked by the caller)."""
+    import torch
+
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[fin].double() - b[fin].double()).abs().max()) if bool(fin.any()) else 0.0
+
+
+def prices_close(lk, lp) -> bool:
+    """+inf in the same places, finite entries within rtol/atol 1e-5."""
+    import torch
+
+    fin = torch.isfinite(lp)
+    return (torch.equal(torch.isinf(lk), torch.isinf(lp))
+            and torch.allclose(lk[fin], lp[fin], rtol=1e-5, atol=1e-5))
+
+
+def check_price_and_schedule(kp, ks, args, gamma, V, beta, label, exact):
+    """Kernel 3 and kernel 2 against their plain versions on one input;
+    returns the two max_abs_err."""
+    import torch
+
+    lk, lp = kp.potus_price_call(*args, V, beta), kp.potus_price_plain(*args, V, beta)
+    xk = ks.potus_schedule_call(*args, gamma, V, beta)
+    xp = ks.potus_schedule_alloc_plain(*args, gamma, V, beta)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isinf(lk), torch.isinf(lp)), f"{label}: price +inf places differ")
+    e_l, e_x = max_err(lk, lp), max_err(xk, xp)
+    if exact:
+        check(torch.equal(lk, lp), f"{label}: price kernel differs from the plain version")
+        check(torch.equal(xk, xp), f"{label}: schedule kernel differs from the plain version")
+    else:
+        check(prices_close(lk, lp), f"{label}: price kernel beyond rtol/atol 1e-5")
+        check(torch.allclose(xk, xp, rtol=1e-5, atol=1e-5),
+              f"{label}: schedule kernel beyond rtol/atol 1e-5")
+    return e_l, e_x
+
+
+def random_problem(seed, I, K, C, cuda):
+    """``tests/test_kernels.py:176-181`` inputs, from numpy: integer grids."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    comp = rng.integers(0, C, I).astype(np.int32)
+    mask = (rng.random((I, I)) < 0.25) & (comp[:, None] != comp[None, :])
+    U = rng.integers(0, 5, (K, K)).astype(np.float32)
+    q_in = rng.integers(0, 8, I).astype(np.float32)
+    q_out = rng.integers(0, 8, (I, C)).astype(np.float32)
+    gamma = rng.integers(1, 12, I).astype(np.float32)
+    kc = rng.integers(0, K, I).astype(np.int32)
+    t = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    return (t(U), t(q_in), t(q_out), t(kc), t(comp), t(mask)), t(gamma)
+
+
+def price_problem(seed, I, K, C, cuda):
+    """``tests/test_kernels.py:127-131`` inputs, from numpy: uniform floats."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    U = rng.uniform(0, 6, (K, K)).astype(np.float32)
+    q_in = rng.uniform(0, 20, I).astype(np.float32)
+    q_out = rng.uniform(0, 20, (I, C)).astype(np.float32)
+    kc = rng.integers(0, K, I).astype(np.int32)
+    comp = rng.integers(0, C, I).astype(np.int32)
+    mask = rng.random((I, I)) < 0.2
+    t = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    return (t(U), t(q_in), t(q_out), t(kc), t(comp), t(mask)), None
+
+
+def dyadic_scan_checks(pt, kp, ks, cuda):
+    """Kernels 2 and 3 against their plain versions on every slot's state of
+    a reference-length run of the dyadic system: bitwise."""
+    import torch
+
+    from repro_torch.core import potus as pp
+    from repro_torch.core import queues as pq
+    from repro_torch.core import simulator as psim
+    from repro_torch.kernels import ops as kops
+
+    T, W, V, beta = 120, 2, 2.0, 0.5
+    topo, net, placement, arr = dyadic_system(pt, T, W)
+    prob = pp.make_problem(topo, net, placement, cuda)
+    state = pq.init_state(topo, W, arr[:W + 1], cuda)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    U = torch.as_tensor(net.U, **f32)
+    kc = prob.inst_container.long()
+    u_pair = U[kc[:, None], kc[None, :]]
+    mu = torch.as_tensor(topo.inst_mu, **f32)
+    sel = torch.as_tensor(topo.selectivity[topo.inst_comp], **f32)
+    sched = partial(pp._schedule_with, kops.plain)  # the run itself takes the plain route
+    shipped = 0
+    for t in range(T):
+        args = sched_args(prob, U, state, pq)
+        check_price_and_schedule(kp, ks, args, prob.gamma, V, beta, f"dyadic t={t}", True)
+        shipped += int((ks.potus_schedule_alloc_plain(*args, prob.gamma, V, beta) > 0).sum())
+        state, _ = psim.sim_step(prob, sched, U, u_pair, mu, sel, V, beta, state,
+                                 torch.as_tensor(arr[t + W + 1], **f32))
+    check(shipped > 0, "dyadic: the greedy shipped nothing; the check would be vacuous")
+    print(f"dyadic scan engine T={T}: price and schedule kernels vs plain bitwise on every "
+          f"slot (max_abs_err 0.0; {shipped} greedy allocations)")
+
+
+def one_call(kp, ks, pq, convert, prob, U, mid_state, cuda, card):
+    """Kernels 2 and 3 once at I=16384 from a mid-run state: bitwise equal to
+    their plain versions (+inf in the same places), ms per call (CUDA events,
+    warmed up), plain ms, bound."""
+    import torch
+
+    state = convert.sim_state_from_numpy(mid_state, device=cuda)
+    args = sched_args(prob, U, state, pq)
+    out = {}
+    for name, call, plain, gamma in (
+            ("potus_schedule", ks.potus_schedule_call, ks.potus_schedule_alloc_plain,
+             prob.gamma),
+            ("potus_price", kp.potus_price_call, kp.potus_price_plain, None)):
+        extra = () if gamma is None else (gamma,)
+        k = call(*args, *extra, FLEET_V, 1.0)
+        p = plain(*args, *extra, FLEET_V, 1.0)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.isinf(k), torch.isinf(p)),
+              f"one {name} call at I={FLEET_I}: +inf places differ from the plain version")
+        err = max_err(k, p)
+        check(torch.equal(k, p), f"one {name} call at I={FLEET_I}: kernel differs from the "
+              f"plain version (max_abs_err {err:.3e}); both repeat one operation order")
+        del k, p
+        ms = time_calls(lambda: call(*args, *extra, FLEET_V, 1.0), 20)
+        plain_ms = time_calls(lambda: plain(*args, *extra, FLEET_V, 1.0), 3)
+        bound_ms, bound_by, nbytes, nops = kernel_bound(args, gamma)
+        print(f"one {name} call at I={FLEET_I} (mid-run state, t=64): max_abs_err={err:.3e} "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes} bytes, {nops} ops) [{card}]")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    return out
+
+
+def profile_run(fn, top=8):
+    """Device busy share and the top device items of one profiled run."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_times(prof)
+    busy_ms = sum(r[2] for r in rows)
+    if busy_ms > 0:
+        print(f"  device busy {busy_ms:.3f} ms of {prof_ms:.3f} ms wall: "
+              f"share {busy_ms / prof_ms:.4f} (profiled run)")
+        for name, count, ms in rows[:top]:
+            print(f"    {ms:10.3f} ms  x{count:<6d} {name[:90]}")
+    else:
+        print("  device busy share: not measured (the profiler saw no device time)")
+
+
+def timed_runs(fn, T, n):
+    """Wall ms per slot of ``n`` synchronised runs."""
+    import torch
+
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / T)
+    return np.array(walls)
+
+
+SERIES = ("backlog", "comm_cost", "q_in_total", "q_out_total", "served_total")
+
+
+def compare_scan_routes(label, psim, plain_ops, sys_, T, cfg, cuda, events=None,
+                        kernel=None):
+    """The kernel route (``kernel``: a result already run, else run here)
+    against the plain route of ``_run_sim_impl``: per-slot backlog and cost
+    within rtol 1e-4 over the first 16 slots, long-run means within 2%."""
+    import torch
+
+    topo, net, placement, arr = sys_
+    t_a = time.perf_counter()
+    a = kernel if kernel is not None else psim._run_sim_impl(topo, net, placement, arr, T,
+                                                             cfg, events=events, device=cuda)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    b = psim._run_sim_impl(topo, net, placement, arr, T, cfg, events=events, device=cuda,
+                           ops=plain_ops)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter()
+    r16 = max(rel_diff(a.backlog[:16], b.backlog[:16]), rel_diff(a.comm_cost[:16],
+                                                                  b.comm_cost[:16]))
+    means = max(rel_diff(a.avg_backlog, b.avg_backlog), rel_diff(a.avg_cost, b.avg_cost))
+    for name in SERIES:
+        check(np.isfinite(getattr(a, name)).all() and getattr(a, name).shape == (T,),
+              f"{label}: {name} not finite or of the wrong shape")
+    kernel_ms = "ran above" if kernel is not None else f"{(t_b - t_a) * 1e3 / T:.3f} ms/slot"
+    print(f"{label} {cfg.scheduler} T={T}: kernel route {kernel_ms}, plain route "
+          f"{(t_c - t_b) * 1e3 / T:.3f} ms/slot; first 16 slots rel diff {r16:.3e}, means "
+          f"{means:.3e}; avg_backlog {a.avg_backlog!r}/{b.avg_backlog!r} "
+          f"avg_cost {a.avg_cost!r}/{b.avg_cost!r}")
+    check(r16 <= 1e-4 and means <= 0.02, f"{label} {cfg.scheduler}: kernel route vs plain")
+
+
+def scan_engine(pt, card, cuda):
+    """Everything of the plain scan engine: checks, one call of each kernel,
+    main path 2 and its loop route, the route comparisons. Returns the two
+    kernels' entries of the kernels line."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import potus as pp
+    from repro_torch.core import queues as pq
+    from repro_torch.core import simulator as psim
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import potus_price as kp
+    from repro_torch.kernels import potus_schedule as ks
+    from repro_torch.kernels import potus_slot as ps
+
+    # -- kernels 2 and 3 against their plain versions ----------------------------
+    dyadic_scan_checks(pt, kp, ks, cuda)
+    for shape in ((60, 8, 6), (128, 16, 10), (96, 4, 3), (250, 32, 24)):
+        args, gamma = random_problem(0, *shape, cuda)
+        e_l, e_x = check_price_and_schedule(kp, ks, args, gamma, 2.0, 1.0, f"random {shape}",
+                                            False)
+        print(f"random (I, K, C)={shape}: schedule max_abs_err={e_x:.3e}, price {e_l:.3e} "
+              "(rtol/atol 1e-5)")
+    for shape in ((60, 8, 12), (128, 32, 16), (256, 16, 24)):
+        args, _ = price_problem(0, *shape, cuda)
+        lk, lp = kp.potus_price_call(*args, 3.0, 1.0), kp.potus_price_plain(*args, 3.0, 1.0)
+        check(prices_close(lk, lp), f"price {shape}: beyond rtol/atol 1e-5 or +inf elsewhere")
+        err = max_err(lk, lp)
+        print(f"random price (I, K, C)={shape}: max_abs_err={err:.3e} bitwise="
+              f"{torch.equal(lk, lp)}")
+
+    # -- one call of each at I=16384, from a mid-run state -----------------------
+    sys_ = fleet_system(pt, FLEET_I, FLEET_T)
+    topo, net, placement, arr = sys_
+    cfg = pt.SimConfig(V=FLEET_V, window=FLEET_W, scheduler="potus")
+    mid = psim._run_sim_impl(topo, net, placement, arr, 64, cfg, device=cuda)
+    prob = pp.make_problem(topo, net, placement, cuda)
+    U = torch.as_tensor(net.U, dtype=torch.float32, device=cuda)
+    calls = one_call(kp, ks, pq, convert, prob, U, mid.final_state, cuda, card)
+    del prob, mid
+    torch.cuda.empty_cache()
+
+    # -- main path 2: engine="jax", potus, I=16384 -------------------------------
+    spec = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr, T=FLEET_T,
+                         engine="jax", scheduler="potus", V=FLEET_V, window=FLEET_W,
+                         device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for counter in (ps.launches, ks.launches, kp.launches):
+        counter.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res1 = pt.simulate(spec)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3 / FLEET_T
+    n_sched, n_price, n_slot = ks.launches.n, kp.launches.n, ps.launches.n
+    peak = torch.cuda.max_memory_allocated()
+    print(f"main path 2: engine=jax potus I={FLEET_I} T={FLEET_T} launches: potus_schedule="
+          f"{n_sched} potus_price={n_price} potus_slot={n_slot}; peak device memory "
+          f"{peak} bytes ({peak / 2**30:.3f} GiB, of which {held} bytes were held before "
+          "the run)")
+    check(n_sched == FLEET_T, f"schedule kernel launches {n_sched} != T={FLEET_T}")
+    check(n_price == 0 and n_slot == 0, "main path 2 launched the price or the slot kernel")
+    res2 = pt.simulate(spec)
+    same = all(np.array_equal(getattr(res1, f), getattr(res2, f)) for f in SERIES) and all(
+        np.array_equal(getattr(res1.final_state, f), getattr(res2.final_state, f))
+        for f in ("q_in", "q_rem", "q_out_bolt", "transit"))
+    print(f"  two runs bitwise identical: {same}")
+    check(same, "main path 2: two runs differ")
+    for name in SERIES:
+        check(np.isfinite(getattr(res1, name)).all()
+              and getattr(res1, name).shape == (FLEET_T,),
+              f"main path 2: {name} not finite or of the wrong shape")
+    check(float(res1.served_total.sum()) > 0, "main path 2: nothing was served")
+    per_slot = timed_runs(lambda: pt.simulate(spec), FLEET_T, 4)
+    print(f"  wall ms/slot over {len(per_slot)} timed runs: median {np.median(per_slot):.4f}, "
+          f"min {per_slot.min():.4f}, max {per_slot.max():.4f} (first run {first_ms:.4f}) "
+          f"[{card}]")
+    setup = timed_runs(lambda: pt.simulate(dataclasses.replace(spec, T=0)), 1, 2)
+    print(f"  set-up alone (a T=0 run: arrivals, problem, state and u_pair on the card): "
+          f"{setup[0]:.3f} and {setup[1]:.3f} ms [{card}]")
+    print(f"  avg_backlog={res1.avg_backlog!r} avg_cost={res1.avg_cost!r} "
+          f"served_total_mean={float(res1.served_total.mean())!r} [{card}]")
+    profile_run(lambda: pt.simulate(spec))
+
+    # -- kernel route against plain route ----------------------------------------
+    compare_scan_routes("fleet", psim, kops.plain, sys_, FLEET_T, cfg, cuda, kernel=res1)
+    del res1, res2
+    torch.cuda.empty_cache()
+
+    # the potus-loop route (kernel 3), through the facade, counted
+    loop_sys = fleet_system(pt, LOOP_I, FLEET_T)
+    loop_spec = pt.EngineSpec(topo=loop_sys[0], net=loop_sys[1], placement=loop_sys[2],
+                              arrivals=loop_sys[3], T=FLEET_T, engine="jax",
+                              scheduler="potus-loop", V=FLEET_V, window=FLEET_W, device="cuda")
+    for counter in (ps.launches, ks.launches, kp.launches):
+        counter.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop_res = pt.simulate(loop_spec)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / FLEET_T
+    n_loop_price, n_loop_sched = kp.launches.n, ks.launches.n
+    print(f"potus-loop route: engine=jax I={LOOP_I} T={FLEET_T} launches: potus_price="
+          f"{n_loop_price} potus_schedule={n_loop_sched}; {loop_ms:.3f} ms/slot [{card}]")
+    check(n_loop_price == FLEET_T, f"price kernel launches {n_loop_price} != T={FLEET_T}")
+    check(n_loop_sched == 0, "the potus-loop route launched the schedule kernel")
+    loop_cfg = pt.SimConfig(V=FLEET_V, window=FLEET_W, scheduler="potus-loop")
+    compare_scan_routes(f"fleet I={LOOP_I}", psim, kops.plain, loop_sys, FLEET_T, loop_cfg,
+                        cuda, kernel=loop_res)
+    compare_scan_routes("paper", psim, kops.plain, paper_system(pt, 300), 300,
+                        pt.SimConfig(V=2.0, window=2, scheduler="potus-loop"), cuda)
+    # 16 instances (a src and three serve per chain) restart 3 slots apart, 8 slots each:
+    # restarts run from slot 8 to slot 61 of 64
+    restart = [int(i) for c in range(topo.n_components) if c % 3 < 2
+               for i in topo.instances_of(c)[:1 if c % 3 == 0 else 3]]
+    events = pt.rolling_restart(topo, start=8, down_slots=8, stagger=3,
+                                instances=restart).compile(topo, 64)
+    check(len(restart) == 16 and (events.alive_t == 0).any(axis=1)[8:61].all(),
+          "rolling restart: the restarts do not fall inside the run")
+    compare_scan_routes("fleet rolling-restart", psim, kops.plain, sys_, 64, cfg, cuda,
+                        events=events)
+
+    entry = dict(route="cuda")
+    return [
+        {"name": "potus_schedule", **entry,
+         "source": "src/repro_torch/kernels/csrc/potus_schedule.cu",
+         "replaces": "src/repro/kernels/potus_schedule.py:35", "launches": n_sched,
+         **calls["potus_schedule"], "library_ms": None},
+        {"name": "potus_price", **entry, "source": "src/repro_torch/kernels/csrc/potus_price.cu",
+         "replaces": "src/repro/kernels/potus_price.py:26", "launches": n_loop_price,
+         **calls["potus_price"], "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -229,9 +615,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build("potus_slot")
-    print(f"kernel build: potus_slot {_build.BUILD_SECONDS['potus_slot']:.2f} s "
-          f"(wall {time.perf_counter() - t0:.2f} s)")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all started together
+        list(pool.map(_build.build, KERNELS))
+    print("kernel build: " + ", ".join(f"{k} {_build.BUILD_SECONDS[k]:.2f} s" for k in KERNELS)
+          + f" (wall {time.perf_counter() - t0:.2f} s, in parallel)")
 
     # -- 2. kernel against plain version on the card -------------------------
     T_d, W_d, AC_d = 40, 2, 16
@@ -377,7 +764,10 @@ def main() -> int:
                       FLEET_AGE_CAP)
     compare_route("paper", *paper_system(pt, 300), 300, "potus", 2.0, 2, 64)
 
-    # -- 4. the kernels line, 5. the last line ---------------------------------
+    # -- 4. the plain scan engine: kernels 2 and 3, main path 2 --------------------
+    scan_kernels = scan_engine(pt, card, cuda)
+
+    # -- 5. the kernels line, 6. the last line ---------------------------------
     print(json.dumps({"kernels": [{
         "name": "potus_slot", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/potus_slot.cu",
@@ -385,7 +775,7 @@ def main() -> int:
         "launches": main_launches, "max_abs_err": one_err, "ms": ms_kernel,
         "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }, *scan_kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

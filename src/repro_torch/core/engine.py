@@ -4,7 +4,8 @@
 The port's counterpart of ``repro.core.engine``. :class:`EngineSpec` has the
 reference's fields plus ``device``; :func:`simulate` validates the spec
 against the same engine×option matrix (:data:`OPTION_SUPPORT`) and runs it.
-Only ``engine="cohort-fused"`` is ported. Every engine, option or scheduler
+Two engines are ported: ``engine="cohort-fused"`` (the compact route) and
+``engine="jax"`` (the plain scan engine). Every engine, option or scheduler
 that the reference supports but the port does not yet raises
 :class:`UnsupportedEngineOption` with the reason "not ported yet"; nothing
 runs something else in its place.
@@ -26,7 +27,7 @@ __all__ = ["EngineSpec", "UnsupportedEngineOption", "simulate", "ENGINES",
 ENGINES = ("jax", "sharded", "cohort", "cohort-fused")
 
 #: engines the port runs today
-PORTED_ENGINES = ("cohort-fused",)
+PORTED_ENGINES = ("jax", "cohort-fused")
 
 #: which engines support which :class:`EngineSpec` option (an option absent
 #: here is universal) — the reference's matrix, so a spec written for the
@@ -45,8 +46,14 @@ OPTION_SUPPORT = {
     "metrics": ("jax", "sharded", "cohort", "cohort-fused"),
 }
 
-#: options the reference's cohort-fused engine supports that the port does not yet
-NOT_PORTED_OPTIONS = ("events", "metrics", "sharded")
+#: per ported engine, the options the reference supports there that the port does not yet
+NOT_PORTED_OPTIONS = {"jax": ("metrics",), "cohort-fused": ("events", "metrics", "sharded")}
+
+#: the reference's schedulers
+SCHEDULERS = ("potus", "potus-loop", "shuffle", "jsq")
+
+#: per ported engine, the schedulers the port runs there
+PORTED_SCHEDULERS = {"jax": SCHEDULERS, "cohort-fused": ("potus", "shuffle", "jsq")}
 
 #: proximity order used to name the "nearest" supporting engine
 _NEAREST = {
@@ -122,7 +129,7 @@ class EngineSpec:
     window: int = 0
     use_pallas: bool = False
     predicted: Any = None  # distinct predicted arrivals (cohort engines)
-    events: Any = None  # disruption trace (not ported yet)
+    events: Any = None  # EventTrace (engine="jax"; not ported yet on cohort-fused)
     mu: Any = None  # capacity override (scan engines)
     chunk: int | None = None  # streaming scan (DESIGN.md §11)
     service: Any = None  # token-length service-time axis (DESIGN.md §10)
@@ -145,7 +152,7 @@ class EngineSpec:
     def _set_options(self):
         """Option names carrying a non-default value."""
         defaults = {f.name: f.default for f in dataclasses.fields(EngineSpec)
-                    if f.name in OPTION_SUPPORT or f.name in NOT_PORTED_OPTIONS}
+                    if f.name in OPTION_SUPPORT or f.name == "events"}
         return [name for name, default in defaults.items()
                 if (getattr(self, name) is not None if default is None
                     else getattr(self, name) != default)]
@@ -158,20 +165,29 @@ class EngineSpec:
                                           reason="not ported yet")
         for option in self._set_options():
             check_engine_option(self.engine, option)
-            if option in NOT_PORTED_OPTIONS:
+            if option in NOT_PORTED_OPTIONS[self.engine]:
                 raise UnsupportedEngineOption(self.engine, option, reason="not ported yet")
-        if self.scheduler == "potus-loop":
-            raise UnsupportedEngineOption(self.engine, "scheduler",
-                                          reason="scheduler 'potus-loop' is not ported yet")
-        if self.scheduler not in ("potus", "shuffle", "jsq"):
+        if self.scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
+        if self.scheduler not in PORTED_SCHEDULERS[self.engine]:
+            raise UnsupportedEngineOption(
+                self.engine, "scheduler", supported=("jax",),
+                reason=f"scheduler {self.scheduler!r} is not ported yet")
 
 
 def simulate(spec: EngineSpec):
-    """Run one fully specified simulation on ``spec.device`` and return a
-    :class:`~repro_torch.core.cohort.CohortResult`."""
+    """Run one fully specified simulation on ``spec.device`` and return the
+    engine's result: :class:`~repro_torch.core.simulator.SimResult` for
+    ``engine="jax"``, :class:`~repro_torch.core.cohort.CohortResult` for
+    ``engine="cohort-fused"``."""
     spec.validate()
     device = resolve_device(spec.device)
+    if spec.engine == "jax":
+        from .simulator import _run_sim_impl
+
+        return _run_sim_impl(spec.topo, spec.net, spec.placement, spec.arrivals, spec.T,
+                             spec.config(), mu=spec.mu, events=spec.events, chunk=spec.chunk,
+                             device=device)
     from .cohort_fused import _run_cohort_fused_impl
 
     return _run_cohort_fused_impl(

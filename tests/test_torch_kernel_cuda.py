@@ -1,10 +1,13 @@
-"""The hand-written CUDA slot kernel against its plain version, on the card.
+"""The hand-written CUDA kernels against their plain versions, on the card.
 
-Marked ``cuda``: it needs a CUDA device and ``nvcc`` and skips without
+Marked ``cuda``: they need a CUDA device and ``nvcc`` and skip without
 them (the CPU has no interpret mode for a CUDA kernel). On the dyadic
 system every sum is exact in f32, so kernel and plain version must agree
-bitwise for every scheduler, in one-slot and eight-slot launches, and two
-kernel runs must be identical. Run on the machine with the card:
+bitwise: the slot kernel for every scheduler, in one-slot and eight-slot
+launches, with two kernel runs identical; the schedule and price kernels on
+every slot's state of a dyadic scan-engine run. On random integer problems
+the schedule kernel matches within ``rtol/atol 1e-5`` (the shapes of
+``tests/test_kernels.py:176-181``). Run on the machine with the card:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
@@ -48,3 +51,27 @@ def test_kernel_matches_plain_version_bitwise(cuda_device, scheduler):
         for x, y, z in zip(s_k + (m_k,), s_p + (m_p,), s_k2 + (m_k2,)):
             assert torch.equal(x, y)  # exact sums on the dyadic tier: bitwise
             assert torch.equal(x, z)  # fixed reduction order: runs repeat bitwise
+
+
+def test_scan_kernels_match_plain_version_bitwise_on_dyadic_states(cuda_device):
+    import repro_torch.core as pt
+    from repro_torch.kernels import potus_price as kp
+    from repro_torch.kernels import potus_schedule as ks
+
+    ks.launches.reset()
+    kp.launches.reset()
+    chip_smoke.dyadic_scan_checks(pt, kp, ks, cuda_device)
+    assert ks.launches.n == kp.launches.n == 120
+
+
+@pytest.mark.parametrize("shape", [(60, 8, 6), (128, 16, 10), (96, 4, 3), (250, 32, 24)])
+def test_schedule_kernel_matches_plain_version_on_random_problems(cuda_device, shape):
+    from repro_torch.kernels import potus_price as kp
+    from repro_torch.kernels import potus_schedule as ks
+
+    args, gamma = chip_smoke.random_problem(0, *shape, cuda_device)
+    chip_smoke.check_price_and_schedule(kp, ks, args, gamma, 2.0, 1.0, str(shape), False)
+    x1 = ks.potus_schedule_call(*args, gamma, 2.0, 1.0)
+    x2 = ks.potus_schedule_call(*args, gamma, 2.0, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(x1, x2)  # no atomics: runs repeat bitwise

@@ -105,3 +105,61 @@ def test_predictors_equal(name):
     np.testing.assert_array_equal(
         rpred.predict_series(name, arr, np.random.default_rng(9)),
         ppred.predict_series(name, arr, np.random.default_rng(9)))
+
+
+def _traces(mod, topo, placement, T):
+    """Every canned scenario generator, compiled."""
+    return {
+        "identity": mod.identity_trace(topo, T),
+        "rolling": mod.rolling_restart(topo, start=3, down_slots=4, stagger=2,
+                                       instances=[0, 5, 9]).compile(topo, T),
+        "rolling-all": mod.rolling_restart(topo, start=1, down_slots=2).compile(topo, T),
+        "straggler": mod.flash_straggler(topo, start=5, duration=9, factor=0.25,
+                                         rng=np.random.default_rng(2)).compile(topo, T),
+        "k-failures": mod.k_failures(topo, k=5, start=4, duration=7,
+                                     rng=np.random.default_rng(3)).compile(topo, T),
+        "k-failures-spouts": mod.k_failures(topo, k=3, start=0, duration=50, bolts_only=False,
+                                            rng=np.random.default_rng(4)).compile(topo, T),
+        "diurnal": mod.diurnal_autoscale(topo, T, period=20, min_alive_frac=0.5).compile(topo, T),
+        "chaos": mod.random_chaos(topo, T, np.random.default_rng(5), n_events=12,
+                                  placement=placement).compile(topo, T, placement=placement),
+        "declared": mod.FleetScenario((
+            mod.FleetEvent("outage", 2, 9, container=int(placement[0])),
+            mod.FleetEvent("throttle", 0, 30, component=1, factor=0.5),
+            mod.FleetEvent("straggler", 10, 20, instances=(3, 4), factor=0.3),
+            mod.FleetEvent("scale_down", 15, 25, component=2),
+        ), name="declared").compile(topo, T, placement=placement),
+    }
+
+
+@pytest.mark.parametrize("T", [35, 60])
+def test_every_event_trace_equal(T):
+    topo_r, topo_p = _paper_topos(0)
+    sd, _ = rc.fat_tree(4)
+    net = rc.container_costs("ft", sd)
+    placement = rc.t_heron_placement(topo_r, net, rc.feasible_rates(topo_r, utilization=0.7),
+                                     max_per_container=8)
+    ref, port = _traces(rc, topo_r, placement, T), _traces(pt, topo_p, placement, T)
+    assert ref.keys() == port.keys()
+    for name in ref:
+        a, b = ref[name], port[name]
+        assert (a.name, a.T, a.n_instances) == (b.name, b.T, b.n_instances), name
+        assert a.is_identity(topo_r) == b.is_identity(topo_p), name
+        for size in (T, T + 7, T - 9):  # as compiled, held, truncated
+            pa, pb = a.prepared(size), b.prepared(size)
+            for field in ("mu_t", "gamma_t", "alive_t"):
+                x, y = getattr(pa, field), getattr(pb, field)
+                assert x.dtype == y.dtype, (name, field)
+                np.testing.assert_array_equal(x, y, err_msg=f"{name}.{field}")
+    assert not ref["chaos"].is_identity(topo_r)
+
+
+def test_event_validation_equal():
+    for kwargs in (dict(kind="nope", start=0, end=1), dict(kind="failure", start=3, end=1),
+                   dict(kind="outage", start=0, end=1),
+                   dict(kind="straggler", start=0, end=1, factor=-1.0)):
+        with pytest.raises(ValueError) as ref_err:
+            rc.FleetEvent(**kwargs)
+        with pytest.raises(ValueError) as port_err:
+            pt.FleetEvent(**kwargs)
+        assert str(ref_err.value) == str(port_err.value)
