@@ -7,15 +7,21 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all started together), holds every kernel against
-its plain PyTorch version on the card, and drives the port's two ported
-paths on the I=16384 serving fleet, counting the kernel launches of each:
+its plain PyTorch version on the card, and drives the port's paths on the
+I=16384 serving fleet, counting the kernel launches of each:
 
 * main path 1 — ``simulate(EngineSpec(engine="cohort-fused",
   scheduler="potus", device="cuda"))``: the slot kernel (``potus_slot``);
+* the dense route of the same engine, ``scheduler="potus-loop"``, on an
+  I=1024 fleet (phase A): the price kernel (``potus_price``) and the drain
+  kernel (``cohort_drain``); kernel 4 alone on dyadic and random inputs
+  (B), once (C) and in 16 dense steps (D) at I=16384 from path 1's mid-run
+  state; ``events=`` on the compact route, which launches no kernel (E);
+  the ``benchmarks/disruption.py`` k-failure scenario (F);
 * main path 2 — ``simulate(EngineSpec(engine="jax", scheduler="potus",
   device="cuda"))``, the plain scan engine (the Fig. 5 path): the fused
   schedule kernel (``potus_schedule``); and its ``scheduler="potus-loop"``
-  route, on an I=1024 fleet: the price kernel (``potus_price``).
+  route, on an I=1024 fleet: the price kernel.
 
 It checks the results and prints:
 
@@ -23,10 +29,13 @@ It checks the results and prints:
   seconds;
 * per check, the largest difference kernel vs plain version;
 * per kernel, one call's kernel, plain and bound ms at the main path's
-  shapes (and, for the slot kernel, each phase's device time);
-* per main path, its wall ms per slot, its metrics, the device busy share,
-  the top device items and (path 2) the peak device memory;
-* each comparison of the kernel route with the plain route;
+  shapes (for the slot kernel each phase's device time, for the drain
+  kernel the library call's ms);
+* per path, its wall ms per slot, its metrics, the device busy share, the
+  top device items and (path 2, phase D) the peak device memory; each
+  phase's seconds;
+* each comparison of the kernel route with the plain route or with the
+  port on the CPU;
 * one JSON line ``{"kernels": [...]}``, then, last,
   ``{"ok": true, "device": {...}}``.
 
@@ -56,7 +65,8 @@ FLEET_I, FLEET_T, FLEET_W, FLEET_V, FLEET_AGE_CAP = 16384, 128, 4, 2.0, 64
 # the potus-loop route runs max_succ argmin passes per slot (3072 at I=16384,
 # seconds per slot), so its fleet is cut to I=1024 until the loop gets a kernel
 LOOP_I = 1024
-KERNELS = ("potus_slot", "potus_schedule", "potus_price")
+KERNELS = ("potus_slot", "potus_schedule", "potus_price", "cohort_drain")
+ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 
@@ -469,7 +479,6 @@ def scan_engine(pt, card, cuda):
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import potus_price as kp
     from repro_torch.kernels import potus_schedule as ks
-    from repro_torch.kernels import potus_slot as ps
 
     # -- kernels 2 and 3 against their plain versions ----------------------------
     dyadic_scan_checks(pt, kp, ks, cuda)
@@ -504,21 +513,19 @@ def scan_engine(pt, card, cuda):
                          device="cuda")
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    for counter in (ps.launches, ks.launches, kp.launches):
-        counter.reset()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res1 = pt.simulate(spec)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3 / FLEET_T
-    n_sched, n_price, n_slot = ks.launches.n, kp.launches.n, ps.launches.n
+    n = read_counts()
+    n_sched = n["potus_schedule"]
     peak = torch.cuda.max_memory_allocated()
-    print(f"main path 2: engine=jax potus I={FLEET_I} T={FLEET_T} launches: potus_schedule="
-          f"{n_sched} potus_price={n_price} potus_slot={n_slot}; peak device memory "
-          f"{peak} bytes ({peak / 2**30:.3f} GiB, of which {held} bytes were held before "
-          "the run)")
-    check(n_sched == FLEET_T, f"schedule kernel launches {n_sched} != T={FLEET_T}")
-    check(n_price == 0 and n_slot == 0, "main path 2 launched the price or the slot kernel")
+    print(f"main path 2: engine=jax potus I={FLEET_I} T={FLEET_T} launches: " + " ".join(
+        f"{k}={v}" for k, v in n.items()) + f"; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB, of which {held} bytes were held before the run)")
+    check(n == dict(ZERO_COUNTS, potus_schedule=FLEET_T), f"main path 2 launches {n}")
     res2 = pt.simulate(spec)
     same = all(np.array_equal(getattr(res1, f), getattr(res2, f)) for f in SERIES) and all(
         np.array_equal(getattr(res1.final_state, f), getattr(res2.final_state, f))
@@ -551,33 +558,24 @@ def scan_engine(pt, card, cuda):
     loop_spec = pt.EngineSpec(topo=loop_sys[0], net=loop_sys[1], placement=loop_sys[2],
                               arrivals=loop_sys[3], T=FLEET_T, engine="jax",
                               scheduler="potus-loop", V=FLEET_V, window=FLEET_W, device="cuda")
-    for counter in (ps.launches, ks.launches, kp.launches):
-        counter.reset()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loop_res = pt.simulate(loop_spec)
     torch.cuda.synchronize()
     loop_ms = (time.perf_counter() - t0) * 1e3 / FLEET_T
-    n_loop_price, n_loop_sched = kp.launches.n, ks.launches.n
-    print(f"potus-loop route: engine=jax I={LOOP_I} T={FLEET_T} launches: potus_price="
-          f"{n_loop_price} potus_schedule={n_loop_sched}; {loop_ms:.3f} ms/slot [{card}]")
-    check(n_loop_price == FLEET_T, f"price kernel launches {n_loop_price} != T={FLEET_T}")
-    check(n_loop_sched == 0, "the potus-loop route launched the schedule kernel")
+    n = read_counts()
+    n_loop_price = n["potus_price"]
+    print(f"potus-loop route: engine=jax I={LOOP_I} T={FLEET_T} launches: " + " ".join(
+        f"{k}={v}" for k, v in n.items()) + f"; {loop_ms:.3f} ms/slot [{card}]")
+    check(n == dict(ZERO_COUNTS, potus_price=FLEET_T), f"potus-loop route launches {n}")
     loop_cfg = pt.SimConfig(V=FLEET_V, window=FLEET_W, scheduler="potus-loop")
     compare_scan_routes(f"fleet I={LOOP_I}", psim, kops.plain, loop_sys, FLEET_T, loop_cfg,
                         cuda, kernel=loop_res)
     compare_scan_routes("paper", psim, kops.plain, paper_system(pt, 300), 300,
                         pt.SimConfig(V=2.0, window=2, scheduler="potus-loop"), cuda)
-    # 16 instances (a src and three serve per chain) restart 3 slots apart, 8 slots each:
-    # restarts run from slot 8 to slot 61 of 64
-    restart = [int(i) for c in range(topo.n_components) if c % 3 < 2
-               for i in topo.instances_of(c)[:1 if c % 3 == 0 else 3]]
-    events = pt.rolling_restart(topo, start=8, down_slots=8, stagger=3,
-                                instances=restart).compile(topo, 64)
-    check(len(restart) == 16 and (events.alive_t == 0).any(axis=1)[8:61].all(),
-          "rolling restart: the restarts do not fall inside the run")
     compare_scan_routes("fleet rolling-restart", psim, kops.plain, sys_, 64, cfg, cuda,
-                        events=events)
+                        events=fleet_restart(pt, topo, 64))
 
     entry = dict(route="cuda")
     return [
@@ -589,6 +587,455 @@ def scan_engine(pt, card, cuda):
          "replaces": "src/repro/kernels/potus_price.py:26", "launches": n_loop_price,
          **calls["potus_price"], "library_ms": None},
     ]
+
+
+# ---------------------------------------------------------------------------
+# the fused cohort engine's dense route (kernel 4) and its events route
+# ---------------------------------------------------------------------------
+
+def fleet_restart(pt, topo, T):
+    """16 instances (a src and three serve per chain) restart 3 slots apart, 8
+    slots each: the restarts run from slot 8 to slot 61 of a T=64 run."""
+    restart = [int(i) for c in range(topo.n_components) if c % 3 < 2
+               for i in topo.instances_of(c)[:1 if c % 3 == 0 else 3]]
+    events = pt.rolling_restart(topo, start=8, down_slots=8, stagger=3,
+                                instances=restart).compile(topo, T)
+    check(len(restart) == 16 and (events.alive_t == 0).any(axis=1)[8:61].all(),
+          "rolling restart: the restarts do not fall inside the run")
+    return events
+
+
+def drain_problem(seed, I, C, Atot, dyadic, cuda):
+    """Kernel 4's inputs from numpy: the uniform draw of
+    tests/test_cohort_fused.py:407-411, or a dyadic one (integer src and
+    ship, ratio in {0, 1/4, 1/2, 1}); components at random."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    comp = rng.integers(0, C, I).astype(np.int32)
+    if dyadic:
+        src = (rng.integers(0, 5, (I, C, Atot + 1))
+               * (rng.random((I, C, Atot + 1)) < 0.5)).astype(np.float32)
+        ship = rng.integers(0, 12, (I, C)).astype(np.float32)
+        ratio = rng.choice(np.array([0.0, 0.25, 0.5, 1.0], np.float32), (I, I))
+    else:
+        src = (rng.uniform(0, 4, (I, C, Atot + 1))
+               * (rng.random((I, C, Atot + 1)) < 0.4)).astype(np.float32)
+        ship = rng.uniform(0, 10, (I, C)).astype(np.float32)
+        ratio = (rng.uniform(0, 1, (I, I)) * (rng.random((I, I)) < 0.3)).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=cuda) for x in (src, ship, ratio, comp))
+
+
+def exact_inputs(src, ship, ratio) -> bool:
+    """Inputs on which every product and partial sum of kernel 4 is exact:
+    integral masses and split ratios that are multiples of 1/64."""
+    import torch
+
+    return all(torch.equal(x, torch.round(x)) for x in (src * 64, ship * 64, ratio * 64))
+
+
+def check_drain(kd, args, age_bucket, label):
+    """Kernel 4 against its plain version on one input: bitwise where the
+    inputs are exact, else rtol/atol 1e-5; returns (max_abs_err, bitwise)."""
+    import torch
+
+    k = kd.cohort_drain_call(*args, age_bucket)
+    p = kd.cohort_drain_split_plain(*args, age_bucket)
+    k2 = kd.cohort_drain_call(*args, age_bucket)
+    torch.cuda.synchronize()
+    err = float((k.double() - p.double()).abs().max()) if k.numel() else 0.0
+    check(torch.equal(k, k2), f"{label}: two kernel runs differ")
+    if exact_inputs(*args[:3]):
+        check(torch.equal(k, p), f"{label}: kernel differs from the plain version on exact "
+              f"inputs (max_abs_err {err:.3e})")
+    else:
+        check(torch.allclose(k, p, rtol=1e-5, atol=1e-5),
+              f"{label}: kernel beyond rtol/atol 1e-5 (max_abs_err {err:.3e})")
+    return err, torch.equal(k, p)
+
+
+def drain_checks(pt, cuda):
+    """Kernel 4 against its plain version: on the random and dyadic draws of
+    tests/test_torch_cohort_drain.py, and on every slot's inputs of a dyadic
+    run of the dense route (which itself takes the plain route)."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import cohort_fused as cf
+    from repro_torch.kernels import cohort_drain as kd
+    from repro_torch.kernels import ops as kops
+
+    for shape in ((24, 5, 13, 8), (40, 3, 21, 16), (64, 7, 9, 0), (300, 12, 69, 64)):
+        I, C, Atot, ab = shape
+        for dyadic in (False, True):
+            err, same = check_drain(kd, drain_problem(0, I, C, Atot, dyadic, cuda), ab,
+                                    f"drain {shape} dyadic={dyadic}")
+            print(f"drain (I, C, Atot, age_bucket)={shape} {'dyadic' if dyadic else 'uniform'}: "
+                  f"max_abs_err={err:.3e} bitwise={same}")
+    T, W, AC = 40, 1, 16
+    topo, net, placement, arr = dyadic_system(pt, T, W)
+    seen = {"slots": 0, "exact": 0}
+
+    def both(*args):
+        err, same = check_drain(kd, args[:4], args[4], f"dyadic dense t={seen['slots']}")
+        seen["slots"] += 1
+        seen["exact"] += exact_inputs(*args[:3])
+        return kops.plain.cohort_drain_split(*args)
+
+    ops = SimpleNamespace(**vars(kops.plain))
+    ops.cohort_drain_split = both
+    cf._run_cohort_fused_impl(topo, net, placement, arr, None, T,
+                              pt.SimConfig(V=2.0, window=W, scheduler="potus-loop"),
+                              age_cap=AC, device=cuda, ops=ops)
+    check(seen["slots"] == T, "dyadic dense run: the drain ran on fewer slots than T")
+    print(f"dyadic dense route T={T}: drain kernel vs plain on every slot, {seen['exact']} of "
+          f"{T} slots with exact inputs checked bitwise, the rest within 1e-5")
+
+
+def drain_bound(args, age_bucket):
+    """Bytes (each input read once, land written once) and operations (the
+    drain, ~5 per bucket, and 2 * Atot per nonzero ratio entry of this
+    input) of one kernel-4 call; also the dense own-plane count 2 * I^2 * Atot."""
+    src, ship, ratio, comp = args
+    I, C, Aext = src.shape
+    Atot = Aext - 1
+    nbytes = sum(x.numel() * x.element_size() for x in args) + 4 * I * Atot
+    nnz = int((ratio != 0).sum())
+    nops = 5 * src.numel() + 2 * Atot * nnz
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, nops / PEAK_F32_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            nops, nnz, 2 * I * I * Atot / PEAK_F32_S * 1e3)
+
+
+def compare_cohort(label, cf, pt, sys_, T, cfg, cuda, against="plain", kernel=None, **kw):
+    """The card's kernel route (``kernel``: a result already run, else run
+    here) against the plain route on the card (``against="plain"``) or the
+    port on the CPU (``"cpu"``): per-slot backlog and cost within rtol 1e-4
+    over the first 16 slots, long-run means within 2%."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+
+    topo, net, placement, arr = sys_
+    t_a = time.perf_counter()
+    a = kernel if kernel is not None else cf._run_cohort_fused_impl(
+        topo, net, placement, arr, None, T, cfg, device=cuda, **kw)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    b = (cf._run_cohort_fused_impl(topo, net, placement, arr, None, T, cfg, device=cuda,
+                                   ops=kops.plain, **kw) if against == "plain" else
+         cf._run_cohort_fused_impl(topo, net, placement, arr, None, T, cfg, device="cpu", **kw))
+    torch.cuda.synchronize()
+    t_c = time.perf_counter()
+    r16 = max(rel_diff(a.backlog[:16], b.backlog[:16]),
+              rel_diff(a.comm_cost[:16], b.comm_cost[:16]))
+    means = max(rel_diff(a.avg_backlog, b.avg_backlog), rel_diff(a.avg_cost, b.avg_cost))
+    check(np.isfinite(a.backlog).all() and np.isfinite(a.comm_cost).all()
+          and a.backlog.shape == (T,) and a.completed_mass > 0,
+          f"{label}: result not finite, of the wrong shape, or nothing completed")
+    kernel_ms = "ran above" if kernel is not None else f"{(t_b - t_a) * 1e3 / T:.3f} ms/slot"
+    print(f"{label} {cfg.scheduler} T={T}: card {kernel_ms}, {against} "
+          f"{(t_c - t_b) * 1e3 / T:.3f} ms/slot; first 16 slots rel diff {r16:.3e}, means "
+          f"{means:.3e}; avg_backlog {a.avg_backlog!r}/{b.avg_backlog!r} "
+          f"avg_response {a.avg_response!r}/{b.avg_response!r}")
+    check(r16 <= 1e-4 and means <= 0.02, f"{label} {cfg.scheduler}: card vs {against}")
+    return a, b
+
+
+def same_result(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in ("backlog", "comm_cost")) \
+        and all(getattr(a, f) == getattr(b, f) or (np.isnan(getattr(a, f))
+                                                   and np.isnan(getattr(b, f)))
+                for f in ("avg_response", "p95_response", "completed_mass", "saturated_frac"))
+
+
+def counters():
+    from repro_torch.kernels import cohort_drain as kd
+    from repro_torch.kernels import potus_price as kp
+    from repro_torch.kernels import potus_schedule as ks
+    from repro_torch.kernels import potus_slot as ps
+
+    return {"potus_slot": ps.launches, "potus_schedule": ks.launches,
+            "potus_price": kp.launches, "cohort_drain": kd.launches}
+
+
+def reset_counts():
+    for c in counters().values():
+        c.reset()
+
+
+def read_counts():
+    return {name: c.n for name, c in counters().items()}
+
+
+def recovery_slots(backlog, t0, t1) -> int:
+    """benchmarks/disruption.py:_recovery_slots: slots after recovery until
+    backlog returns within 10% of the pre-failure mean."""
+    pre = backlog[max(t0 - 20, 0):t0].mean()
+    ok = np.nonzero(backlog[t1:] <= 1.1 * pre)[0]
+    return int(ok[0]) if ok.size else int(len(backlog[t1:]))
+
+
+def dyadic_events_card_vs_cpu(pt, cf, cuda):
+    """Both routes under events on the dyadic system (tests/test_torch_cohort_events.py):
+    every sum is exact, so the card's run equals the port's run on the CPU
+    bitwise, for every scheduler, under a rolling restart and a k-failure."""
+    T, W = 120, 2
+    topo, net, placement, arr = dyadic_system(pt, T + 13, W)
+    pairs = [int(i) for i in range(topo.n_instances)
+             if topo.comp_parallelism[topo.inst_comp[i]] == 2]
+    traces = {"rolling_restart": pt.rolling_restart(topo, start=10, down_slots=6, stagger=3,
+                                                    instances=pairs).compile(topo, T),
+              "k_failures": pt.k_failures(topo, 2, start=20, duration=30,
+                                          rng=np.random.default_rng(1)).compile(topo, T)}
+    kw = dict(age_cap=32, warmup=10, drain_margin=30)
+    for sched in ("potus", "shuffle", "jsq", "potus-loop"):
+        cfg = pt.SimConfig(V=2.0, beta=0.5, window=W, scheduler=sched)
+        for name, ev in traces.items():
+            a = cf._run_cohort_fused_impl(topo, net, placement, arr, None, T, cfg,
+                                          device=cuda, events=ev, **kw)
+            b = cf._run_cohort_fused_impl(topo, net, placement, arr, None, T, cfg,
+                                          device="cpu", events=ev, **kw)
+            check(same_result(a, b) and a.completed_mass > 0,
+                  f"dyadic {sched} {name}: the card's run differs from the CPU's")
+    print("dyadic system T=120 under a rolling restart and a k-failure: card equals CPU "
+          "bitwise for potus, shuffle, jsq and potus-loop")
+
+
+def card_vs_cpu_paper(label, cf, sys_, T, cfg, cuda, **kw):
+    """The card against the port on the CPU on the paper profile. Shuffle
+    ignores queue state: per-slot backlog/cost within rtol 1e-4 over the
+    first 16 slots, means within 2%. POTUS breaks the paper system's many
+    exact price ties by the last bit of its queues, which the two devices
+    round differently (the CPU's cumsum accumulates in double), so its
+    trajectories part within a few slots (DESIGN.md §8): its first-16 rel
+    diff is printed, and its means are held to the chaos floor of
+    tests/test_cohort_fused.py::TestPotusPaperSystem (response and backlog
+    10%, cost 2%)."""
+    topo, net, placement, arr = sys_
+    a = cf._run_cohort_fused_impl(topo, net, placement, arr, None, T, cfg, device=cuda, **kw)
+    b = cf._run_cohort_fused_impl(topo, net, placement, arr, None, T, cfg, device="cpu", **kw)
+    r16 = max(rel_diff(a.backlog[:16], b.backlog[:16]),
+              rel_diff(a.comm_cost[:16], b.comm_cost[:16]))
+    means = {f: rel_diff(getattr(a, f), getattr(b, f))
+             for f in ("avg_backlog", "avg_cost", "avg_response")}
+    print(f"{label} {cfg.scheduler} T={T}: card vs CPU first 16 slots rel diff {r16:.3e}, means "
+          + ", ".join(f"{f} {v:.3e}" for f, v in means.items()))
+    check(np.isfinite(a.backlog).all() and a.completed_mass > 0, f"{label}: not finite")
+    if cfg.scheduler == "shuffle":
+        check(r16 <= 1e-4 and max(means.values()) <= 0.02, f"{label} shuffle: card vs CPU")
+    else:
+        check(means["avg_response"] <= 0.10 and means["avg_backlog"] <= 0.10
+              and means["avg_cost"] <= 0.02, f"{label} {cfg.scheduler}: beyond the chaos floor")
+    return a
+
+
+def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
+    """Phases A-F: the dense potus-loop route end to end (A), kernel 4 on
+    dyadic and random inputs (B), one kernel-4 call (C) and 16 dense steps (D)
+    at I=16384 from path 1's mid-run state, events on the compact route at
+    I=16384 (E), and the benchmarks/disruption.py scenario (F). Returns
+    kernel 4's entry of the kernels line."""
+    import torch
+
+    from repro_torch.core import cohort_fused as cf
+    from repro_torch.core import potus as pp
+    from repro_torch.kernels import cohort_drain as kd
+    from repro_torch.kernels import ops as kops
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: plain products would round")
+
+    # -- A. the dense potus-loop route end to end, I=1024 -----------------------
+    t_phase = time.perf_counter()
+    loop_sys = fleet_system(pt, LOOP_I, FLEET_T)
+    spec = pt.EngineSpec(topo=loop_sys[0], net=loop_sys[1], placement=loop_sys[2],
+                         arrivals=loop_sys[3], T=FLEET_T, scheduler="potus-loop", V=FLEET_V,
+                         window=FLEET_W, age_cap=FLEET_AGE_CAP, device="cuda")
+    reset_counts()
+    runs, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(pt.simulate(spec))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / FLEET_T)
+        if len(runs) == 1:
+            n = read_counts()
+    res1, res2 = runs
+    print(f"route A: cohort-fused potus-loop I={LOOP_I} T={FLEET_T} launches: " + " ".join(
+        f"{k}={v}" for k, v in n.items()) + f" [{card}]")
+    check(n == dict(ZERO_COUNTS, potus_price=FLEET_T, cohort_drain=FLEET_T),
+          f"route A launches {n}")
+    a_launches = n["cohort_drain"]
+    same = same_result(res1, res2)
+    print(f"  two runs bitwise identical: {same}")
+    check(same, "route A: two runs differ")
+    print(f"  wall ms/slot of the two runs: {walls[0]:.4f}, {walls[1]:.4f}; "
+          f"avg_backlog={res1.avg_backlog!r} avg_cost={res1.avg_cost!r} "
+          f"avg_response={res1.avg_response!r} completed_mass={res1.completed_mass!r} [{card}]")
+    # ~2000 launches per slot: profile 8 slots, or reading the trace takes minutes
+    print("  profiled: the first 8 slots")
+    profile_run(lambda: pt.simulate(dataclasses.replace(spec, T=8)))
+    cfg = pt.SimConfig(V=FLEET_V, window=FLEET_W, scheduler="potus-loop")
+    compare_cohort(f"route A fleet I={LOOP_I}", cf, pt, loop_sys, FLEET_T, cfg, cuda,
+                   kernel=res1, age_cap=FLEET_AGE_CAP)
+    compare_cohort("route A paper", cf, pt, paper_system(pt, 300), 300,
+                   pt.SimConfig(V=2.0, window=2, scheduler="potus-loop"), cuda, age_cap=64)
+    print(f"  phase A {time.perf_counter() - t_phase:.1f} s")
+
+    # -- B. kernel 4 against its plain version on dyadic and random inputs --------
+    t_phase = time.perf_counter()
+    drain_checks(pt, cuda)
+    print(f"  phase B {time.perf_counter() - t_phase:.1f} s")
+
+    # -- C. one kernel-4 call at I=16384 from path 1's mid-run state ---------------
+    t_phase = time.perf_counter()
+    topo, net, placement, _ = fleet
+    dense = pp.make_problem(topo, net, placement, cuda)
+    edges = cf._compact(topo).edges
+    u_pair = pp._u_pair(consts.U, dense.inst_container)
+    act, pred, nxt = streams
+
+    def step(ops, state, t, drain_split=None):
+        sched = partial(pp._schedule_with, ops, method="sort")  # kernel 2 on the kernel route
+        return cf._fused_step(consts, dense, sched, edges, u_pair, FLEET_V, 1.0, FLEET_AGE_CAP,
+                              state, (act[t], pred[t], nxt[t], t),
+                              drain_split=drain_split or ops.cohort_drain_split)
+
+    captured = []
+
+    def capture(*args):
+        captured.append(args)
+        return kops.plain.cohort_drain_split(*args)
+
+    step(kops, mid, 64, drain_split=capture)
+    args, age_bucket = captured[0][:4], captured[0][4]
+    k = kd.cohort_drain_call(*args, age_bucket)
+    p = kd.cohort_drain_split_plain(*args, age_bucket)
+    torch.cuda.synchronize()
+    err = float((k.double() - p.double()).abs().max())
+    check(torch.allclose(k, p, rtol=1e-5, atol=1e-5),
+          f"one cohort_drain call at I={FLEET_I}: beyond rtol/atol 1e-5 (max_abs_err {err:.3e})")
+    check(float(p.sum()) > 0, f"one cohort_drain call at I={FLEET_I}: nothing landed")
+    del k, p
+    ms = time_calls(lambda: kd.cohort_drain_call(*args, age_bucket), 20)
+    plain_ms = time_calls(lambda: kd.cohort_drain_split_plain(*args, age_bucket), 5)
+    src, ship, ratio, comp = args
+    I, C, Aext = src.shape
+    drained = pt.drain_ages(src, ship)
+    land_src = drained[:, :, :Aext - 1].clone()
+    land_src[:, :, age_bucket] += drained[:, :, -1]
+    lhs, rhs = ratio.T, land_src.reshape(I, C * (Aext - 1))
+    library_ms = time_calls(lambda: torch.matmul(lhs, rhs), 5)
+    del drained, land_src, rhs
+    bound_ms, bound_by, nbytes, nops, nnz, dense_ms = drain_bound(args, age_bucket)
+    print(f"one cohort_drain call at I={FLEET_I} (path 1's state at t=64, X from the sort "
+          f"scheduler): max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library (the all-plane f32 matmul) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {nbytes} bytes, {nops} ops, {nnz} nonzero ratios of {I * I}); dense "
+          f"own-plane work 2*I^2*Atot would take {dense_ms:.4f} ms [{card}]")
+    del captured, args, src, ship, ratio, comp, lhs
+    print(f"  phase C {time.perf_counter() - t_phase:.1f} s")
+
+    # -- D. 16 dense steps at I=16384, kernel route against plain route ------------
+    t_phase = time.perf_counter()
+
+    def dense_run(ops):
+        state, mets = mid, []
+        for t in range(64, 80):
+            state, m = step(ops, state, t)
+            mets.append(torch.stack(m))
+        return torch.stack(mets).cpu().numpy()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mk = dense_run(kops)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 16
+    n = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mp = dense_run(kops.plain)
+    r16 = max(rel_diff(mk[:, q], mp[:, q]) for q in (0, 1))
+    print(f"phase D: 16 dense steps at I={FLEET_I} (sort scheduler): {step_ms:.3f} ms per step, "
+          f"launches cohort_drain={n['cohort_drain']} potus_schedule={n['potus_schedule']}; "
+          f"kernel vs plain route per-slot backlog/cost rel diff {r16:.3e}; peak device memory "
+          f"{peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
+    check(n == dict(ZERO_COUNTS, potus_schedule=16, cohort_drain=16), f"phase D launches {n}")
+    check(np.isfinite(mk).all() and r16 <= 1e-4, "phase D: kernel route vs plain route")
+    profile_run(lambda: step(kops, mid, 64))
+    del dense, u_pair
+    torch.cuda.empty_cache()
+    print(f"  phase D {time.perf_counter() - t_phase:.1f} s")
+
+    # -- E. events on the compact route at I=16384 ---------------------------------
+    t_phase = time.perf_counter()
+    events = fleet_restart(pt, topo, 64)
+    ev_spec = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=fleet[3], T=64,
+                            scheduler="potus", V=FLEET_V, window=FLEET_W, age_cap=FLEET_AGE_CAP,
+                            warmup=16, drain_margin=16, events=events, device="cuda")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e1 = pt.simulate(ev_spec)
+    torch.cuda.synchronize()
+    ev_ms = (time.perf_counter() - t0) * 1e3 / 64
+    n = read_counts()
+    e2 = pt.simulate(ev_spec)
+    same = same_result(e1, e2)
+    print(f"phase E: cohort-fused potus I={FLEET_I} T=64 rolling restart of 16: {ev_ms:.3f} "
+          f"ms/slot, launches " + " ".join(f"{k}={v}" for k, v in n.items())
+          + f"; two runs bitwise identical: {same} [{card}]")
+    check(n == ZERO_COUNTS, f"phase E launched a kernel: {n}")
+    check(same, "phase E: two runs differ")
+    profile_run(lambda: pt.simulate(ev_spec))
+    compare_cohort("phase E fleet rolling-restart", cf, pt, fleet, 64,
+                   pt.SimConfig(V=FLEET_V, window=FLEET_W), cuda, against="cpu", kernel=e1,
+                   age_cap=FLEET_AGE_CAP, warmup=16, drain_margin=16, events=events)
+    dyadic_events_card_vs_cpu(pt, cf, cuda)
+    print(f"  phase E {time.perf_counter() - t_phase:.1f} s")
+
+    # -- F. the benchmarks/disruption.py scenario ----------------------------------
+    t_phase = time.perf_counter()
+    T = 300
+    sys_ = paper_system(pt, T)
+    ptopo = sys_[0]
+    t_fail, dur = T // 3, max(T // 6, 4)
+    k = max(int(0.2 * len(ptopo.bolt_instances)), 2)
+    kfail = pt.k_failures(ptopo, k=k, start=t_fail, duration=dur,
+                          rng=np.random.default_rng(11)).compile(ptopo, T)
+    kw = dict(age_cap=max(4 * dur, 48), warmup=max(t_fail - 1, 1),
+              drain_margin=T - min(t_fail + dur + 10, T - 1))
+    bench = {(r["scheduler"], r["W"]): r for r in json.loads(
+        (ROOT / "BENCH_disruption.json").read_text())["rows"] if r["section"] == "disruption"}
+    for sched in ("potus", "shuffle"):
+        for W in (0, 2, 6):
+            cfg = pt.SimConfig(V=1.0, window=W, scheduler=sched)
+            run = partial(cf._run_cohort_fused_impl, ptopo, sys_[1], sys_[2], sys_[3], None, T,
+                          cfg, device=cuda, **kw)
+            if W == 2:  # the card against the port on the CPU
+                hurt = card_vs_cpu_paper(f"phase F k{k}-failure W={W}", cf, sys_, T, cfg, cuda,
+                                         events=kfail, **kw)
+            else:
+                hurt = run(events=kfail)
+            base = run()
+            got = dict(resp_transient=float(hurt.avg_response),
+                       peak_backlog=float(hurt.backlog[t_fail:t_fail + dur + 10].max()),
+                       recovery_slots=recovery_slots(hurt.backlog, t_fail, t_fail + dur),
+                       resp_degradation=float(hurt.avg_response - base.avg_response))
+            check(all(np.isfinite(v) for v in got.values()), f"phase F {sched} W={W}: not finite")
+            ref = bench[(sched, W)]
+            print(f"  disruption {sched} W={W}: " + ", ".join(
+                f"{name} {v:.3f} (BENCH_disruption.json {ref[name]}, rel "
+                f"{rel_diff(v, ref[name]):.3f})" for name, v in got.items()) + f" [{card}]")
+    print(f"  phase F {time.perf_counter() - t_phase:.1f} s")
+
+    return {"name": "cohort_drain", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cohort_drain.cu",
+            "replaces": "src/repro/kernels/cohort_drain.py:38", "launches": a_launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def main() -> int:
@@ -690,15 +1137,17 @@ def main() -> int:
     spec = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr, T=FLEET_T,
                          scheduler="potus", V=FLEET_V, window=FLEET_W,
                          age_cap=FLEET_AGE_CAP, device="cuda")
-    ps.launches.reset()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res1 = pt.simulate(spec)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    main_launches = ps.launches.n
-    print(f"main path: potus I={FLEET_I} T={FLEET_T} launches={main_launches}")
-    check(main_launches == FLEET_T, f"launch count {main_launches} != T={FLEET_T}")
+    n = read_counts()
+    main_launches = n["potus_slot"]
+    print(f"main path: potus I={FLEET_I} T={FLEET_T} launches={main_launches} (" + " ".join(
+        f"{k}={v}" for k, v in n.items()) + ")")
+    check(n == dict(ZERO_COUNTS, potus_slot=FLEET_T), f"main path launches {n}")
     walls = [wall_ms]
     res2 = pt.simulate(spec)
     for _ in range(3):
@@ -707,10 +1156,7 @@ def main() -> int:
         pt.simulate(spec)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    same = all(np.array_equal(getattr(res1, f), getattr(res2, f))
-               for f in ("backlog", "comm_cost")) and all(
-        getattr(res1, f) == getattr(res2, f)
-        for f in ("avg_response", "p95_response", "completed_mass", "saturated_frac"))
+    same = same_result(res1, res2)
     print(f"  two runs bitwise identical: {same}")
     check(same, "main path: two runs differ")
     check(np.isfinite(res1.backlog).all() and np.isfinite(res1.comm_cost).all()
@@ -739,35 +1185,21 @@ def main() -> int:
     else:
         print("  device busy share: not measured (the profiler saw no device time)")
 
-    def compare_route(label, topo_, net_, pl_, arr_, T_, sched, V, W, age_cap):
-        cfg = pt.SimConfig(V=V, window=W, scheduler=sched)
-        kw_ = dict(age_cap=age_cap, device=cuda)
-        t_a = time.perf_counter()
-        a = cf._run_cohort_fused_impl(topo_, net_, pl_, arr_, None, T_, cfg, **kw_)
-        torch.cuda.synchronize()
-        t_b = time.perf_counter()
-        b = cf._run_cohort_fused_impl(topo_, net_, pl_, arr_, None, T_, cfg,
-                                      step=ps.potus_slot_step_plain, **kw_)
-        torch.cuda.synchronize()
-        t_c = time.perf_counter()
-        r16 = max(rel_diff(a.backlog[:16], b.backlog[:16]),
-                  rel_diff(a.comm_cost[:16], b.comm_cost[:16]))
-        means = max(rel_diff(a.avg_backlog, b.avg_backlog), rel_diff(a.avg_cost, b.avg_cost))
-        print(f"{label} {sched} T={T_}: kernel {(t_b - t_a) * 1e3 / T_:.3f} ms/slot, plain "
-              f"{(t_c - t_b) * 1e3 / T_:.3f} ms/slot; first 16 slots rel diff {r16:.3e}, "
-              f"means {means:.3e}; avg_backlog {a.avg_backlog!r}/{b.avg_backlog!r} "
-              f"avg_response {a.avg_response!r}/{b.avg_response!r}")
-        check(r16 <= 1e-4 and means <= 0.02, f"{label} {sched}: kernel route vs plain route")
-
     for sched in ("potus", "shuffle", "jsq"):
-        compare_route("fleet", topo, net, placement, arr, FLEET_T, sched, FLEET_V, FLEET_W,
-                      FLEET_AGE_CAP)
-    compare_route("paper", *paper_system(pt, 300), 300, "potus", 2.0, 2, 64)
+        compare_cohort("fleet", cf, pt, (topo, net, placement, arr), FLEET_T,
+                       pt.SimConfig(V=FLEET_V, window=FLEET_W, scheduler=sched), cuda,
+                       age_cap=FLEET_AGE_CAP)
+    compare_cohort("paper", cf, pt, paper_system(pt, 300), 300,
+                   pt.SimConfig(V=2.0, window=2, scheduler="potus"), cuda, age_cap=64)
 
-    # -- 4. the plain scan engine: kernels 2 and 3, main path 2 --------------------
+    # -- 4. the fused cohort engine's dense route and events route: phases A-F ------
+    drain_kernel = cohort_dense(pt, card, cuda, (topo, net, placement, arr), consts, mid,
+                                streams)
+
+    # -- 5. the plain scan engine: kernels 2 and 3, main path 2 --------------------
     scan_kernels = scan_engine(pt, card, cuda)
 
-    # -- 5. the kernels line, 6. the last line ---------------------------------
+    # -- 6. the kernels line, 7. the last line ---------------------------------
     print(json.dumps({"kernels": [{
         "name": "potus_slot", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/potus_slot.cu",
@@ -775,7 +1207,7 @@ def main() -> int:
         "launches": main_launches, "max_abs_err": one_err, "ms": ms_kernel,
         "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
-    }, *scan_kernels]}))
+    }, *scan_kernels, drain_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,9 +1,8 @@
-"""Fused cohort engine in PyTorch — response-time semantics, one slot kernel
-per slot (DESIGN.md §8).
+"""Fused cohort engine in PyTorch — response-time semantics, one step per
+slot (DESIGN.md §8).
 
-The port's counterpart of ``repro.core.cohort_fused`` for one scenario, the
-compact schedulers (``potus``, ``shuffle``, ``jsq``), no disruption trace,
-no instance mesh and no metric streams. Every FIFO is an age-by-source-slot
+The port's counterpart of ``repro.core.cohort_fused`` for one scenario, no
+instance mesh and no metric streams. Every FIFO is an age-by-source-slot
 mass matrix (see the reference module and DESIGN.md §8). State:
 
 * ``q_rem``   (I, S, W+1)  — spout lookahead windows (untreated mass);
@@ -12,18 +11,31 @@ mass matrix (see the reference module and DESIGN.md §8). State:
 * ``q_out``   (I, S, Atot) — bolt output queues, mass per age bucket;
 * ``transit`` (I, Atot)    — mass landing in input queues next slot.
 
-The reference's ``lax.scan`` over slots is a Python loop over slot-kernel
-launches (:func:`_kernel_launches`). The device decides the route of each
-launch (``kernels.ops.potus_slot_step``): on CUDA the hand-written kernel,
-on the CPU its plain version. Arrival streams stay on the host and go to
-the device one chunk at a time (``chunk=``, DESIGN.md §11), the response
-accumulators of each chunk are folded into host arrays, and the weighted
-response aggregation runs on the host (:func:`_aggregate`).
+The reference's ``lax.scan`` over slots is a Python loop, on one of three
+routes (DESIGN.md §12), as in the reference:
+
+* a compact scheduler (``potus``, ``shuffle``, ``jsq``) with no disruption
+  trace: slot-kernel launches (:func:`_kernel_launches`,
+  ``kernels.ops.potus_slot_step``);
+* a compact scheduler with a disruption trace (``events=``, DESIGN.md §9):
+  ``compact.compact_slot_step`` slot by slot, with the caps fold. The slot
+  kernel has no caps fold (nor has the reference's), so on CUDA this route
+  is the plain tensor code on the card and launches no slot kernel;
+* ``potus-loop``, the dense reference scheduler: :func:`_fused_step` slot by
+  slot, on the full (I, I) problem, with the drain and split in
+  ``kernels.ops.cohort_drain_split``.
+
+The device decides each kernel's route: on CUDA the hand-written kernel, on
+the CPU its plain version. Arrival streams and event traces stay on the
+host and go to the device one chunk at a time (``chunk=``, DESIGN.md §11),
+the response accumulators of each chunk are folded into host arrays, and
+the weighted response aggregation runs on the host (:func:`_aggregate`).
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -31,9 +43,13 @@ import torch
 
 from ..kernels import ops as kops
 from .cohort import CohortResult
-from .compact import COMPACT_SCHEDULERS, StepConsts, drain_ages, kernel_layout
+from .compact import (COMPACT_SCHEDULERS, _EPS, StepConsts, _check_columns, _drain_sources, _observe,
+                      _serve_and_shift, _to_dense, compact_slot_step, drain_ages, kernel_layout)
+from .engine import resolve_device
 from .network import NetworkCosts
-from .simulator import SimConfig, materialize_arrivals, pad_arrivals
+from .potus import _schedule_with, _u_pair, caps_for_slot, make_problem
+from .simulator import (_POTUS_METHODS, SimConfig, host_trace, materialize_arrivals,
+                        pad_arrivals)
 from .topology import Topology
 
 __all__ = ["drain_ages", "AgeCapSaturationWarning"]
@@ -92,9 +108,12 @@ def _compact_prob(topo: Topology, inst_container, device) -> _CompactProb:
 @dataclasses.dataclass(frozen=True)
 class _Compact:
     """Static successor-compact structure of one topology (see the reference
-    module); instance ranges are contiguous by construction."""
+    module); instance ranges are contiguous by construction. ``edges`` has
+    one entry per DAG edge: the source instance range, the successor's slot
+    in the source's successor list, and the target instance range."""
 
     S: int  # max successors of any component (>= 1)
+    edges: tuple  # ((row_start, row_end, slot, col_start, col_end), ...)
     succ_map: np.ndarray  # (I, S) int32 successor comp per slot; C = no edge
     valid: np.ndarray  # (I, S) f32 — 1 where the slot is a real successor
     sel_cmp: np.ndarray  # (I, S) f32 — selectivity toward each successor
@@ -110,6 +129,7 @@ def _compact(topo: Topology) -> _Compact:
     valid = np.zeros((I, S), np.float32)
     sel_cmp = np.zeros((I, S), np.float32)
     adj_rows = np.zeros((I, C), np.float32)
+    edges = []
     for c in range(C):
         rows = topo.instances_of(c)
         if len(rows) == 0:
@@ -121,24 +141,26 @@ def _compact(topo: Topology) -> _Compact:
             )
         rs, re = int(rows[0]), int(rows[-1]) + 1
         for s, c2 in enumerate(topo.successors_of_comp(c)):
+            cols = topo.instances_of(int(c2))
+            edges.append((rs, re, s, int(cols[0]), int(cols[-1]) + 1))
             succ_map[rs:re, s] = c2
             valid[rs:re, s] = 1.0
             sel_cmp[rs:re, s] = topo.selectivity[c, c2]
             adj_rows[rs:re, c2] = 1.0
     stream_cmp = valid * is_spout[:, None].astype(np.float32)
-    return _Compact(S, succ_map, valid, sel_cmp, stream_cmp, adj_rows)
+    return _Compact(S, tuple(edges), succ_map, valid, sel_cmp, stream_cmp, adj_rows)
 
 
 # ---------------------------------------------------------------------------
-# slot-kernel launches
+# the three routes of a chunk
 # ---------------------------------------------------------------------------
 
 def _kernel_launches(consts, state, actual, pred, nxt, scheduler, age_cap,
                      slots_per_launch, step=kops.potus_slot_step):
     """Drive one chunk through the slot kernel: launches of ``K =
     slots_per_launch`` slots plus one ragged tail (DESIGN.md §12). ``step``
-    is the launch function; the engine always passes the device-routed
-    wrapper, a comparison may pass the plain version."""
+    is the launch function: the device-routed wrapper, or the plain version
+    to compare against."""
     T = actual.shape[0]
     K = max(1, slots_per_launch)
     mets = []
@@ -149,6 +171,77 @@ def _kernel_launches(consts, state, actual, pred, nxt, scheduler, age_cap,
         mets.append(m)
     backlog, cost, capped, served = (torch.cat([m[q] for m in mets]) for q in range(4))
     return state, (backlog, cost, capped.sum(), served.sum())
+
+
+def _slot_loop(step, state, actual, pred, nxt, ev):
+    """Drive one chunk one ``step(state, xs)`` per slot; ``ev`` is the chunk's
+    ``(mu_t, gamma_t, alive_t)`` rows or None. The per-slot metrics stay on
+    the device until the chunk ends."""
+    T = actual.shape[0]
+    mets = torch.empty((4, T), dtype=actual.dtype, device=actual.device)
+    for k in range(T):
+        xs = (actual[k], pred[k], nxt[k], k)
+        if ev is not None:
+            xs = xs + (tuple(e[k] for e in ev),)
+        state, m = step(state, xs)
+        mets[:, k] = torch.stack(m)
+    return state, (mets[0], mets[1], mets[2].sum(), mets[3].sum())
+
+
+def _drain_split_inputs(c: StepConsts, X, src_ext, shipped):
+    """The drain kernel's inputs, component-dense: ``src_dense`` (I, C,
+    Atot+1) and ``ship_dense`` (I, C), scattered through ``succ_map`` with
+    the sentinel column dropped, the split fractions ``ratio = X /
+    ship_dense[i, comp(j)]`` (0 where nothing ships) and ``inst_comp``."""
+    src_dense = _to_dense(c, src_ext)
+    ship_dense = _to_dense(c, shipped)
+    ship_cols = ship_dense[:, c.inst_comp.long()]  # (I, I)
+    ratio = torch.where(ship_cols > _EPS, X / torch.where(ship_cols > 0, ship_cols, 1.0), 0.0)
+    return src_dense, ship_dense, ratio, c.inst_comp
+
+
+def _fused_step(c: StepConsts, prob, sched, edges: tuple, u_pair, V: float, beta: float,
+                age_cap: int, state, xs, *, drain_split=kops.cohort_drain_split):
+    """One slot of the cohort dynamics on the dense (I, I) problem — the
+    route of ``potus-loop``, the reference scheduler (mirrors the reference's
+    ``_fused_step`` stage for stage; ``compact_slot_step`` shares stages 1,
+    2, 4 and 5).
+
+    ``prob`` is the full :class:`~repro_torch.core.potus.SchedProblem` and
+    ``sched(prob, U, q_in, q_out, must_send, V, beta, caps=...)`` returns X
+    (I, I). ``xs`` is ``(act_t, pred_t, new_pred, t)``, optionally with one
+    slot of a disruption trace ``(mu_row, gamma_row, alive_row)``: the
+    scheduler then prices dead instances out and bolts serve at the slot's
+    ``mu`` (DESIGN.md §9). ``drain_split`` is ``kernels.ops``'s drain and
+    split, the device-routed wrapper or its plain version. Returns
+    ``(state, (backlog, cost, capped_served, term_served))``.
+    """
+    act_t, pred_t, new_pred, t, *ev = xs
+    caps = caps_for_slot(*ev[0]) if ev else None
+    mu_eff = (c.mu if caps is None else caps.mu) * c.inv_service
+    q_rem, admit, q_in_tag, q_out_tag = state[:4]
+    I, S, _ = q_rem.shape
+    t = _check_columns(t, q_in_tag.shape[-1], state[5])
+
+    # -- 1. reconcile window pos-0 with actual arrivals, 2. observe, schedule --
+    q_rem, q_in_arr, q_out_arr, must_send = _observe(c, state, act_t, pred_t)
+    X = sched(prob, c.U, q_in_arr, q_out_arr, must_send, V, beta, caps=caps)
+    backlog = q_in_arr.sum() + c.beta * q_out_arr.sum()
+    cost = (X * u_pair).sum()
+
+    # -- 3. drain sources oldest-first, split over targets -------------------
+    # requested mass per successor slot: blocked column sums over DAG edges
+    shipped = torch.zeros((I, S), dtype=q_rem.dtype, device=q_rem.device)
+    for rs, re, s, cs, ce in edges:
+        shipped[rs:re, s] = X[rs:re, cs:ce].sum(dim=1)
+    q_rem, admit, q_out_tag, src_ext, _ = _drain_sources(c, q_rem, admit, q_out_tag, shipped,
+                                                         age_cap)
+    land = drain_split(*_drain_split_inputs(c, X, src_ext, shipped), age_cap)
+
+    # -- 4. serve, 5. admit and shift ------------------------------------------
+    state, capped_served, term_served = _serve_and_shift(
+        c, (q_rem, admit, q_in_tag, q_out_tag, *state[4:]), land, mu_eff, new_pred, t, age_cap)
+    return state, (backlog, cost, capped_served, term_served)
 
 
 def _step_consts(prob: _CompactProb, comp_onehot, U, mu, inv_service, sel_cmp, stream_cmp,
@@ -290,14 +383,15 @@ def _device_inputs(topo: Topology, net: NetworkCosts, cpt: _Compact, device, ser
     )
 
 
-def _run_chunked_cohort(consts: StepConsts, scheduler: str, age_cap: int, n_components: int,
-                        act: np.ndarray, pred: np.ndarray, nxt: np.ndarray, q0: np.ndarray,
-                        T: int, chunk: int | None, slots_per_launch: int, device,
-                        step=kops.potus_slot_step):
+def _run_chunked_cohort(run_chunk, age_cap: int, n_components: int, act: np.ndarray,
+                        pred: np.ndarray, nxt: np.ndarray, q0: np.ndarray, ev_host,
+                        T: int, chunk: int | None, device):
     """Run the slots ``chunk`` at a time (DESIGN.md §11).
 
-    Arrival streams stay on the host; each chunk goes to the device with the
+    Arrival streams and the event trace ``ev_host`` (a host triple of (T, I)
+    rows, or None) stay on the host; each chunk goes to the device with the
     carried queue state, so device memory is bounded by the chunk, not T.
+    ``run_chunk(states, act, pred, nxt, ev)`` runs one chunk on its route.
     Each chunk's response-accumulator slab — indexed by chunk-local source
     slot — is added into full-horizon host arrays at offset ``t0 -
     age_cap``; columns before source slot 0 are provably zero and are
@@ -329,9 +423,9 @@ def _run_chunked_cohort(consts: StepConsts, scheduler: str, age_cap: int, n_comp
         t1 = min(t0 + tc, T)
         acc = torch.zeros((n_components, t1 - t0 + Atot), **f32)
         states = carry + (acc, torch.zeros_like(acc))
-        states, (h, cost, capped, served) = _kernel_launches(
-            consts, states, to_dev(act[t0:t1]), to_dev(pred[t0:t1]), to_dev(nxt[t0:t1]),
-            scheduler, age_cap, slots_per_launch, step=step)
+        ev = None if ev_host is None else tuple(to_dev(e[t0:t1]) for e in ev_host)
+        states, (h, cost, capped, served) = run_chunk(
+            states, to_dev(act[t0:t1]), to_dev(pred[t0:t1]), to_dev(nxt[t0:t1]), ev)
         carry = tuple(states[:5])
         rm, rt = states[5].cpu().numpy(), states[6].cpu().numpy()
         g0 = t0 - age_cap  # global source slot of the slab's first column
@@ -357,11 +451,12 @@ def _run_cohort_fused_impl(
     warmup: int = 50,
     drain_margin: int | None = None,
     age_cap: int = 64,
+    events=None,  # EventTrace | None — disruption trace (core.events, DESIGN.md §9)
     service=None,  # (I,) | scalar — per-tuple service time in mu units (DESIGN.md §10)
     chunk: int | None = None,  # streaming: device slots per chunk (DESIGN.md §11)
     slots_per_launch: int = 1,  # slots per kernel launch (DESIGN.md §12)
-    device=None,  # torch.device the run uses; the facade resolves it
-    step=kops.potus_slot_step,  # launch function; see _kernel_launches
+    device="cuda",  # the card unless the caller asks for the CPU
+    ops=kops,  # the kernels' route; kernels.ops.plain compares routes on the card
 ) -> CohortResult:
     """Fused cohort engine implementation behind ``simulate(EngineSpec)``.
 
@@ -369,6 +464,11 @@ def _run_cohort_fused_impl(
     ``age_cap`` slots accumulates in the oldest bucket and reports response
     ``age_cap`` (DESIGN.md §8). A too-shallow cap shows up as
     ``CohortResult.saturated_frac > 0`` and an :class:`AgeCapSaturationWarning`.
+    Disruption runs need the cap to also cover the outage length (stranded
+    mass keeps aging while its instance is down). ``slots_per_launch``
+    concerns only the slot-kernel route (a compact scheduler without
+    ``events``). The run takes ``device="cuda"`` unless the caller asks for
+    the CPU, and raises where CUDA is asked for and absent.
     """
     if age_cap < 2:
         raise ValueError(f"age_cap must be >= 2, got {age_cap}")
@@ -376,9 +476,7 @@ def _run_cohort_fused_impl(
         raise ValueError(f"chunk must be a positive slot count, got {chunk}")
     if slots_per_launch < 1:
         raise ValueError(f"slots_per_launch must be >= 1, got {slots_per_launch}")
-    if cfg.scheduler not in COMPACT_SCHEDULERS:
-        raise ValueError(f"scheduler must be one of {COMPACT_SCHEDULERS}, got {cfg.scheduler!r}")
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     W = cfg.window
     actual = materialize_arrivals(actual, topo, T + W + 1)
     prob = _compact_prob(topo, inst_container, device)
@@ -395,9 +493,25 @@ def _run_cohort_fused_impl(
         dev["stream_cmp"], dev["valid_cmp"], dev["succ_map"], dev["term_f"], dev["adj_rows"],
         torch.tensor(cfg.V, dtype=torch.float32, device=device),
         torch.tensor(cfg.beta, dtype=torch.float32, device=device), layout)
+    ev_host = host_trace(events, T)
+    if cfg.scheduler not in COMPACT_SCHEDULERS:
+        # the dense reference route: the full problem, (I, I) edge_mask included
+        dense = make_problem(topo, net, inst_container, device)
+        step = partial(_fused_step, consts, dense,
+                       partial(_schedule_with, ops, method=_POTUS_METHODS[cfg.scheduler]),
+                       cpt.edges, _u_pair(consts.U, dense.inst_container), float(cfg.V),
+                       float(cfg.beta), age_cap, drain_split=ops.cohort_drain_split)
+        run_chunk = partial(_slot_loop, step)
+    elif ev_host is not None:
+        # the caps fold is not in the slot kernel: the compact step, slot by slot
+        run_chunk = partial(_slot_loop, partial(compact_slot_step, consts,
+                                                scheduler=cfg.scheduler, age_cap=age_cap))
+    else:
+        def run_chunk(states, act_c, pred_c, nxt_c, ev):
+            return _kernel_launches(consts, states, act_c, pred_c, nxt_c, cfg.scheduler,
+                                    age_cap, slots_per_launch, step=ops.potus_slot_step)
     resp_mass, resp_time, backlog, cost, capped, served = _run_chunked_cohort(
-        consts, cfg.scheduler, age_cap, C, act, pred, nxt, q_rem0, T, chunk,
-        slots_per_launch, device, step=step)
+        run_chunk, age_cap, C, act, pred, nxt, q_rem0, ev_host, T, chunk, device)
     weights = np.einsum("sic,ic->cs", act, mask)
     sat = capped / max(served, 1e-9)
     _maybe_warn_saturation(sat, age_cap, label=f"scheduler={cfg.scheduler} V={cfg.V} W={W}")

@@ -82,12 +82,23 @@ def _colmin_per_comp(t1: torch.Tensor, inst_comp: torch.Tensor, C: int, kernel_s
     return M, J
 
 
+def _rows_add(out: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``out[idx[k]] += src[k]`` for every k, in place. On CUDA through the
+    sort-based ``index_put_(accumulate=True)``, which sums each target's
+    terms in one fixed order (``index_add_`` there sums with atomics, in an
+    order that changes from run to run); on the CPU ``index_add_``, which
+    sums them in ascending ``k``."""
+    if out.is_cuda:
+        return out.index_put_((idx,), src, accumulate=True)
+    return out.index_add_(0, idx, src)
+
+
 def _u_col_sums(U: torch.Tensor, cp: CompactProblem) -> torch.Tensor:
     """(K, C) per-component sums of alive columns of ``U[:, k_j]``."""
     C = cp.comp_count.shape[0]
     u_cols = U[:, cp.inst_cont.long()] * cp.alive[None, :]  # (K, I)
-    out = torch.zeros((U.shape[0], C), dtype=U.dtype, device=U.device)
-    return out.index_add_(1, cp.inst_comp.long(), u_cols)
+    out = torch.zeros((C, U.shape[0]), dtype=U.dtype, device=U.device)
+    return _rows_add(out, cp.inst_comp.long(), u_cols.T).T
 
 
 def _fill_rows_sort(m, j_c, budget, gamma):
@@ -247,6 +258,104 @@ def drain_ages(buckets: torch.Tensor, amount: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.clamp_min(amount[..., None] - (cum - buckets), 0.0), buckets)
 
 
+def _to_cmp(c: StepConsts, x: torch.Tensor) -> torch.Tensor:
+    """(I, C) -> (I, S)."""
+    C = c.adj_rows.shape[1]
+    return torch.gather(x, 1, torch.clamp_max(c.succ_map.long(), C - 1)) * c.valid_cmp
+
+
+def _to_dense(c: StepConsts, x_cmp: torch.Tensor) -> torch.Tensor:
+    """(I, S, ...) -> (I, C, ...), contiguous; the C sentinel column is
+    dropped. Distinct successors have distinct columns, so no two terms meet
+    in a kept one."""
+    I, S = x_cmp.shape[:2]
+    C = c.adj_rows.shape[1]
+    idx = c.succ_map.long().reshape(I, S, *([1] * (x_cmp.dim() - 2))).expand(x_cmp.shape)
+    out = torch.zeros((I, C + 1, *x_cmp.shape[2:]), dtype=x_cmp.dtype, device=x_cmp.device)
+    return out.scatter_add_(1, idx, x_cmp)[:, :C].contiguous()
+
+
+def _observe(c: StepConsts, state, act_t, pred_t):
+    """Stage 1, the window's pos-0 reconciled with slot ``t``'s actual
+    arrivals, and the queue observation of stage 2. Returns ``(q_rem, q_in
+    (I,), q_out (I, C), must_send (I, C))``."""
+    q_rem, admit, q_in_tag, q_out_tag = state[:4]
+    spout_f = c.spout_f
+    pred_m = _to_cmp(c, pred_t) * c.stream_cmp
+    act_m = _to_cmp(c, act_t) * c.stream_cmp
+    tp = torch.minimum(pred_m, act_m)
+    tn = act_m - tp
+    r = torch.where(pred_m > 0, q_rem[:, :, 0] / torch.where(pred_m > 0, pred_m, 1.0), 0.0)
+    q_rem = torch.cat([(r * tp + tn)[:, :, None], q_rem[:, :, 1:]], dim=-1)
+    q_in_arr = q_in_tag.sum(-1)
+    q_out_cmp = torch.where(spout_f[:, None] > 0, q_rem.sum(-1), q_out_tag.sum(-1))
+    must_send = _to_dense(c, (q_rem[:, :, 0] + admit) * spout_f[:, None])
+    return q_rem, q_in_arr, _to_dense(c, q_out_cmp), must_send
+
+
+def _drain_sources(c: StepConsts, q_rem, admit, q_out_tag, shipped_cmp, age_cap: int):
+    """Stage 3's oldest-first drain of every source buffer. The unified
+    buffer ``src_ext`` (I, S, Atot+1): bolts ship from their ``q_out``
+    buckets; spouts ship the window in ascending lookahead (buckets
+    ``age_cap..age_cap+W``), then the admission backlog (a trailing slot,
+    re-tagged to age 0 when it lands). Returns the drained queues,
+    ``src_ext`` and ``drained``."""
+    I, S = admit.shape
+    Atot = q_out_tag.shape[-1]
+    dt, dev = q_rem.dtype, q_rem.device
+    spout_f = c.spout_f
+    src_spout = torch.cat([torch.zeros((I, S, age_cap), dtype=dt, device=dev), q_rem,
+                           admit[:, :, None]], dim=-1)
+    src_bolt = torch.cat([q_out_tag, torch.zeros((I, S, 1), dtype=dt, device=dev)], dim=-1)
+    src_ext = torch.where(spout_f[:, None, None] > 0, src_spout, src_bolt)
+    drained = drain_ages(src_ext, shipped_cmp)
+    q_rem = q_rem - drained[:, :, age_cap:Atot] * spout_f[:, None, None]
+    admit = admit - drained[:, :, -1] * spout_f[:, None]
+    q_out_tag = q_out_tag - drained[:, :, :Atot] * (1.0 - spout_f)[:, None, None]
+    return q_rem, admit, q_out_tag, src_ext, drained
+
+
+def _serve_and_shift(c: StepConsts, state, land, mu_eff, new_pred, t: int, age_cap: int):
+    """Stages 4 and 5: last slot's transit lands, bolts serve up to
+    ``mu_eff``, terminal completions enter the response accumulators at
+    columns ``[t, t + Atot)``, emissions join the output queues, leftover
+    actuals join the admission backlog, and windows and age axes shift.
+    Returns ``(state, capped_served, term_served)``."""
+    q_rem, admit, q_in_tag, q_out_tag, transit, resp_mass, resp_time = state
+    Atot = q_in_tag.shape[-1]
+    dt, dev = q_rem.dtype, q_rem.device
+    spout_f = c.spout_f
+    bolt_f = 1.0 - spout_f
+    avail = q_in_tag + transit
+    served_amt = torch.minimum(avail.sum(-1), mu_eff) * bolt_f
+    served_b = drain_ages(avail, served_amt)
+    q_in_tag = (avail - served_b) * bolt_f[:, None]
+    cmass = c.comp_onehot.T @ (served_b * c.term_f[:, None])  # (C, Atot)
+    resp_per_b = torch.clamp_min(age_cap - torch.arange(Atot, dtype=dt, device=dev), 0.0)
+    cols = torch.arange(t, t + Atot, device=dev)
+    resp_mass = resp_mass.index_add(1, cols, cmass)
+    resp_time = resp_time.index_add(1, cols, cmass * resp_per_b[None, :])
+    q_out_tag = q_out_tag + served_b[:, None, :] * c.sel_cmp[:, :, None] * bolt_f[:, None, None]
+    admit = admit + q_rem[:, :, 0] * spout_f[:, None]
+    q_rem = torch.cat([q_rem[:, :, 1:], (_to_cmp(c, new_pred) * c.stream_cmp)[:, :, None]],
+                      dim=-1)
+
+    def shift(x):  # age b+1 -> b; the oldest bucket saturates (A-cap rule)
+        head = x[..., 0:1] + x[..., 1:2]
+        return torch.cat([head, x[..., 2:], torch.zeros_like(x[..., 0:1])], dim=-1)
+
+    state = (q_rem, admit, shift(q_in_tag), shift(q_out_tag), shift(land), resp_mass, resp_time)
+    return state, cmass[:, 0].sum(), cmass.sum()
+
+
+def _check_columns(t: int, Atot: int, resp_mass) -> int:
+    t = int(t)
+    if t < 0 or t + Atot > resp_mass.shape[-1]:
+        raise ValueError(f"accumulator columns [{t}, {t + Atot}) outside "
+                         f"[0, {resp_mass.shape[-1]})")
+    return t
+
+
 def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
                       kernel_safe: bool = False):
     """One slot of the cohort dynamics (stages 1-5 of DESIGN.md §8) with the
@@ -255,101 +364,67 @@ def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
     ``state`` is ``(q_rem, admit, q_in, q_out, transit, resp_mass,
     resp_time)`` and ``xs`` is ``(act_t, pred_t, new_pred, t)`` with ``t``
     the chunk-local slot, a Python int: the response accumulators take
-    columns ``[t, t + Atot)``. Returns ``(state, (backlog, cost,
-    capped_served, term_served))``. Disruption rows are not ported yet.
+    columns ``[t, t + Atot)``. ``xs`` may carry a fifth element, one slot of
+    a disruption trace ``(mu_row, gamma_row, alive_row)`` (DESIGN.md §9):
+    the caps fold then happens here in compact form — alive counts per
+    component, the effective gamma, no mandatory dispatch from dead rows —
+    as ``potus.apply_caps`` does on the dense problem. Returns ``(state,
+    (backlog, cost, capped_served, term_served))``.
     """
-    act_t, pred_t, new_pred, t = xs
-    q_rem, admit, q_in_tag, q_out_tag, transit, resp_mass, resp_time = state
-    I, S, W1 = q_rem.shape
+    act_t, pred_t, new_pred, t, *ev = xs
+    q_rem, admit, q_in_tag, q_out_tag = state[:4]
+    I = q_rem.shape[0]
     C = c.adj_rows.shape[1]
     Atot = q_in_tag.shape[-1]
-    t = int(t)
-    if t < 0 or t + Atot > resp_mass.shape[-1]:
-        raise ValueError(f"accumulator columns [{t}, {t + Atot}) outside "
-                         f"[0, {resp_mass.shape[-1]})")
-    spout_f = c.spout_f
-    bolt_f = 1.0 - spout_f
+    t = _check_columns(t, Atot, state[5])
     dt, dev = q_rem.dtype, q_rem.device
-    succ = c.succ_map.long()
     comp = c.inst_comp.long()
 
-    def to_cmp(x):  # (I, C) -> (I, S)
-        return torch.gather(x, 1, torch.clamp_max(succ, C - 1)) * c.valid_cmp
-
-    def to_dense(x_cmp):  # (I, S) -> (I, C); the C sentinel column is dropped
-        return torch.zeros((I, C + 1), dtype=dt, device=dev).scatter_add_(1, succ, x_cmp)[:, :C]
-
-    # -- 1. reconcile window pos-0 with actual arrivals of slot t ------------
-    pred_m = to_cmp(pred_t) * c.stream_cmp
-    act_m = to_cmp(act_t) * c.stream_cmp
-    tp = torch.minimum(pred_m, act_m)
-    tn = act_m - tp
-    r = torch.where(pred_m > 0, q_rem[:, :, 0] / torch.where(pred_m > 0, pred_m, 1.0), 0.0)
-    q_rem = torch.cat([(r * tp + tn)[:, :, None], q_rem[:, :, 1:]], dim=-1)
-
-    # -- 2. observe queue state, schedule (compact decision) -----------------
-    q_in_arr = q_in_tag.sum(-1)
-    q_out_cmp = torch.where(spout_f[:, None] > 0, q_rem.sum(-1), q_out_tag.sum(-1))
-    q_out_arr = to_dense(q_out_cmp)
-    must_send = to_dense((q_rem[:, :, 0] + admit) * spout_f[:, None])
-    mu_eff = c.mu * c.inv_service
-    cp = CompactProblem(c.inst_comp, c.inst_cont, c.gamma, c.comp_count, c.adj_rows,
-                        torch.ones((I,), dtype=dt, device=dev))
+    # -- 1. reconcile window pos-0 with actual arrivals, 2. observe, schedule --
+    q_rem, q_in_arr, q_out_arr, must_send = _observe(c, state, act_t, pred_t)
+    if ev:
+        mu_row, gamma_row, alive_row = ev[0]
+        mu_eff = mu_row * c.inv_service
+        if kernel_safe:
+            comp_count = (alive_row[None, :] @ c.comp_onehot)[0]
+        else:
+            comp_count = torch.zeros((C,), dtype=dt, device=dev).index_add_(0, comp, alive_row)
+        cp = CompactProblem(c.inst_comp, c.inst_cont, gamma_row, comp_count, c.adj_rows,
+                            alive_row)
+        must_send = must_send * alive_row[:, None]
+    else:
+        mu_eff = c.mu * c.inv_service
+        cp = CompactProblem(c.inst_comp, c.inst_cont, c.gamma, c.comp_count, c.adj_rows,
+                            torch.ones((I,), dtype=dt, device=dev))
     dec = compact_decide(scheduler, cp, c.U, q_in_arr, q_out_arr, must_send, c.V, c.beta,
                          kernel_safe)
     backlog = q_in_arr.sum() + c.beta * q_out_arr.sum()
 
     # -- 3. drain sources oldest-first, split over targets -------------------
-    shipped_cmp = to_cmp(dec.shipped)
-    src_spout = torch.cat([torch.zeros((I, S, age_cap), dtype=dt, device=dev), q_rem,
-                           admit[:, :, None]], dim=-1)
-    src_bolt = torch.cat([q_out_tag, torch.zeros((I, S, 1), dtype=dt, device=dev)], dim=-1)
-    src_ext = torch.where(spout_f[:, None, None] > 0, src_spout, src_bolt)  # (I, S, Atot+1)
-    drained = drain_ages(src_ext, shipped_cmp)
-    q_rem = q_rem - drained[:, :, age_cap:Atot] * spout_f[:, None, None]
-    admit = admit - drained[:, :, -1] * spout_f[:, None]
-    q_out_tag = q_out_tag - drained[:, :, :Atot] * bolt_f[:, None, None]
-
+    q_rem, admit, q_out_tag, _, drained = _drain_sources(
+        c, q_rem, admit, q_out_tag, _to_cmp(c, dec.shipped), age_cap)
     # landing: the admission slot re-tags to age 0 (bucket age_cap) on landing
     d_land = torch.cat([
         drained[:, :, :age_cap],
         drained[:, :, age_cap:age_cap + 1] + drained[:, :, -1:],
         drained[:, :, age_cap + 1:Atot]], dim=-1)  # (I, S, Atot)
-    d_dense = torch.zeros((I, C + 1, Atot), dtype=dt, device=dev).scatter_add_(
-        1, succ[:, :, None].expand(I, S, Atot), d_land)[:, :C]  # (I, C, Atot)
+    d_dense = _to_dense(c, d_land)  # (I, C, Atot)
     sh_safe = torch.where(dec.shipped > 0, dec.shipped, 1.0)
     live = dec.shipped > _EPS
     w_pt = torch.where(live, dec.point / sh_safe, 0.0)
     w_ev = torch.where(live, dec.even_per / sh_safe, 0.0)
-    wd = (w_pt[:, :, None] * d_dense).reshape(I * C, Atot)
-    land = torch.zeros((I + 1, Atot), dtype=dt, device=dev).index_add_(
-        0, dec.j_point.reshape(I * C), wd)[:I]
+    # point landing: only the (source, component) pairs that aim mass at an
+    # instance take part (the others add +0, and on CUDA would all queue on
+    # the sentinel row I of the sort-based accumulation)
+    aimed = torch.nonzero((w_pt > 0).reshape(I * C))[:, 0]
+    wd = (w_pt[:, :, None] * d_dense).reshape(I * C, Atot)[aimed]
+    land = _rows_add(torch.zeros((I + 1, Atot), dtype=dt, device=dev),
+                     dec.j_point.reshape(I * C)[aimed], wd)[:I]
     # even spread: per-component sum, then broadcast to alive instances
     ev_cb = torch.einsum("ic,icb->cb", w_ev, d_dense)  # (C, Atot)
     land = land + cp.alive[:, None] * ev_cb[comp]
 
-    # -- 4. land last slot's transit, serve bolts ----------------------------
-    avail = q_in_tag + transit
-    served_amt = torch.minimum(avail.sum(-1), mu_eff) * bolt_f
-    served_b = drain_ages(avail, served_amt)
-    q_in_tag = (avail - served_b) * bolt_f[:, None]
-    cmass = torch.zeros((C, Atot), dtype=dt, device=dev).index_add_(
-        0, comp, served_b * c.term_f[:, None])  # (C, Atot)
-    resp_per_b = torch.clamp_min(age_cap - torch.arange(Atot, dtype=dt, device=dev), 0.0)
-    cols = torch.arange(t, t + Atot, device=dev)
-    resp_mass = resp_mass.index_add(1, cols, cmass)
-    resp_time = resp_time.index_add(1, cols, cmass * resp_per_b[None, :])
-    capped_served = cmass[:, 0].sum()
-    term_served = cmass.sum()
-    q_out_tag = q_out_tag + served_b[:, None, :] * c.sel_cmp[:, :, None] * bolt_f[:, None, None]
-
-    # -- 5. admit leftover actuals, shift windows and age axes ---------------
-    admit = admit + q_rem[:, :, 0] * spout_f[:, None]
-    q_rem = torch.cat([q_rem[:, :, 1:], (to_cmp(new_pred) * c.stream_cmp)[:, :, None]], dim=-1)
-
-    def shift(x):  # age b+1 -> b; the oldest bucket saturates (A-cap rule)
-        head = x[..., 0:1] + x[..., 1:2]
-        return torch.cat([head, x[..., 2:], torch.zeros_like(x[..., 0:1])], dim=-1)
-
-    state = (q_rem, admit, shift(q_in_tag), shift(q_out_tag), shift(land), resp_mass, resp_time)
+    # -- 4. serve, 5. admit and shift ------------------------------------------
+    state, capped_served, term_served = _serve_and_shift(
+        c, (q_rem, admit, q_in_tag, q_out_tag, *state[4:]), land, mu_eff, new_pred, t, age_cap)
     return state, (backlog, dec.cost, capped_served, term_served)

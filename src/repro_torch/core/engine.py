@@ -4,8 +4,8 @@
 The port's counterpart of ``repro.core.engine``. :class:`EngineSpec` has the
 reference's fields plus ``device``; :func:`simulate` validates the spec
 against the same engine×option matrix (:data:`OPTION_SUPPORT`) and runs it.
-Two engines are ported: ``engine="cohort-fused"`` (the compact route) and
-``engine="jax"`` (the plain scan engine). Every engine, option or scheduler
+Two engines are ported: ``engine="cohort-fused"`` (all four schedulers,
+``events=`` included) and ``engine="jax"`` (the plain scan engine). Every engine, option or scheduler
 that the reference supports but the port does not yet raises
 :class:`UnsupportedEngineOption` with the reason "not ported yet"; nothing
 runs something else in its place.
@@ -47,13 +47,10 @@ OPTION_SUPPORT = {
 }
 
 #: per ported engine, the options the reference supports there that the port does not yet
-NOT_PORTED_OPTIONS = {"jax": ("metrics",), "cohort-fused": ("events", "metrics", "sharded")}
+NOT_PORTED_OPTIONS = {"jax": ("metrics",), "cohort-fused": ("metrics", "sharded")}
 
-#: the reference's schedulers
+#: the reference's schedulers, all ported on both ported engines
 SCHEDULERS = ("potus", "potus-loop", "shuffle", "jsq")
-
-#: per ported engine, the schedulers the port runs there
-PORTED_SCHEDULERS = {"jax": SCHEDULERS, "cohort-fused": ("potus", "shuffle", "jsq")}
 
 #: proximity order used to name the "nearest" supporting engine
 _NEAREST = {
@@ -129,7 +126,7 @@ class EngineSpec:
     window: int = 0
     use_pallas: bool = False
     predicted: Any = None  # distinct predicted arrivals (cohort engines)
-    events: Any = None  # EventTrace (engine="jax"; not ported yet on cohort-fused)
+    events: Any = None  # EventTrace — disruption trace (DESIGN.md §9)
     mu: Any = None  # capacity override (scan engines)
     chunk: int | None = None  # streaming scan (DESIGN.md §11)
     service: Any = None  # token-length service-time axis (DESIGN.md §10)
@@ -169,10 +166,6 @@ class EngineSpec:
                 raise UnsupportedEngineOption(self.engine, option, reason="not ported yet")
         if self.scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
-        if self.scheduler not in PORTED_SCHEDULERS[self.engine]:
-            raise UnsupportedEngineOption(
-                self.engine, "scheduler", supported=("jax",),
-                reason=f"scheduler {self.scheduler!r} is not ported yet")
 
 
 def simulate(spec: EngineSpec):
@@ -193,6 +186,6 @@ def simulate(spec: EngineSpec):
     return _run_cohort_fused_impl(
         spec.topo, spec.net, spec.placement, spec.arrivals, spec.predicted,
         spec.T, spec.config(), warmup=spec.warmup, drain_margin=spec.drain_margin,
-        age_cap=spec.age_cap, service=spec.service, chunk=spec.chunk,
+        age_cap=spec.age_cap, events=spec.events, service=spec.service, chunk=spec.chunk,
         slots_per_launch=spec.slots_per_launch, device=device,
     )

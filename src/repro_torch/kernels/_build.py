@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels, and count their
+launches.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with ``nvcc``
 for ``sm_90a`` into ``build/repro_torch_kernels/`` at the repository root, at
@@ -18,7 +19,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "build", "load"]
+__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "build", "load", "LaunchCounter"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -27,6 +28,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounter:
+    """How many times a wrapper launched its kernel since the last reset."""
+
+    def __init__(self) -> None:
+        self.n = 0
+
+    def reset(self) -> None:
+        self.n = 0
+
 #: seconds each library took to build in this process (0.0 when it was reused)
 BUILD_SECONDS: dict[str, float] = {}
 

@@ -10,11 +10,13 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
+from .cohort_drain import cohort_drain_call, cohort_drain_split_plain
 from .potus_price import potus_price_call, potus_price_plain
 from .potus_schedule import potus_schedule_alloc_plain, potus_schedule_call
 from .potus_slot import potus_slot_call, potus_slot_step_plain
 
-__all__ = ["potus_slot_step", "potus_price", "potus_schedule_alloc", "plain"]
+__all__ = ["potus_slot_step", "potus_price", "potus_schedule_alloc", "cohort_drain_split",
+           "plain"]
 
 
 def potus_slot_step(consts, state, act, pred, nxt, t0, *, scheduler="potus", age_cap=64,
@@ -40,6 +42,15 @@ def potus_schedule_alloc(U, q_in, q_out, inst_container, inst_comp, edge_mask, g
     return fn(U, q_in, q_out, inst_container, inst_comp, edge_mask, gamma, V, beta)
 
 
+def cohort_drain_split(src_ext, shipped, ratio, inst_comp, age_bucket):
+    """Fused segmented drain + proportional target split of the cohort engine
+    (DESIGN.md §8); returns the landing buckets ``land`` (I, Atot)."""
+    fn = cohort_drain_split_plain if src_ext.device.type == "cpu" else cohort_drain_call
+    return fn(src_ext, shipped, ratio, inst_comp, age_bucket)
+
+
 #: the plain versions under the wrappers' names, on any device
-plain = SimpleNamespace(potus_price=potus_price_plain,
-                        potus_schedule_alloc=potus_schedule_alloc_plain)
+plain = SimpleNamespace(potus_slot_step=potus_slot_step_plain,
+                        potus_price=potus_price_plain,
+                        potus_schedule_alloc=potus_schedule_alloc_plain,
+                        cohort_drain_split=cohort_drain_split_plain)

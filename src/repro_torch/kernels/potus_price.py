@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from .potus_slot import LaunchCounter
+from ._build import LaunchCounter
 
 __all__ = ["potus_price_call", "potus_price_plain", "launches", "check_problem"]
 

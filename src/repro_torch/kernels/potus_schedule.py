@@ -29,7 +29,7 @@ import ctypes
 import torch
 
 from .potus_price import check_problem
-from .potus_slot import LaunchCounter
+from ._build import LaunchCounter
 
 __all__ = ["potus_schedule_call", "potus_schedule_alloc_plain", "launches", "MAXC"]
 

@@ -23,25 +23,19 @@ elsewhere.
 from __future__ import annotations
 
 import ctypes
+from typing import TYPE_CHECKING
 
 import torch
 
-from ..core.compact import COMPACT_SCHEDULERS, StepConsts, compact_slot_step
+from ._build import LaunchCounter
 
-__all__ = ["potus_slot_call", "potus_slot_step_plain", "launches", "LaunchCounter"]
+if TYPE_CHECKING:
+    from ..core.compact import StepConsts
+
+__all__ = ["potus_slot_call", "potus_slot_step_plain", "launches"]
 
 _SCHED_CODE = {"potus": 0, "shuffle": 1, "jsq": 2}
 _MAXC = 64  # POTUS_MAXC in the source
-
-
-class LaunchCounter:
-    """How many times a wrapper launched its kernel since the last reset."""
-
-    def __init__(self) -> None:
-        self.n = 0
-
-    def reset(self) -> None:
-        self.n = 0
 
 
 #: launches of the CUDA slot kernel (one per :func:`potus_slot_call`)
@@ -178,8 +172,8 @@ def _launch(lib, consts: StepConsts, state, act, pred, nxt, t0: int, scheduler: 
 
 
 def _check_call(consts, state, act, pred, nxt, t0, scheduler, age_cap, n_slots):
-    if scheduler not in COMPACT_SCHEDULERS:
-        raise ValueError(f"potus slot kernel: scheduler must be one of {COMPACT_SCHEDULERS}, "
+    if scheduler not in _SCHED_CODE:
+        raise ValueError(f"potus slot kernel: scheduler must be one of {tuple(_SCHED_CODE)}, "
                          f"got {scheduler!r}")
     if age_cap < 2:
         raise ValueError(f"age_cap must be >= 2, got {age_cap}")
@@ -220,6 +214,8 @@ def potus_slot_step_plain(consts: StepConsts, state, act, pred, nxt, t0: int, *,
                           scheduler: str = "potus", age_cap: int = 64, n_slots: int = 1):
     """The plain PyTorch version: ``compact_slot_step(kernel_safe=True)`` over
     ``n_slots`` slots, on any device and dtype."""
+    from ..core.compact import compact_slot_step
+
     t0 = int(t0)
     _check_call(consts, state, act, pred, nxt, t0, scheduler, age_cap, n_slots)
     mets = []

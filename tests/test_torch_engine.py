@@ -159,9 +159,7 @@ def test_unported_engines_raise(engine):
         pt.simulate(_spec(engine=engine, device="cpu", **extra))
 
 
-@pytest.mark.parametrize("option", [
-    {"events": object()}, {"metrics": True}, {"sharded": True}, {"scheduler": "potus-loop"},
-])
+@pytest.mark.parametrize("option", [{"metrics": True}, {"sharded": True}])
 def test_unported_options_raise(option):
     with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
         pt.simulate(_spec(device="cpu", **option))

@@ -75,3 +75,16 @@ def test_schedule_kernel_matches_plain_version_on_random_problems(cuda_device, s
     x2 = ks.potus_schedule_call(*args, gamma, 2.0, 1.0)
     torch.cuda.synchronize()
     assert torch.equal(x1, x2)  # no atomics: runs repeat bitwise
+
+
+def test_drain_kernel_matches_plain_version(cuda_device):
+    """Kernel 4 on the random and dyadic draws of
+    ``tests/test_torch_cohort_drain.py`` (bitwise on exact inputs, else
+    rtol/atol 1e-5; two runs bitwise equal) and on every slot's inputs of a
+    dyadic run of the dense route."""
+    import repro_torch.core as pt
+    from repro_torch.kernels import cohort_drain as kd
+
+    kd.launches.reset()
+    chip_smoke.drain_checks(pt, cuda_device)
+    assert kd.launches.n == 2 * (8 + 40)  # two kernel runs per check

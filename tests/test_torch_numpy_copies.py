@@ -163,3 +163,45 @@ def test_event_validation_equal():
         with pytest.raises(ValueError) as port_err:
             pt.FleetEvent(**kwargs)
         assert str(ref_err.value) == str(port_err.value)
+
+
+def _oracle_problem(seed):
+    """A tie-heavy integer problem (the grids of
+    ``tests/test_fastpath.py::test_adversarial_ties``) with mandatory arrivals."""
+    rng = np.random.default_rng(seed)
+    I, C, K = 12, 4, 3
+    inst_comp = rng.integers(0, C, I).astype(np.int32)
+    edge_mask = (rng.random((I, I)) < 0.35) & (inst_comp[:, None] != inst_comp[None, :])
+    comp_count = np.maximum(np.bincount(inst_comp, minlength=C), 1).astype(np.float32)
+    gamma = rng.integers(1, 8, I).astype(np.float32)
+    placement = rng.integers(0, K, I).astype(np.int32)
+    U = rng.integers(0, 3, (K, K)).astype(np.float32)
+    q_in = rng.integers(0, 4, I).astype(np.float32)
+    q_out = rng.integers(0, 6, (I, C)).astype(np.float32)
+    must = (rng.integers(0, 3, (I, C)) * (rng.random((I, C)) < 0.3)).astype(np.float32)
+    return edge_mask, inst_comp, placement, comp_count, gamma, U, q_in, q_out, must
+
+
+@pytest.mark.parametrize("beta", [1.0, 0.5, 0.2])
+@pytest.mark.parametrize("seed", range(4))
+def test_reference_oracle_equal(seed, beta):
+    from repro.core import reference as rref
+    from repro_torch.core import reference as pref
+
+    em, comp, cont, count, gamma, U, q_in, q_out, must = _oracle_problem(seed)
+    np.testing.assert_array_equal(
+        pref.prices_reference(em, comp, cont, U, q_in, q_out, 2.0, beta),
+        rref.prices_reference(em, comp, cont, U, q_in, q_out, 2.0, beta))
+    np.testing.assert_array_equal(
+        pref.potus_schedule_reference(em, comp, cont, count, gamma, U, q_in, q_out, must, 2.0,
+                                      beta),
+        rref.potus_schedule_reference(em, comp, cont, count, gamma, U, q_in, q_out, must, 2.0,
+                                      beta))
+    # the brute-force LP (15) on the first rows, where it stays tiny
+    rows = np.zeros_like(em)
+    rows[:3] = em[:3]
+    l = rref.prices_reference(rows, comp, cont, U, q_in, q_out, 2.0, beta)
+    obj_p, x_p = pref.solve_lp_bruteforce(rows, comp, gamma, q_out, l, max_units=3)
+    obj_r, x_r = rref.solve_lp_bruteforce(rows, comp, gamma, q_out, l, max_units=3)
+    assert obj_p == obj_r
+    np.testing.assert_array_equal(x_p, x_r)

@@ -6,9 +6,10 @@ against the reference, on the CPU.
   pattern of ``tests/test_fastpath.py``), with and without a disruption
   slot. Queues and capacities are integral and every price is an integer,
   so the allocations are exact in f32 in any order: ``assert_array_equal``.
-  (The port is held against the reference's sort and loop, not against the
-  f64 oracle ``core.reference``: at a non-dyadic ``beta`` the reference's
-  own f32 paths differ from that oracle at near-ties.)
+  The loop is also held against the port's copy of the f64 oracle
+  ``core/reference.py``, at a dyadic ``beta`` only: at a non-dyadic
+  ``beta`` the reference's own f32 paths differ from that oracle at
+  near-ties.
 * The plain version of the fused schedule kernel against the reference's
   Pallas kernel in interpret mode (``potus_schedule_call``), at the shapes
   of ``tests/test_kernels.py::TestPotusFusedSchedule``, and the plain price
@@ -142,6 +143,41 @@ def _alive(I, seed):
     rng = np.random.default_rng(seed)
     alive = (rng.random(I) > 0.25).astype(np.float32)
     return alive, rng
+
+
+@pytest.mark.parametrize("beta", [1.0, 0.5])
+@pytest.mark.parametrize("problem", ["random_dag", "ties"])
+@pytest.mark.parametrize("seed", range(4))
+def test_loop_matches_the_integer_oracle(seed, problem, beta):
+    """The port's ``method="loop"`` against its own copy of the f64 oracle
+    ``core/reference.py``, on integral problems at a dyadic ``beta``: every
+    price is exact in f32, so the greedy picks the same targets, and X
+    agrees within the bounds of ``tests/test_fastpath.py`` (the even split
+    may divide by 3). At a non-dyadic ``beta`` the reference's own f32 paths
+    leave the oracle at near-ties, so none is held there."""
+    from repro_torch.core.reference import potus_schedule_reference
+
+    if problem == "random_dag":
+        _, (topo, net, placement) = _random_system(seed)
+        q_in, q_out, must = _integral_inputs(topo, np.random.default_rng(seed + 1000))
+        port_prob = ppotus.make_problem(topo, net, placement, device="cpu")
+        U = net.U
+        oracle_args = (topo.edge_mask_instances(), topo.inst_comp, placement,
+                       topo.comp_parallelism, topo.inst_gamma)
+    else:
+        ref_prob, U, q_in, q_out, must = _tie_problem(seed)
+        # the oracle splits a shortfall over a row's edge targets, the batched
+        # paths over comp_count: they agree only where a row reaches every
+        # instance of a component, as on a topology, not on this random mask
+        must = np.zeros_like(must)
+        port_prob = convert.sched_problem_from_numpy(ref_prob)
+        oracle_args = tuple(np.asarray(getattr(ref_prob, f)) for f in (
+            "edge_mask", "inst_comp", "inst_container", "comp_count", "gamma"))
+    got = ppotus.potus_schedule(port_prob, _t(U), _t(q_in), _t(q_out), _t(must), 2.0, beta,
+                                method="loop").numpy()
+    want = potus_schedule_reference(*oracle_args, U, q_in, q_out, must, 2.0, beta)
+    assert want.sum() > 0  # something shipped: the check is not vacuous
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
 
 
 @pytest.mark.parametrize("scheduler", ["sort", "loop", "shuffle", "jsq"])

@@ -20,7 +20,8 @@ device="cpu"))``, against the reference ``simulate(EngineSpec(engine="jax"))``.
   and is held per slot to ``rtol 1e-5``.
 * A run from a reference mid-run state (``convert``) takes the same step.
 * Facade guards: ``engine="jax"`` accepts ``potus-loop``, ``events`` and
-  ``mu``; ``metrics=`` raises "not ported yet"; CUDA by default.
+  ``mu``, and ``potus-loop`` also runs on ``engine="cohort-fused"``;
+  ``metrics=`` raises "not ported yet"; CUDA by default.
 """
 import dataclasses
 
@@ -213,11 +214,10 @@ def test_facade_guards():
         pt.simulate(_spec(device="cpu", chunk=0))
     with pytest.raises(ValueError, match="unknown scheduler"):
         pt.simulate(_spec(device="cpu", scheduler="nope"))
-    # potus-loop runs on engine="jax" only
+    # potus-loop runs on both ported engines
     assert pt.simulate(_spec(device="cpu", scheduler="potus-loop")).backlog.shape == (20,)
-    with pytest.raises(pt.UnsupportedEngineOption, match="engine='jax'"):
-        pt.simulate(dataclasses.replace(_spec(device="cpu", scheduler="potus-loop"),
-                                        engine="cohort-fused"))
+    assert pt.simulate(dataclasses.replace(_spec(device="cpu", scheduler="potus-loop"),
+                                           engine="cohort-fused")).backlog.shape == (20,)
     with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
         psim._run_sim_impl(topo, _spec().net, _spec().placement, _spec().arrivals, 20,
                            pt.SimConfig(sharded=True))
