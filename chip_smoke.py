@@ -21,7 +21,15 @@ I=16384 serving fleet, counting the kernel launches of each:
 * main path 2 — ``simulate(EngineSpec(engine="jax", scheduler="potus",
   device="cuda"))``, the plain scan engine (the Fig. 5 path): the fused
   schedule kernel (``potus_schedule``); and its ``scheduler="potus-loop"``
-  route, on an I=1024 fleet: the price kernel.
+  route, on an I=1024 fleet: the price kernel;
+* phase G, the serving path — ``PotusDispatcher`` on the card (the
+  schedule kernel once per slot) over a ``ReplicaFleet`` of 4
+  ``ServingEngine`` replicas sharing one qwen2.5-32b decoder at full width
+  (8 of 64 layers, bf16, weights from a seeded ``torch.Generator``): the
+  flash attention kernel (``flash_attention``, per prefill and layer) and
+  the decode attention kernel (``decode_attention``, per decode round and
+  layer); both kernels alone at qwen widths beside SDPA; the kernel route
+  against the plain route teacher-forced, in bf16 and in f32.
 
 It checks the results and prints:
 
@@ -33,7 +41,9 @@ It checks the results and prints:
   kernel the library call's ms);
 * per path, its wall ms per slot, its metrics, the device busy share, the
   top device items and (path 2, phase D) the peak device memory; each
-  phase's seconds;
+  phase's seconds; for the served run its tokens, slots, wall seconds,
+  tokens/s, ms per decode round, prefill ms per prompt token and peak
+  device memory;
 * each comparison of the kernel route with the plain route or with the
   port on the CPU;
 * one JSON line ``{"kernels": [...]}``, then, last,
@@ -65,10 +75,19 @@ FLEET_I, FLEET_T, FLEET_W, FLEET_V, FLEET_AGE_CAP = 16384, 128, 4, 2.0, 64
 # the potus-loop route runs max_succ argmin passes per slot (3072 at I=16384,
 # seconds per slot), so its fleet is cut to I=1024 until the loop gets a kernel
 LOOP_I = 1024
-KERNELS = ("potus_slot", "potus_schedule", "potus_price", "cohort_drain")
+KERNELS = ("potus_slot", "potus_schedule", "potus_price", "cohort_drain", "flash_attention",
+           "decode_attention")
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 outside the tensor cores
-PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor cores, bf16
+# tensor cores (dense)
+PEAK_BYTES_S, PEAK_F32_S, PEAK_BF16_S = 3.35e12, 67e12, 989e12
+# phase G, the served run: qwen2.5-32b at full width, depth cut to 8 of 64 layers, bf16; a
+# fleet of 4 replicas behind the dispatcher (examples/serving_demo.py's traffic, scaled up)
+SERVE_ARCH, SERVE_LAYERS = "qwen2_5_32b", 8
+SERVE_RATES = (4.0, 2.0, 2.0, 2.0)  # decode rounds per slot; replica 0 is the fast one
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_MAX_NEW, SERVE_REQUESTS = 4, 1024, 16, 32
+SERVE_PROMPT_LENS = (32, 64, 128, 256, 512)
+SERVE_STRAGGLE = (6, 12)  # replica 0 serves at 25% over slots [6, 12)
 
 
 def check(cond: bool, what: str) -> None:
@@ -221,12 +240,15 @@ def time_calls(fn, n):
 
 
 def device_times(prof):
-    """(name, count, device ms) per device-side event name, longest first."""
+    """(name, count, device ms) per device-side event name, longest first.
+    A ``record_function`` span shows on the device timeline too; it is a range
+    over kernels already counted, so it is left out."""
     import torch
 
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -397,7 +419,7 @@ def one_call(kp, ks, pq, convert, prob, U, mid_state, cuda, card):
     return out
 
 
-def profile_run(fn, top=8):
+def profile_run(fn, top=8, suffix=""):
     """Device busy share and the top device items of one profiled run."""
     import torch
 
@@ -411,11 +433,11 @@ def profile_run(fn, top=8):
     busy_ms = sum(r[2] for r in rows)
     if busy_ms > 0:
         print(f"  device busy {busy_ms:.3f} ms of {prof_ms:.3f} ms wall: "
-              f"share {busy_ms / prof_ms:.4f} (profiled run)")
+              f"share {busy_ms / prof_ms:.4f} (profiled run){suffix}")
         for name, count, ms in rows[:top]:
-            print(f"    {ms:10.3f} ms  x{count:<6d} {name[:90]}")
+            print(f"    {ms:10.3f} ms  x{count:<6d} {name[:90]}{suffix}")
     else:
-        print("  device busy share: not measured (the profiler saw no device time)")
+        print(f"  device busy share: not measured (the profiler saw no device time){suffix}")
 
 
 def timed_runs(fn, T, n):
@@ -750,12 +772,15 @@ def same_result(a, b) -> bool:
 
 def counters():
     from repro_torch.kernels import cohort_drain as kd
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import potus_price as kp
     from repro_torch.kernels import potus_schedule as ks
     from repro_torch.kernels import potus_slot as ps
 
     return {"potus_slot": ps.launches, "potus_schedule": ks.launches,
-            "potus_price": kp.launches, "cohort_drain": kd.launches}
+            "potus_price": kp.launches, "cohort_drain": kd.launches,
+            "flash_attention": kfa.launches, "decode_attention": kda.launches}
 
 
 def reset_counts():
@@ -1038,6 +1063,364 @@ def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase G: the serving path (dispatcher -> fleet -> engines -> dense decoder)
+# ---------------------------------------------------------------------------
+
+ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:13
+# kernels 5 and 6 alone at qwen2.5-32b widths: (B, Hq, Hkv, D); flash (S, dtype, causal) cases;
+# decode (B, S, Hq, Hkv, D)
+FLASH_DIMS = (1, 40, 8, 128)
+FLASH_CASES = ((32, "bfloat16", True), (128, "bfloat16", True), (512, "bfloat16", True),
+               (4096, "bfloat16", True), (512, "float32", True), (512, "bfloat16", False))
+FLASH_ENTRY = (512, "bfloat16", True)  # the kernels line's case: the largest served prompt
+DECODE_DIMS = (4, 1024, 40, 8, 128)
+
+
+def attention_bound(nbytes, flops, dtype):
+    """The least time of one call: bytes over HBM, operations over the peak
+    of their type (bf16 tensor cores, or f32 outside them)."""
+    import torch
+
+    peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_F32_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_close(label, got, want, dtype_name):
+    """|got - want| <= tol + tol * |want| everywhere (assert_allclose's rule
+    with rtol = atol = tol); returns the max abs error."""
+    import torch
+
+    tol = ATT_TOL[dtype_name]
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)),
+          f"{label}: kernel vs plain beyond {tol} (max_abs_err {err:.3e})")
+    return err
+
+
+def library_sdpa(q, k, v, **kw):
+    """One ``F.scaled_dot_product_attention`` call with GQA; the yardstick of
+    ``library_ms`` (never called by the port)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+
+def flash_kernel_checks(card, cuda):
+    """Kernel 5 alone against its plain version at qwen widths (Hq=40, Hkv=8,
+    D=128, B=1): ms, plain ms, library ms (SDPA), bound. Returns the kernels
+    line's entry (the S=512 causal bf16 case, the largest served prompt)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops as kops
+
+    B, Hq, Hkv, D = FLASH_DIMS
+    worst, entry = 0.0, None
+    for S, name, causal in FLASH_CASES:
+        dtype = getattr(torch, name)
+        g = torch.Generator(device=cuda).manual_seed(S)
+        q, k, v = (torch.randn((B, h, S, D), generator=g, device=cuda).to(dtype)
+                   for h in (Hq, Hkv, Hkv))
+        out = kf.flash_attention_call(q, k, v, causal)
+        want = kf.flash_attention_plain(q, k, v, causal)
+        again = kf.flash_attention_call(q, k, v, causal)
+        torch.cuda.synchronize()
+        label = f"flash S={S} {name} causal={causal}"
+        err = attention_close(label, out, want, name)
+        check(torch.equal(out, again), f"{label}: two kernel runs differ")
+        worst = max(worst, err)
+        del want
+        n = 5 if S > 1024 else 20
+        ms = time_calls(lambda: kf.flash_attention_call(q, k, v, causal), n)
+        plain_ms = time_calls(lambda: kf.flash_attention_plain(q, k, v, causal), 3)
+        library_ms = time_calls(lambda: library_sdpa(q, k, v, is_causal=causal), n)
+        elem = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elem  # q, k, v in; out
+        flops = 4 * B * Hq * D * S * S // (2 if causal else 1)
+        bound_ms, bound_by = attention_bound(nbytes, flops, dtype)
+        print(f"{label}: max_abs_err={err:.3e} (tol {ATT_TOL[name]}), two runs bitwise; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {flops} flops) [{card}]")
+        if (S, name, causal) == FLASH_ENTRY:
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
+        del q, k, v, out, again
+        torch.cuda.empty_cache()
+    # the model's (B, S, H, D) layout through kernels.ops: strided views, no copy
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((2, 300, h, D), generator=g, device=cuda).to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    got = kops.flash_attention(q, k, v, causal=True)
+    want = kops.plain.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = attention_close("flash model layout B=2 S=300", got, want, "bfloat16")
+    check(got.is_contiguous(), "flash model layout: the output is not contiguous")
+    print(f"flash through kernels.ops, (B, S, H, D) views, B=2 S=300 (a ragged tile) bf16: "
+          f"max_abs_err={err:.3e} [{card}]")
+    worst = max(worst, err)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:24", "max_abs_err": worst,
+            **entry}
+
+
+def decode_kernel_checks(card, cuda):
+    """Kernel 6 alone against its plain version at B=4, S=1024, Hq=40, Hkv=8,
+    D=128 in bf16 and f32, pos with 0, 1023 and random values. Returns the
+    kernels line's entry (the bf16 case)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as kd
+
+    B, S, Hq, Hkv, D = DECODE_DIMS
+    rng = np.random.default_rng(0)
+    pos_np = np.array([0, S - 1, *rng.integers(1, S - 1, B - 2)], np.int32)
+    pos = torch.as_tensor(pos_np, device=cuda)
+    worst, entry = 0.0, None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        g = torch.Generator(device=cuda).manual_seed(6)
+        q = torch.randn((B, Hq, D), generator=g, device=cuda).to(dtype)
+        kc, vc = (torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(dtype)
+                  for _ in range(2))
+        out = kd.decode_attention_call(q, kc, vc, pos)
+        want = kd.decode_attention_plain(q, kc, vc, pos)
+        again = kd.decode_attention_call(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        label = f"decode B={B} S={S} {name} pos={pos_np.tolist()}"
+        err = attention_close(label, out, want, name)
+        check(torch.equal(out, again), f"{label}: two kernel runs differ")
+        worst = max(worst, err)
+        ms = time_calls(lambda: kd.decode_attention_call(q, kc, vc, pos), 50)
+        plain_ms = time_calls(lambda: kd.decode_attention_plain(q, kc, vc, pos), 10)
+        # SDPA on the kernel-native layout, made outside the timing
+        qs, ks, vs = q[:, :, None], kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+        mask = (torch.arange(S, device=cuda)[None, :] <= pos[:, None].long())[:, None, None, :]
+        library_ms = time_calls(lambda: library_sdpa(qs, ks, vs, attn_mask=mask), 50)
+        elem = q.element_size()
+        rows = int((pos_np.astype(np.int64) + 1).sum())
+        nbytes = 2 * rows * Hkv * D * elem + 2 * q.numel() * elem + 4 * B
+        flops = 4 * Hq * D * rows
+        bound_ms, bound_by = attention_bound(nbytes, flops, dtype)
+        print(f"{label}: max_abs_err={err:.3e} (tol {ATT_TOL[name]}), two runs bitwise; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA, bool mask) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes over "
+              f"the {rows} cache rows read, {flops} flops) [{card}]")
+        if dtype == torch.bfloat16:
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:23", "max_abs_err": worst,
+            **entry}
+
+
+def timed_engine_class():
+    """``ServingEngine`` that records the wall ms of each decode round and of
+    each prefill (both end in a device-to-host copy of the greedy tokens,
+    which waits for the device)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    class TimedEngine(ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.round_ms, self.prefill_ms, self.prefill_tokens = [], [], []
+
+        def _decode_round(self):
+            t0 = time.perf_counter()
+            out = super()._decode_round()
+            self.round_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def _admit_one(self):
+            plen = len(self.queue[0].tokens) if self.queue else 0
+            t0 = time.perf_counter()
+            admitted = super()._admit_one()
+            if admitted:
+                self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+                self.prefill_tokens.append(plen)
+            return admitted
+
+    return TimedEngine
+
+
+def serve(cfg, model, cuda, engine_cls):
+    """The served run: 32 requests, Poisson(1.5) per slot from numpy seed 0,
+    prompts of {32, ..., 512} tokens and 16 new tokens each, routed by
+    ``PotusDispatcher`` on the card over 4 ``ServingEngine`` replicas through
+    a flash straggler on replica 0; until every request is done. Returns
+    (requests, slots, fleet)."""
+    from repro_torch.core import events as pev
+    from repro_torch.serving import dispatcher as pd
+    from repro_torch.serving import fleet as pf
+    from repro_torch.serving.engine import Request
+
+    R = len(SERVE_RATES)
+    fleet = pf.ReplicaFleet([engine_cls(cfg, model, max_batch=SERVE_BATCH,
+                                        max_len=SERVE_MAX_LEN, service_rate=r)
+                             for r in SERVE_RATES])
+    disp = pd.PotusDispatcher(
+        n_frontends=1, replica_hosts=np.arange(1, R + 1), frontend_hosts=np.array([0]),
+        host_costs=(np.ones((R + 1, R + 1)) - np.eye(R + 1)).astype(np.float32),
+        replica_rates=np.array(SERVE_RATES),
+        cfg=pd.DispatcherConfig(V=1.0, gamma=16.0, tokens_per_request=float(SERVE_MAX_NEW)),
+        device=cuda)
+    horizon = 400
+    trace = pev.flash_straggler(disp.topo, start=SERVE_STRAGGLE[0],
+                                duration=SERVE_STRAGGLE[1] - SERVE_STRAGGLE[0], factor=0.25,
+                                instance=disp.F).compile(disp.topo, horizon)
+    rng = np.random.default_rng(0)
+    waiting, reqs, t = [], [], 0
+    while len(reqs) < SERVE_REQUESTS or waiting or not all(r.done for r in reqs):
+        check(t < horizon, f"served run: requests still open after {horizon} slots")
+        made = len(reqs) + len(waiting)
+        n_new = min(int(rng.poisson(1.5)), SERVE_REQUESTS - made)
+        for rid in range(made, made + n_new):
+            prompt = rng.integers(0, cfg.vocab_size, int(rng.choice(SERVE_PROMPT_LENS)))
+            waiting.append(Request(rid, prompt, max_new=SERVE_MAX_NEW))
+        ev = (trace.mu_t[t], trace.gamma_t[t], trace.alive_t[t])
+        assign = pd.integral_assign(disp.route(np.array([float(n_new)]), fleet.backlog_tokens,
+                                               events_row=ev))
+        for r in range(R):
+            for _ in range(int(assign[0, r])):
+                if waiting:
+                    req = waiting.pop(0)
+                    reqs.append(req)
+                    fleet.dispatch(r, req)
+        fleet.step(t, mu_row=trace.mu_t[t][disp.F:], alive_row=trace.alive_t[t][disp.F:])
+        t += 1
+    return reqs, t, fleet
+
+
+def teacher_forced(cfg, model, cuda, n_steps=8):
+    """The kernel route against ``kernels.ops.plain`` on one replica's model:
+    4 prompts prefilled into a 4-slot cache, then ``n_steps`` decode steps
+    fed the same tokens (numpy seed 1). Returns max |logit diff| / max |logit|
+    over all prefill and decode logits."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import model_zoo as pz
+
+    rng = np.random.default_rng(1)
+    plens = SERVE_PROMPT_LENS[1:]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in plens]
+    fed = rng.integers(0, cfg.vocab_size, (n_steps, len(plens), 1))
+    logits = {}
+    for name, route in (("kernel", kops), ("plain", kops.plain)):
+        cache = pz.init_cache(cfg, len(plens), SERVE_MAX_LEN, cuda)
+        rows = []
+        for i, p in enumerate(prompts):
+            tokens = torch.as_tensor(p, device=cuda)[None]
+            lg, one = pz.prefill(model, cfg, {"tokens": tokens}, SERVE_MAX_LEN, ops=route)
+            for key, dst in cache.items():
+                dst[:, i] = one[key][:, 0]
+            rows.append(lg[:, 0].float())
+        pos = torch.as_tensor(plens, dtype=torch.int32, device=cuda)
+        for s in range(n_steps):
+            lg, cache = pz.decode_step(model, cfg, torch.as_tensor(fed[s], device=cuda), pos,
+                                       cache, ops=route)
+            rows.append(lg[:, 0].float())
+            pos = pos + 1
+        logits[name] = torch.cat(rows)
+    diff = float((logits["kernel"] - logits["plain"]).abs().max())
+    scale = float(logits["plain"].abs().max())
+    check(np.isfinite(diff) and np.isfinite(scale) and scale > 0, "teacher-forced: not finite")
+    return diff / scale, diff, scale
+
+
+def serving_path(card, cuda):
+    """Phase G: kernels 5 and 6 alone, then the served run of qwen2.5-32b at
+    full width (8 layers, bf16) behind the dispatcher, its checks and its
+    numbers. Returns the two kernels' entries of the kernels line."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as pz
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    flash = flash_kernel_checks(card, cuda)
+    decode = decode_kernel_checks(card, cuda)
+
+    cfg = get_config(SERVE_ARCH).with_(n_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    model = pz.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase G model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads, head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.n_layers} of 64 layers, {cfg.param_dtype}: {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB), drawn in {time.perf_counter() - t0:.2f} s [{card}]")
+
+    # the kernel route against the plain route, teacher-forced (also the warm-up)
+    rel, diff, scale = teacher_forced(cfg, model, cuda)
+    print(f"teacher-forced kernel vs plain route, 8 layers bf16, 4 prompts x 8 decode steps: "
+          f"max |dlogit| {diff:.4e} of max |logit| {scale:.4e} = {rel:.4e} (limit 5e-2) [{card}]")
+    check(rel <= 5e-2, "teacher-forced bf16: kernel route vs plain beyond 5e-2 of max |logit|")
+
+    # the served run, counted and timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs, slots, fleet = serve(cfg, model, cuda, timed_engine_class())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rounds = sum(e.decode_rounds for e in fleet.replicas)
+    tokens = fleet.tokens_served
+    round_ms = np.concatenate([e.round_ms for e in fleet.replicas])
+    prefill_ms = sum(sum(e.prefill_ms) for e in fleet.replicas)
+    prefill_tok = sum(sum(e.prefill_tokens) for e in fleet.replicas)
+    # a decode round's least time: every weight but the embedding table read once over HBM,
+    # and of that table the max_batch rows it gathers (the KV cache reads are left out)
+    emb = model.embed
+    round_bytes = (sum(p.numel() * p.element_size() for p in model.parameters())
+                   - emb.numel() * emb.element_size()
+                   + SERVE_BATCH * emb.shape[1] * emb.element_size())
+    round_bound_ms = round_bytes / PEAK_BYTES_S * 1e3
+    print(f"served run: {len(reqs)} requests, {tokens} tokens in {slots} slots, {rounds} decode "
+          f"rounds, wall {wall:.3f} s, {tokens / wall:.1f} tokens/s; decode round median "
+          f"{np.median(round_ms):.3f} ms (min {round_ms.min():.3f}, max {round_ms.max():.3f}), "
+          f"bound {round_bound_ms:.4f} ms ({round_bytes} weight bytes); "
+          f"prefill {prefill_ms / prefill_tok:.4f} ms per prompt token ({prefill_tok} tokens); "
+          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
+    print("  launches: " + " ".join(f"{k}={v}" for k, v in n.items()) + f" [{card}]")
+    want = dict(ZERO_COUNTS, flash_attention=SERVE_LAYERS * SERVE_REQUESTS,
+                decode_attention=SERVE_LAYERS * rounds, potus_schedule=slots)
+    check(n == want, f"served run launches {n}, expected {want}")
+    check(len(reqs) == SERVE_REQUESTS and all(
+        r.done and len(r.generated) == SERVE_MAX_NEW for r in reqs),
+        "served run: a request did not finish with 16 tokens")
+    check(tokens == SERVE_REQUESTS * SERVE_MAX_NEW, "served run: tokens served")
+    first = {r.rid: list(r.generated) for r in reqs}
+
+    reqs2, slots2, _ = serve(cfg, model, cuda, ServingEngine)
+    same = slots2 == slots and {r.rid: list(r.generated) for r in reqs2} == first
+    print(f"  two runs give identical tokens: {same} [{card}]")
+    check(same, "served run: two runs differ")
+    profile_run(lambda: serve(cfg, model, cuda, ServingEngine), top=10, suffix=f" [{card}]")
+    del model
+    torch.cuda.empty_cache()
+
+    # the same check at 2 layers in f32: the kernels' own error, without bf16's
+    cfg32 = cfg.with_(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    model32 = pz.init(cfg32, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rel, diff, scale = teacher_forced(cfg32, model32, cuda)
+    print(f"teacher-forced kernel vs plain route, 2 layers f32: max |dlogit| {diff:.4e} of "
+          f"max |logit| {scale:.4e} = {rel:.4e} (limit 1e-4) [{card}]")
+    check(rel <= 1e-4, "teacher-forced f32: kernel route vs plain beyond 1e-4 of max |logit|")
+    del model32
+    torch.cuda.empty_cache()
+    print(f"  phase G {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return [dict(flash, launches=n["flash_attention"]),
+            dict(decode, launches=n["decode_attention"])]
+
+
 def main() -> int:
     import torch
 
@@ -1199,7 +1582,10 @@ def main() -> int:
     # -- 5. the plain scan engine: kernels 2 and 3, main path 2 --------------------
     scan_kernels = scan_engine(pt, card, cuda)
 
-    # -- 6. the kernels line, 7. the last line ---------------------------------
+    # -- 6. phase G: the serving path, kernels 5 and 6 ------------------------------
+    attention_kernels = serving_path(card, cuda)
+
+    # -- 7. the kernels line, 8. the last line ---------------------------------
     print(json.dumps({"kernels": [{
         "name": "potus_slot", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/potus_slot.cu",
@@ -1207,7 +1593,7 @@ def main() -> int:
         "launches": main_launches, "max_abs_err": one_err, "ms": ms_kernel,
         "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
-    }, *scan_kernels, drain_kernel]}))
+    }, *scan_kernels, drain_kernel, *attention_kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,14 @@
+"""StableLM-3B [hf:stabilityai/stablelm-2-1_6b family; unverified]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="stablelm-3b",
+    family="dense",
+    n_layers=32,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=6912,
+    vocab_size=50304,
+    mlp_type="swiglu",
+)

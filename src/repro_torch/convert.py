@@ -2,10 +2,10 @@
 
 The tests build a problem once with the JAX package, take its
 ``StepConsts`` fields and its 7-tuple cohort state, or its ``SchedProblem``
-and its scan-engine ``SimState``, as numpy arrays, and hand them to both
-sides with these helpers, so that the reference and the port compute from
-the same numbers (a mid-run state included). Nothing here imports the JAX
-package.
+and its scan-engine ``SimState``, or a model's parameter tree, as numpy
+arrays, and hand them to both sides with these helpers, so that the
+reference and the port compute from the same numbers (a mid-run state
+included). Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from .core.potus import SchedProblem
 from .core.queues import SimState
 
 __all__ = ["step_consts_from_numpy", "state_from_numpy", "sched_problem_from_numpy",
-           "sim_state_from_numpy"]
+           "sim_state_from_numpy", "model_params_from_numpy"]
 
 _INT_FIELDS = ("succ_map", "inst_comp", "inst_cont")
 
@@ -68,3 +68,49 @@ def sim_state_from_numpy(state, *, device="cpu", dtype=torch.float32) -> SimStat
     return SimState(*(torch.as_tensor(np.array(getattr(state, name)), dtype=dtype,
                                       device=device).contiguous()
                       for name in ("q_in", "q_rem", "q_out_bolt", "transit")))
+
+
+def _tensor(x, device, dtype) -> torch.Tensor:
+    """An array-like as a tensor; numpy's bfloat16 (``ml_dtypes``, what a JAX
+    bfloat16 array becomes) is read bit for bit through uint16."""
+    x = np.array(x)  # a writable, contiguous copy
+    if x.dtype.name == "bfloat16":
+        t = torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(x)
+    return t.to(device=device, dtype=dtype)
+
+
+# (reference leaf under "attn"/"mlp", port module, port parameter)
+_ATTN_LEAVES = {"wq": ("wq", "weight"), "wk": ("wk", "weight"), "wv": ("wv", "weight"),
+                "wo": ("wo", "weight"), "bq": ("wq", "bias"), "bk": ("wk", "bias"),
+                "bv": ("wv", "bias")}
+
+
+def model_params_from_numpy(cfg, params, *, device="cpu", dtype=None) -> dict:
+    """The port's ``DenseDecoder`` state_dict from the reference's nested
+    parameter dict (array-likes, as ``jax.tree.map(np.asarray, params)``
+    gives them), on ``device`` in ``dtype`` (default ``cfg.param_dtype``).
+
+    The stacked ``blocks`` leaves (leading layer axis, e.g. ``wq`` (L, D, Hq))
+    are split per layer, and every matrix is transposed from the reference's
+    (in, out) to ``nn.Linear``'s (out, in)."""
+    from .models.common import DTYPES
+
+    dtype = DTYPES[cfg.param_dtype] if dtype is None else dtype
+    t = lambda x: _tensor(x, device, dtype)  # noqa: E731
+    sd = {"embed": t(params["embed"]), "final_norm.weight": t(params["final_norm"])}
+    if "lm_head" in params:
+        sd["lm_head.weight"] = t(params["lm_head"]).T.contiguous()
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        pre = f"blocks.{i}."
+        sd[pre + "ln1.weight"] = t(blocks["ln1"][i])
+        sd[pre + "ln2.weight"] = t(blocks["ln2"][i])
+        for leaf, (mod, kind) in _ATTN_LEAVES.items():
+            if leaf in blocks["attn"]:
+                x = t(blocks["attn"][leaf][i])
+                sd[f"{pre}attn.{mod}.{kind}"] = x.T.contiguous() if kind == "weight" else x
+        for leaf, x in blocks["mlp"].items():
+            sd[f"{pre}mlp.{leaf}.weight"] = t(x[i]).T.contiguous()
+    return sd

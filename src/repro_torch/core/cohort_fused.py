@@ -41,11 +41,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import ops as kops
 from .cohort import CohortResult
 from .compact import (COMPACT_SCHEDULERS, _EPS, StepConsts, _check_columns, _drain_sources, _observe,
                       _serve_and_shift, _to_dense, compact_slot_step, drain_ages, kernel_layout)
-from .engine import resolve_device
 from .network import NetworkCosts
 from .potus import _schedule_with, _u_pair, caps_for_slot, make_problem
 from .simulator import (_POTUS_METHODS, SimConfig, host_trace, materialize_arrivals,

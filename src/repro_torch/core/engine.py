@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import torch
+from ..device import resolve_device
 
 __all__ = ["EngineSpec", "UnsupportedEngineOption", "simulate", "ENGINES",
            "PORTED_ENGINES", "OPTION_SUPPORT", "check_engine_option", "resolve_device"]
@@ -89,17 +89,6 @@ def check_engine_option(engine: str, option: str) -> None:
     supported = OPTION_SUPPORT.get(option, ENGINES)
     if engine not in supported:
         raise UnsupportedEngineOption(engine, option, supported)
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for a run; raises if CUDA is asked for and absent."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device!r} was asked for but torch sees no CUDA device; "
-                           "pass device='cpu' to run the plain version on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .engine import resolve_device
+from ..device import resolve_device
 from .network import NetworkCosts
 from .topology import Topology
 

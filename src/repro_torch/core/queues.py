@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .engine import resolve_device
+from ..device import resolve_device
 from .potus import SchedProblem
 from .topology import Topology
 

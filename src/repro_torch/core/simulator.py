@@ -173,7 +173,8 @@ def _run_sim_impl(
     device="cuda",
     ops=None,  # POTUS's kernel route; kernels.ops.plain compares routes on the card
 ) -> SimResult:
-    from .engine import UnsupportedEngineOption, resolve_device
+    from ..device import resolve_device
+    from .engine import UnsupportedEngineOption
 
     if cfg.sharded:
         raise UnsupportedEngineOption("sharded", "engine", reason="not ported yet")

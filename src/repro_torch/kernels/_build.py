@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels, and count their
 launches.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled with ``nvcc``
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers it includes)
+has a plain C interface and is compiled with ``nvcc``
 for ``sm_90a`` into ``build/repro_torch_kernels/`` at the repository root, at
 first use and from the sources in the checkout only, then loaded with
 ``ctypes``. A library is named after a hash of its source and flags, so an
@@ -64,7 +65,8 @@ def find_nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count too: an edited header rebuilds every library
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"
 

@@ -1,0 +1,121 @@
+"""Flash attention — blockwise online-softmax GQA attention over a full
+sequence, causal or bidirectional — as hand-written CUDA for Hopper
+(``csrc/flash_attention.cu``, with ``csrc/attention.cuh``), and its plain
+version.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:24``
+(``flash_attention_kernel``). One block per (query-row tile, KV head,
+request) holds the G query heads of its KV head, so each K/V tile staged in
+shared memory serves all of them; the running (m, l, acc) stay in float32,
+q is scaled by 1/sqrt(D) before Q Kᵀ, the causal loop stops at the block's
+diagonal, and nothing is summed with atomics (two runs are bitwise equal).
+The products are warp-level float32 FMAs, no matrix library.
+
+The plain version is ``src/repro/kernels/ref.py:15``
+(``flash_attention_reference``): the full score matrix, masked to -inf, a
+float32 softmax whose weights are cast to ``v``'s type before the PV
+product. So in bfloat16 the kernel (which keeps the weights in float32, as
+the TPU kernel does) and the plain version differ by design and agree
+within 2e-2; in float32 within 2e-5.
+
+:func:`flash_attention_call` launches the kernel on CUDA tensors and raises
+on anything else; there is no fallback. ``kernels.ops.flash_attention``
+takes :func:`flash_attention_plain` for CPU tensors only.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ._build import LaunchCounter
+
+__all__ = ["flash_attention_call", "flash_attention_plain", "launches", "check_dtype",
+           "MAX_HEAD_DIM"]
+
+#: launches of the CUDA kernel (one per :func:`flash_attention_call`)
+launches = LaunchCounter()
+
+MAX_HEAD_DIM = 256  # the largest NS*32 instantiated in the source
+
+_P = ctypes.c_void_p
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _library():
+    from ._build import load
+
+    lib = load("flash_attention")
+    lib.flash_attention_run.argtypes = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                                        ctypes.c_float, ctypes.c_int, _P]
+    lib.flash_attention_run.restype = ctypes.c_int
+    return lib
+
+
+def check_dtype(name: str, *tensors) -> torch.dtype:
+    """The one floating type of ``tensors`` (float32 or bfloat16), all on one
+    CUDA device; raises otherwise."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {dev} "
+                         "(kernels.ops takes the plain version on the CPU)")
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name}: float32 or bfloat16, got {dtype}")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise TypeError(f"{name}: every tensor must be {dtype} on {dev}, got {t.dtype} "
+                            f"on {t.device}")
+    return dtype
+
+
+def flash_attention_call(q, k, v, causal: bool = True):
+    """q (B, Hq, S, D); k, v (B, Hkv, S, D) -> (B, Hq, S, D) in q's type,
+    computed by the CUDA kernel. Any strides with a contiguous last dimension
+    (``k`` and ``v`` with the same strides); the output is laid out
+    (B, S, Hq, D) in memory, so that swapping its axes 1 and 2 back gives a
+    contiguous tensor. Raises on CPU tensors, on a type, shape or layout the
+    kernel does not take, and on a failed build or launch."""
+    dtype = check_dtype("flash_attention_call", q, k, v)
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"flash_attention_call: q (B, Hq, S, D), k/v (B, Hkv, S, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    if k.shape[0] != B or k.shape[2] != S or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention_call: shapes {tuple(q.shape)} and {tuple(k.shape)} "
+                         "do not match (Hq must be a multiple of Hkv)")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_call: head_dim at most {MAX_HEAD_DIM}, got {D}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride() != k.stride():
+        raise ValueError("flash_attention_call: the head dimension must be contiguous and v "
+                         "must have k's strides")
+    out = torch.empty((B, S, Hq, D), dtype=dtype, device=q.device).transpose(1, 2)
+    if q.numel() == 0:
+        return out
+    strides = torch.tensor([*q.stride()[:3], *k.stride()[:3], *out.stride()[:3]],
+                           dtype=torch.int64)
+    lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_run(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                                  Hq, Hkv, S, D, strides.data_ptr(), int(bool(causal)),
+                                  1.0 / math.sqrt(D), int(dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel failed: CUDA error {err}")
+    launches.n += 1
+    return out
+
+
+def flash_attention_plain(q, k, v, causal: bool = True):
+    """The plain PyTorch version, on any device: q (B, Hq, S, D), k/v
+    (B, Hkv, S, D) -> (B, Hq, S, D)."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, S, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k).float() / math.sqrt(D)
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -math.inf)
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhgqk,bhkd->bhgqd", w, v).reshape(B, Hq, S, D)

@@ -8,15 +8,38 @@ that a run on the card can take the plain route to compare against.
 """
 from __future__ import annotations
 
+from functools import partial
 from types import SimpleNamespace
 
+import torch
+
 from .cohort_drain import cohort_drain_call, cohort_drain_split_plain
+from .decode_attention import decode_attention_call, decode_attention_plain
+from .flash_attention import flash_attention_call, flash_attention_plain
 from .potus_price import potus_price_call, potus_price_plain
 from .potus_schedule import potus_schedule_alloc_plain, potus_schedule_call
 from .potus_slot import potus_slot_call, potus_slot_step_plain
 
-__all__ = ["potus_slot_step", "potus_price", "potus_schedule_alloc", "cohort_drain_split",
-           "plain"]
+__all__ = ["flash_attention", "decode_attention", "potus_slot_step", "potus_price",
+           "potus_schedule_alloc", "cohort_drain_split", "plain"]
+
+
+def _flash_attention_with(fn, q, k, v, causal):
+    """Model-native (B, S, H, D) in and out around the kernel-native
+    (B, H, S, D) ``fn`` (axes swapped as views, no copy)."""
+    return fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal).transpose(1, 2)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D)."""
+    fn = flash_attention_plain if q.device.type == "cpu" else flash_attention_call
+    return _flash_attention_with(fn, q, k, v, causal)
+
+
+def decode_attention(q, k_cache, v_cache, pos):
+    """q: (B, Hq, D); caches: (B, S, Hkv, D); pos: (B,) -> (B, Hq, D)."""
+    fn = decode_attention_plain if q.device.type == "cpu" else decode_attention_call
+    return fn(q, k_cache, v_cache, pos.to(torch.int32))
 
 
 def potus_slot_step(consts, state, act, pred, nxt, t0, *, scheduler="potus", age_cap=64,
@@ -50,7 +73,9 @@ def cohort_drain_split(src_ext, shipped, ratio, inst_comp, age_bucket):
 
 
 #: the plain versions under the wrappers' names, on any device
-plain = SimpleNamespace(potus_slot_step=potus_slot_step_plain,
+plain = SimpleNamespace(flash_attention=partial(_flash_attention_with, flash_attention_plain),
+                        decode_attention=decode_attention_plain,
+                        potus_slot_step=potus_slot_step_plain,
                         potus_price=potus_price_plain,
                         potus_schedule_alloc=potus_schedule_alloc_plain,
                         cohort_drain_split=cohort_drain_split_plain)
