@@ -29,7 +29,21 @@ I=16384 serving fleet, counting the kernel launches of each:
   flash attention kernel (``flash_attention``, per prefill and layer) and
   the decode attention kernel (``decode_attention``, per decode round and
   layer); both kernels alone at qwen widths beside SDPA; the kernel route
-  against the plain route teacher-forced, in bf16 and in f32.
+  against the plain route teacher-forced, in bf16 and in f32;
+* phase H, the SSM and hybrid models at full width and depth in bf16,
+  weights from a seeded ``torch.Generator``: the SSD intra-chunk kernel
+  (``ssd_intra_chunk``) alone at mamba2-1.3b widths through
+  ``ssd_chunked``'s kernel route; one mamba2-1.3b ``forward`` of 2048
+  tokens (one launch per Mamba2 block), each block held to the plain route
+  from the same input and 2 layers in f32 end to end; zamba2-1.2b serving
+  two 512-token prompts through a ``ServingEngine`` (kernel 7 per Mamba2
+  block and flash attention per shared-attention invocation in each
+  prefill, decode attention per invocation in each decode round), its
+  tokens against the entry points', every launch of the three kernels on
+  that path held against its plain version on the path's own arguments
+  in bf16 and f32, each block and attention invocation held to the plain
+  route from the same input in bf16, the kernel route against the plain
+  route end to end in f32, and prefill/decode against a forward.
 
 It checks the results and prints:
 
@@ -46,7 +60,7 @@ It checks the results and prints:
   device memory;
 * each comparison of the kernel route with the plain route or with the
   port on the CPU;
-* one JSON line ``{"kernels": [...]}``, then, last,
+* one JSON line ``{"kernels": [...]}`` (seven kernels), then, last,
   ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full f32: TF32 is switched off for cuBLAS
@@ -64,6 +78,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -76,7 +91,7 @@ FLEET_I, FLEET_T, FLEET_W, FLEET_V, FLEET_AGE_CAP = 16384, 128, 4, 2.0, 64
 # seconds per slot), so its fleet is cut to I=1024 until the loop gets a kernel
 LOOP_I = 1024
 KERNELS = ("potus_slot", "potus_schedule", "potus_price", "cohort_drain", "flash_attention",
-           "decode_attention")
+           "decode_attention", "ssd_intra_chunk")
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor cores, bf16
 # tensor cores (dense)
@@ -88,6 +103,15 @@ SERVE_RATES = (4.0, 2.0, 2.0, 2.0)  # decode rounds per slot; replica 0 is the f
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_MAX_NEW, SERVE_REQUESTS = 4, 1024, 16, 32
 SERVE_PROMPT_LENS = (32, 64, 128, 256, 512)
 SERVE_STRAGGLE = (6, 12)  # replica 0 serves at 25% over slots [6, 12)
+# phase H, the SSM and hybrid models at full width and depth, bf16: mamba2-1.3b forward
+# (b=1, T=2048) and zamba2-1.2b served (2 prompts of 512 tokens, 16 decode rounds); kernel 7
+# alone at mamba2-1.3b widths (H=64, P=64, S=128, chunk 256): (b, T, dtype) cases
+SSD_ARCH, HYBRID_ARCH = "mamba2_1_3b", "zamba2_1_2b"
+SSD_CASES = ((1, 2048, "bfloat16"), (1, 2048, "float32"), (2, 1000, "float32"))
+# of max |ref|: tests/test_kernels.py:98-108; the f32 states are held at the f32 limit in every
+# case (both sides compute them in f32), only a bf16 y_diag at the bf16 one
+SSD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+SSM_T, HYBRID_PROMPT, HYBRID_STEPS, HYBRID_MAX_LEN = 2048, 512, 16, 544
 
 
 def check(cond: bool, what: str) -> None:
@@ -777,10 +801,12 @@ def counters():
     from repro_torch.kernels import potus_price as kp
     from repro_torch.kernels import potus_schedule as ks
     from repro_torch.kernels import potus_slot as ps
+    from repro_torch.kernels import ssd_scan as kss
 
     return {"potus_slot": ps.launches, "potus_schedule": ks.launches,
             "potus_price": kp.launches, "cohort_drain": kd.launches,
-            "flash_attention": kfa.launches, "decode_attention": kda.launches}
+            "flash_attention": kfa.launches, "decode_attention": kda.launches,
+            "ssd_intra_chunk": kss.launches}
 
 
 def reset_counts():
@@ -1421,6 +1447,488 @@ def serving_path(card, cuda):
             dict(decode, launches=n["decode_attention"])]
 
 
+# ---------------------------------------------------------------------------
+# phase H: the SSM and hybrid models (mamba2-1.3b forward, zamba2-1.2b served)
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(seed, b, T, dtype, device, H=64, P=64, S=128):
+    """(x, dt, A, B, C) of ``ssd_chunked`` at mamba2-1.3b widths, in the
+    model's types: x, dt, B and C in ``dtype``, A float32. dt and A follow
+    Mamba2's published initialisation ranges (dt about 0.001-0.1 from a
+    shifted softplus, A in [-16, -1]), so the decay spans a 256-token chunk."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    x = randn(b, T, H, P).to(dtype)
+    z = randn(b, T, H) - 4.0
+    dt = torch.logaddexp(z, torch.zeros_like(z)).to(dtype)
+    A = -(1.0 + 15.0 * torch.rand((H,), generator=g, device=device))
+    return x, dt, A, randn(b, T, S).to(dtype), randn(b, T, S).to(dtype)
+
+
+def ssd_kernel_inputs(x, dt, A, B, C, chunk):
+    """The kernel's arguments as ``ssd_chunked`` hands them over (the dt=0 pad,
+    the chunk reshape, the float32 ``dA_cum``): caught on its kernel route."""
+    from repro_torch.kernels import ssd_scan as kss
+    from repro_torch.models import mamba as pm
+
+    caught = []
+
+    def route(*args):
+        caught.append(args)
+        return kss.ssd_intra_chunk_call(*args)
+
+    y = pm.ssd_chunked(x, dt, A, B, C, chunk, ops=SimpleNamespace(ssd_intra_chunk=route))
+    check(len(caught) == 1, "ssd_chunked did not take its kernel route once")
+    check(tuple(y.shape) == tuple(x.shape) and bool(y.isfinite().all()),
+          "ssd_chunked: the output is not finite or of the wrong shape")
+    return caught[0]
+
+
+def ssd_bound(args, dtype):
+    """Bytes (each input read once, y_diag and the states written once) and
+    operations of one call: C·Bᵀ once per (b, chunk) over the causal
+    triangle, the weighted (Q, Q) x (Q, P) product per head over the triangle,
+    and the (P, Q) x (Q, S) state product per head; two per multiply-add."""
+    xc, dtc, dA_cum, Bc, Cc = args
+    b, nc, Q, H, P = xc.shape
+    S = Bc.shape[-1]
+    tri = Q * (Q + 1) // 2
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + xc.numel() * xc.element_size() + b * nc * H * P * S * 4)
+    flops = 2 * b * nc * (tri * S + H * tri * P + H * Q * P * S)
+    return (*attention_bound(nbytes, flops, dtype), nbytes, flops)
+
+
+def ssd_kernel_checks(card, cuda, chunk):
+    """H1: kernel 7 alone at mamba2-1.3b widths through ``ssd_chunked``'s
+    kernel route, against its plain version on the same inputs. Returns the
+    kernels line's entry (the bf16 b=1 T=2048 case, the H2 forward's calls)."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as kss
+
+    worst, entry = 0.0, None
+    for b, T, name in SSD_CASES:
+        dtype = getattr(torch, name)
+        args = ssd_kernel_inputs(*ssd_inputs(T + b, b, T, dtype, cuda), chunk)
+        y, st = kss.ssd_intra_chunk_call(*args)
+        y2, st2 = kss.ssd_intra_chunk_call(*args)
+        yp, sp = kss.ssd_intra_chunk_plain(*args)
+        torch.cuda.synchronize()
+        check(y.dtype == args[0].dtype and st.dtype == torch.float32, "ssd: output types")
+        label = (f"ssd b={b} T={T} {name} (nc={args[0].shape[1]}, types "
+                 f"{'/'.join(str(t.dtype).split('.')[-1] for t in args)})")
+        rels, err = [], 0.0
+        for got, want in ((y, yp), (st, sp)):
+            d = float((got.float() - want.float()).abs().max())
+            rels.append(d / max(float(want.float().abs().max()), 1e-6))
+            err = max(err, d)
+        check(rels[0] <= SSD_TOL[name], f"{label}: y_diag kernel vs plain {rels[0]} beyond "
+              f"{SSD_TOL[name]} of max |ref|")
+        check(rels[1] <= SSD_TOL["float32"], f"{label}: states kernel vs plain {rels[1]} beyond "
+              f"{SSD_TOL['float32']} of max |ref|")
+        check(torch.equal(y, y2) and torch.equal(st, st2), f"{label}: two kernel runs differ")
+        worst = max(worst, err)
+        del yp, sp
+        ms = time_calls(lambda: kss.ssd_intra_chunk_call(*args), 20)
+        plain_ms = time_calls(lambda: kss.ssd_intra_chunk_plain(*args), 3)
+        bound_ms, bound_by, nbytes, flops = ssd_bound(args, dtype)
+        print(f"{label}: y rel {rels[0]:.3e} (limit {SSD_TOL[name]}), states rel {rels[1]:.3e} "
+              f"(limit {SSD_TOL['float32']}) of max |ref|, max_abs_err={err:.3e}, two runs bitwise; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, "
+              f"{flops} flops); library: none, no one PyTorch call computes the block [{card}]")
+        if (b, T, name) == SSD_CASES[0]:
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        torch.cuda.empty_cache()
+    return {"name": "ssd_intra_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:23", "max_abs_err": worst, **entry,
+            "library_ms": None}
+
+
+def logit_gap(a, b):
+    """max |a - b| / max |b|, both finite."""
+    diff = float((a.float() - b.float()).abs().max())
+    scale = float(b.float().abs().max())
+    check(np.isfinite(diff) and np.isfinite(scale) and scale > 0, "logits not finite")
+    return diff / scale, diff, scale
+
+
+def rounded_plain(xc, dtc, dA_cum, Bc, Cc):
+    """The plain version with y_diag rounded to ``xc``'s type, as the kernel
+    returns it."""
+    from repro_torch.kernels import ssd_scan as kss
+
+    y, states = kss.ssd_intra_chunk_plain(xc, dtc, dA_cum, Bc, Cc)
+    return y.to(xc.dtype), states
+
+
+def layer_gaps(cfg, model, x, ops_a, ops_b):
+    """Each Mamba2 block and each shared-attention invocation (its attention's
+    output, before the residual) run by two routes from the same input
+    (route b's residual stream, as teacher forcing feeds both the same
+    tokens): the largest max |out_a - out_b| / max |out_b| over the Mamba2
+    blocks, and over the attention invocations (0 without them)."""
+    import torch
+
+    from repro_torch.models import mamba as pm
+    from repro_torch.models import model_zoo as pz
+
+    positions = torch.arange(x.shape[1], device=x.device)
+    ssm_worst = attn_worst = 0.0
+    for gi, (s, e, attn_after) in enumerate(pz._hybrid_groups(cfg)):
+        for block in model.blocks[s:e]:
+            out_b = pm.mamba_block(block, x, cfg, ops=ops_b)
+            ssm_worst = max(ssm_worst,
+                            logit_gap(pm.mamba_block(block, x, cfg, ops=ops_a), out_b)[0])
+            x = out_b + x
+        if attn_after:
+            shared = model.shared_attn[gi % cfg.n_shared_attn]
+            h = shared.ln1(x)
+            (out_a, _), (out_b, _) = (shared.attn(h, positions, o) for o in (ops_a, ops_b))
+            attn_worst = max(attn_worst, logit_gap(out_a, out_b)[0])
+            x, _ = shared(x, positions, ops_b)
+    return ssm_worst, attn_worst
+
+
+def ssm_forward(card, cuda):
+    """H2: mamba2-1.3b at full width and depth in bf16, one forward of b=1,
+    T=2048 by the kernel route (counted, timed, profiled) and by the plain
+    route. Every block is held to the plain route from the same input; the
+    logits' gap after 48 bf16 layers is printed, not held: a one-ulp change
+    of a bf16 activation grows through the random-weight stack, which the
+    plain route shows against itself when only y_diag is rounded to x's
+    type, as the kernel returns it (printed beside). Then 2 layers in f32,
+    held end to end. Returns the kernel route's launch count of
+    ``ssd_intra_chunk``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import model_zoo as pz
+
+    cfg = get_config(SSD_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = pz.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase H model: {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} Mamba2 layers, "
+          f"H={cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} P={cfg.ssm_headdim} "
+          f"S={cfg.ssm_state} chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, {cfg.param_dtype}: "
+          f"{n_params} parameters ({n_params * 2 / 1e9:.2f} GB) [{card}]")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, SSM_T)),
+                             device=cuda)
+    batch = {"tokens": tokens}
+    reset_counts()
+    logits, _ = pz.forward(model, cfg, batch)
+    torch.cuda.synchronize()
+    n = read_counts()
+    print(f"  forward b=1 T={SSM_T}, kernel route: launches " + " ".join(
+        f"{k}={v}" for k, v in n.items()) + f" [{card}]")
+    check(n == dict(ZERO_COUNTS, ssd_intra_chunk=cfg.n_layers), f"H2 launches {n}")
+    check(tuple(logits.shape) == (1, SSM_T, cfg.vocab_size) and bool(logits.isfinite().all()),
+          "H2: logits not finite or of the wrong shape")
+    reset_counts()
+    plain, _ = pz.forward(model, cfg, batch, ops=kops.plain)
+    torch.cuda.synchronize()
+    check(read_counts() == ZERO_COUNTS, "H2: the plain route launched a kernel")
+    rel, diff, scale = logit_gap(logits, plain)
+    print(f"  kernel vs plain route, {cfg.n_layers} layers bf16, end to end: max |dlogit| "
+          f"{diff:.4e} of max |logit| {scale:.4e} = {rel:.4e} (recorded, not held) [{card}]")
+    rounded, _ = pz.forward(model, cfg, batch, ops=SimpleNamespace(
+        ssd_intra_chunk=rounded_plain))
+    rel, diff, scale = logit_gap(rounded, plain)
+    print(f"  plain route with y_diag rounded to x's type vs plain route, end to end: max "
+          f"|dlogit| {diff:.4e} of max |logit| {scale:.4e} = {rel:.4e} (recorded) [{card}]")
+    del plain, rounded
+    worst, _ = layer_gaps(cfg, model, model.embed[tokens], kops, kops.plain)
+    print(f"  kernel vs plain route, each of the {cfg.n_layers} blocks from the same input, bf16: "
+          f"largest max |dout| / max |out| {worst:.4e} (limit 5e-2) [{card}]")
+    check(worst <= 5e-2, "H2 bf16: a block's kernel route beyond 5e-2 of its plain route")
+    walls = timed_runs(lambda: pz.forward(model, cfg, batch), SSM_T, 3) * SSM_T
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  forward wall ms over 3 runs: median {np.median(walls):.3f} (min {walls.min():.3f}, "
+          f"max {walls.max():.3f}), {SSM_T / np.median(walls) * 1e3:.1f} tokens/s; peak device "
+          f"memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
+    profile_run(lambda: pz.forward(model, cfg, batch), top=10, suffix=f" [{card}]")
+    launches = n["ssd_intra_chunk"]
+    del model, logits
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.with_(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    model32 = pz.init(cfg32, torch.Generator(device=cuda).manual_seed(0), cuda)
+    a, _ = pz.forward(model32, cfg32, batch)
+    b, _ = pz.forward(model32, cfg32, batch, ops=kops.plain)
+    rel, diff, scale = logit_gap(a, b)
+    print(f"  kernel vs plain route, 2 layers f32: max |dlogit| {diff:.4e} of max |logit| "
+          f"{scale:.4e} = {rel:.4e} (limit 1e-4) [{card}]")
+    check(rel <= 1e-4, "H2 f32: kernel route vs plain beyond 1e-4 of max |logit|")
+    del model32, a, b
+    torch.cuda.empty_cache()
+    return launches
+
+
+class HeldRoute:
+    """An ``ops`` namespace for the model that launches each kernel through
+    ``kernels.ops`` and, on every call, holds it against its plain version on
+    the same arguments (the path's own shapes, layouts and caches) and
+    against a second launch (bitwise). Its launches are the comparison's:
+    run it outside a counted run. ``worst`` holds each kernel's largest
+    error (relative to max |plain| for the SSD block, absolute for
+    attention) and ``calls`` its number of held calls."""
+
+    def __init__(self):
+        self.worst, self.calls = {}, {}
+
+    def _held(self, name, err):
+        self.worst[name] = max(self.worst.get(name, 0.0), err)
+        self.calls[name] = self.calls.get(name, 0) + 1
+
+    def ssd_intra_chunk(self, *args):
+        import torch
+
+        from repro_torch.kernels import ops as kops
+
+        y, st = kops.ssd_intra_chunk(*args)
+        y2, st2 = kops.ssd_intra_chunk(*args)
+        yp, sp = kops.plain.ssd_intra_chunk(*args)
+        name = str(args[0].dtype).split(".")[-1]
+        label = f"H3 ssd_intra_chunk {name} at {tuple(args[0].shape)}"
+        check(torch.equal(y, y2) and torch.equal(st, st2), f"{label}: two kernel runs differ")
+        rel_y, rel_s = (float((a.float() - b.float()).abs().max())
+                        / max(float(b.float().abs().max()), 1e-6) for a, b in ((y, yp), (st, sp)))
+        check(rel_y <= SSD_TOL[name] and rel_s <= SSD_TOL["float32"],
+              f"{label}: kernel vs plain y {rel_y:.3e}, states {rel_s:.3e} of max |ref|")
+        self._held("ssd_intra_chunk", max(rel_y, rel_s))
+        return y, st
+
+    def flash_attention(self, q, k, v, causal=True):
+        import torch
+
+        from repro_torch.kernels import ops as kops
+
+        out = kops.flash_attention(q, k, v, causal=causal)
+        name = str(q.dtype).split(".")[-1]
+        label = f"H3 flash_attention {name} at {tuple(q.shape)}"
+        check(torch.equal(out, kops.flash_attention(q, k, v, causal=causal)),
+              f"{label}: two kernel runs differ")
+        self._held("flash_attention", attention_close(
+            label, out, kops.plain.flash_attention(q, k, v, causal=causal), name))
+        return out
+
+    def decode_attention(self, q, k_cache, v_cache, pos):
+        import torch
+
+        from repro_torch.kernels import ops as kops
+
+        out = kops.decode_attention(q, k_cache, v_cache, pos)
+        name = str(q.dtype).split(".")[-1]
+        label = f"H3 decode_attention {name} at {tuple(k_cache.shape)} pos {pos.tolist()}"
+        check(torch.equal(out, kops.decode_attention(q, k_cache, v_cache, pos)),
+              f"{label}: two kernel runs differ")
+        self._held("decode_attention", attention_close(
+            label, out, kops.plain.decode_attention(q, k_cache, v_cache, pos), name))
+        return out
+
+    def report(self, dtype_name, card):
+        import torch
+
+        torch.cuda.synchronize()
+        limits = {"ssd_intra_chunk": f"rel of max |ref| {self.worst.get('ssd_intra_chunk', 0):.3e}"
+                                     f" (limit y {SSD_TOL[dtype_name]}, states 1e-5)"}
+        for name in ("ssd_intra_chunk", "flash_attention", "decode_attention"):
+            check(self.calls.get(name, 0) > 0, f"H3 {dtype_name}: {name} was never held")
+            worst = limits.get(name, f"max_abs_err {self.worst[name]:.3e} (rtol = atol = "
+                                     f"{ATT_TOL[dtype_name]})")
+            print(f"  {dtype_name} generation: {name} held on each of its {self.calls[name]} "
+                  f"calls against its plain version, worst {worst}, two runs bitwise [{card}]")
+
+
+def hybrid_generate(cfg, model, prompts, cuda, ops=None, feed=None):
+    """Greedy generation by the model's own entry points, as ``ServingEngine``
+    does it (batch-1 prefills copied into the slots of one cache, then decode
+    steps over both), or, with ``feed`` (B, 1 + steps), those tokens fed in
+    place of the argmax (teacher forcing). On the kernel route (``ops=None``)
+    the launches of each prefill and decode step are checked, on
+    ``kernels.ops.plain`` that there are none. Returns (tokens (B, 1 +
+    steps), logits (B, 1 + steps, V))."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import model_zoo as pz
+
+    n_inv = sum(1 for *_r, a in pz._hybrid_groups(cfg) if a)
+    if ops is None:
+        want_prefill = dict(ZERO_COUNTS, ssd_intra_chunk=cfg.n_layers, flash_attention=n_inv)
+        want_step = dict(ZERO_COUNTS, decode_attention=n_inv)
+    elif ops is kops.plain:
+        want_prefill = want_step = ZERO_COUNTS
+    else:
+        want_prefill = want_step = None  # a held route: its launches are the comparison's
+    max_len = HYBRID_MAX_LEN  # the engine's, so both runs see one cache size
+    cache = pz.init_cache(cfg, len(prompts), max_len, cuda)
+    rows, toks = [], []
+    for i, p in enumerate(prompts):
+        reset_counts()
+        lg, one = pz.prefill(model, cfg, {"tokens": torch.as_tensor(p, device=cuda)[None]},
+                             max_len, ops=ops)
+        n = read_counts()
+        check(want_prefill is None or n == want_prefill, f"H3: one prefill launched {n}")
+        for key, dst in cache.items():
+            dst[:, i] = one[key][:, 0]
+        rows.append(lg[:, 0])
+    logits = [torch.cat(rows)]
+    toks.append(torch.argmax(logits[-1], dim=-1))
+    pos = torch.full((len(prompts),), HYBRID_PROMPT, dtype=torch.int32, device=cuda)
+    for step in range(HYBRID_STEPS):
+        cur = toks[-1] if feed is None else feed[:, step]
+        reset_counts()
+        lg, cache = pz.decode_step(model, cfg, cur[:, None], pos, cache, ops=ops)
+        n = read_counts()
+        check(want_step is None or n == want_step, f"H3: one decode step launched {n}")
+        logits.append(lg[:, 0])
+        toks.append(torch.argmax(lg[:, 0], dim=-1))
+        pos = pos + 1
+    return torch.stack(toks, 1), torch.stack(logits, 1)
+
+
+def handover_gap(cfg, model, prompts, toks, logits, cuda):
+    """A forward over each prompt and its generated tokens against the
+    prefill/decode logits at the generated positions: max |dlogit| / max
+    |logit|, with the forward's launches checked."""
+    import torch
+
+    from repro_torch.models import model_zoo as pz
+
+    n_inv = sum(1 for *_r, a in pz._hybrid_groups(cfg) if a)
+    full = torch.cat([torch.as_tensor(np.stack(prompts), device=cuda), toks[:, :-1]], dim=1)
+    reset_counts()
+    fwd, _ = pz.forward(model, cfg, {"tokens": full})
+    check(read_counts() == dict(ZERO_COUNTS, ssd_intra_chunk=cfg.n_layers,
+                                flash_attention=n_inv), "H3: forward launches")
+    return logit_gap(fwd[:, HYBRID_PROMPT - 1:], logits)
+
+
+def hybrid_served(card, cuda):
+    """H3: zamba2-1.2b at full width and depth. In bf16: two prompts of 512
+    tokens served by a ``ServingEngine`` (prefill each, then 16 decode
+    rounds), counted and timed; the same generation by the entry points,
+    whose tokens must equal the engine's; once more with every launch of
+    the three kernels held against its plain version on the path's own
+    arguments (``HeldRoute``); and every Mamba2 block and shared-attention
+    invocation held to the plain route from the same input. In f32 (the same
+    model drawn in f32): the held generation again, the kernel route against
+    the plain route end to end, and the hand-over from the chunked scan to
+    the recurrence (a forward over each prompt and its generated tokens
+    against the prefill/decode logits at the 17 generated positions), each
+    within 5e-2 of max |logit|. In bf16 the hand-over is printed, not held:
+    a one-ulp change grows through the random-weight stack."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import model_zoo as pz
+    from repro_torch.serving.engine import Request
+
+    cfg = get_config(HYBRID_ARCH)
+    model = pz.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_inv = sum(1 for *_r, a in pz._hybrid_groups(cfg) if a)
+    print(f"phase H model: {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} Mamba2 layers (S="
+          f"{cfg.ssm_state}) + {cfg.n_shared_attn} shared attention blocks x {n_inv} "
+          f"invocations ({cfg.n_heads} heads), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}: {n_params} parameters ({n_params * 2 / 1e9:.2f} GB) [{card}]")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, HYBRID_PROMPT) for _ in range(2)]
+
+    eng = timed_engine_class()(cfg, model, max_batch=2, max_len=HYBRID_MAX_LEN,
+                               service_rate=float(HYBRID_STEPS))
+    reqs = [Request(i, p, max_new=HYBRID_STEPS + 1) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    print(f"  served: 2 prompts x {HYBRID_PROMPT} tokens, {eng.decode_rounds} decode rounds, "
+          f"{eng.tokens_served} tokens in {wall:.3f} s; prefill "
+          f"{sum(eng.prefill_ms) / sum(eng.prefill_tokens):.4f} ms per prompt token, decode "
+          f"round median {np.median(eng.round_ms):.3f} ms (min {min(eng.round_ms):.3f}, max "
+          f"{max(eng.round_ms):.3f}) [{card}]")
+    print("  launches: " + " ".join(f"{k}={v}" for k, v in n.items()) + f" [{card}]")
+    want = dict(ZERO_COUNTS, ssd_intra_chunk=2 * cfg.n_layers, flash_attention=2 * n_inv,
+                decode_attention=HYBRID_STEPS * n_inv)
+    check(n == want, f"H3 served launches {n}, expected {want}")
+    check(all(r.done and len(r.generated) == HYBRID_STEPS + 1 for r in reqs),
+          "H3: a request did not finish")
+    served = [list(r.generated) for r in reqs]
+
+    toks, logits = hybrid_generate(cfg, model, prompts, cuda)
+    same = served == toks.tolist()
+    print(f"  the entry points give the engine's tokens: {same} [{card}]")
+    check(same, "H3: two runs give different tokens")
+    rel, diff, scale = handover_gap(cfg, model, prompts, toks, logits, cuda)
+    print(f"  forward vs prefill/decode at the {HYBRID_STEPS + 1} generated positions, bf16: max "
+          f"|dlogit| {diff:.4e} of max |logit| {scale:.4e} = {rel:.4e} (recorded, not held) "
+          f"[{card}]")
+    held = HeldRoute()
+    toks, _ = hybrid_generate(cfg, model, prompts, cuda, ops=held)
+    held.report("bfloat16", card)
+    check(served == toks.tolist(), "H3: the held route gives other tokens")
+    x = model.embed[torch.as_tensor(prompts[0], device=cuda)[None]]
+    ssm_worst, attn_worst = layer_gaps(cfg, model, x, kops, kops.plain)
+    print(f"  kernel vs plain route from the same input, bf16: largest max |dout| / max |out| "
+          f"{ssm_worst:.4e} over the {cfg.n_layers} Mamba2 blocks, {attn_worst:.4e} over the "
+          f"{n_inv} attention invocations (limit 5e-2) [{card}]")
+    check(max(ssm_worst, attn_worst) <= 5e-2,
+          "H3 bf16: a block's kernel route beyond 5e-2 of its plain route")
+    del model, eng, logits
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    model32 = pz.init(cfg32, torch.Generator(device=cuda).manual_seed(0), cuda)
+    held = HeldRoute()
+    toks, logits = hybrid_generate(cfg32, model32, prompts, cuda, ops=held)
+    held.report("float32", card)
+    ptoks, plain = hybrid_generate(cfg32, model32, prompts, cuda, ops=kops.plain, feed=toks)
+    rel, diff, scale = logit_gap(logits, plain)
+    print(f"  kernel vs plain route, prefill and {HYBRID_STEPS} decode steps fed the kernel "
+          f"route's tokens, end to end, f32: max |dlogit| {diff:.4e} of max |logit| "
+          f"{scale:.4e} = {rel:.4e} (limit 5e-2); argmax tokens equal: "
+          f"{bool(torch.equal(toks, ptoks))} [{card}]")
+    check(rel <= 5e-2, "H3 f32: kernel route vs plain beyond 5e-2 of max |logit|")
+    rel, diff, scale = handover_gap(cfg32, model32, prompts, toks, logits, cuda)
+    print(f"  forward vs prefill/decode at the {HYBRID_STEPS + 1} generated positions, f32: max "
+          f"|dlogit| {diff:.4e} of max |logit| {scale:.4e} = {rel:.4e} (limit 5e-2) [{card}]")
+    check(rel <= 5e-2, "H3: forward vs prefill/decode beyond 5e-2 of max |logit|")
+    del model32, logits, plain
+    torch.cuda.empty_cache()
+
+
+def ssm_path(card, cuda):
+    """Phase H: kernel 7 alone (H1), the mamba2-1.3b forward (H2), zamba2-1.2b
+    served (H3). Returns kernel 7's entry of the kernels line."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    entry = ssd_kernel_checks(card, cuda, get_config(SSD_ARCH).ssm_chunk)
+    launches = ssm_forward(card, cuda)
+    hybrid_served(card, cuda)
+    torch.cuda.empty_cache()
+    print(f"  phase H {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return dict(entry, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -1445,7 +1953,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per csrc/<kernel>.cu, all together
         list(pool.map(_build.build, KERNELS))
     print("kernel build: " + ", ".join(f"{k} {_build.BUILD_SECONDS[k]:.2f} s" for k in KERNELS)
           + f" (wall {time.perf_counter() - t0:.2f} s, in parallel)")
@@ -1585,7 +2093,10 @@ def main() -> int:
     # -- 6. phase G: the serving path, kernels 5 and 6 ------------------------------
     attention_kernels = serving_path(card, cuda)
 
-    # -- 7. the kernels line, 8. the last line ---------------------------------
+    # -- 7. phase H: the SSM and hybrid models, kernel 7 ----------------------------
+    ssd_kernel = ssm_path(card, cuda)
+
+    # -- 8. the kernels line, 9. the last line ---------------------------------
     print(json.dumps({"kernels": [{
         "name": "potus_slot", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/potus_slot.cu",
@@ -1593,7 +2104,7 @@ def main() -> int:
         "launches": main_launches, "max_abs_err": one_err, "ms": ms_kernel,
         "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
-    }, *scan_kernels, drain_kernel, *attention_kernels]}))
+    }, *scan_kernels, drain_kernel, *attention_kernels, ssd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -85,16 +85,37 @@ def _tensor(x, device, dtype) -> torch.Tensor:
 _ATTN_LEAVES = {"wq": ("wq", "weight"), "wk": ("wk", "weight"), "wv": ("wv", "weight"),
                 "wo": ("wo", "weight"), "bq": ("wq", "bias"), "bk": ("wk", "bias"),
                 "bv": ("wv", "bias")}
+# reference Mamba2 leaf -> (port parameter, transposed: an (in, out) matrix to nn.Linear's)
+_MAMBA_LEAVES = {"norm": ("norm.weight", False), "in_proj": ("in_proj.weight", True),
+                 "conv_w": ("conv_w", False), "conv_b": ("conv_b", False),
+                 "A_log": ("A_log", False), "D": ("D", False), "dt_bias": ("dt_bias", False),
+                 "gate_norm": ("gate_norm.weight", False), "out_proj": ("out_proj.weight", True)}
+
+
+def _tf_block(sd, pre, stack, i, t) -> None:
+    """Layer ``i`` of a stacked transformer block (``ln1``, ``attn``, ``ln2``,
+    ``mlp``) into ``sd`` under ``pre``."""
+    sd[pre + "ln1.weight"] = t(stack["ln1"][i])
+    sd[pre + "ln2.weight"] = t(stack["ln2"][i])
+    for leaf, (mod, kind) in _ATTN_LEAVES.items():
+        if leaf in stack["attn"]:
+            x = t(stack["attn"][leaf][i])
+            sd[f"{pre}attn.{mod}.{kind}"] = x.T.contiguous() if kind == "weight" else x
+    for leaf, x in stack["mlp"].items():
+        sd[f"{pre}mlp.{leaf}.weight"] = t(x[i]).T.contiguous()
 
 
 def model_params_from_numpy(cfg, params, *, device="cpu", dtype=None) -> dict:
-    """The port's ``DenseDecoder`` state_dict from the reference's nested
-    parameter dict (array-likes, as ``jax.tree.map(np.asarray, params)``
-    gives them), on ``device`` in ``dtype`` (default ``cfg.param_dtype``).
+    """The port's ``DenseDecoder`` or ``SSMDecoder`` state_dict from the
+    reference's nested parameter dict (array-likes, as
+    ``jax.tree.map(np.asarray, params)`` gives them), on ``device`` in
+    ``dtype`` (default ``cfg.param_dtype``).
 
-    The stacked ``blocks`` leaves (leading layer axis, e.g. ``wq`` (L, D, Hq))
-    are split per layer, and every matrix is transposed from the reference's
-    (in, out) to ``nn.Linear``'s (out, in)."""
+    The stacked ``blocks`` (and a hybrid's ``shared_attn``) leaves (leading
+    layer axis, e.g. ``wq`` (L, D, Hq)) are split per layer, and every
+    matrix is transposed from the reference's (in, out) to ``nn.Linear``'s
+    (out, in); the Mamba2 conv weight (K, channels) is not a linear map and
+    keeps its layout."""
     from .models.common import DTYPES
 
     dtype = DTYPES[cfg.param_dtype] if dtype is None else dtype
@@ -105,12 +126,12 @@ def model_params_from_numpy(cfg, params, *, device="cpu", dtype=None) -> dict:
     blocks = params["blocks"]
     for i in range(cfg.n_layers):
         pre = f"blocks.{i}."
-        sd[pre + "ln1.weight"] = t(blocks["ln1"][i])
-        sd[pre + "ln2.weight"] = t(blocks["ln2"][i])
-        for leaf, (mod, kind) in _ATTN_LEAVES.items():
-            if leaf in blocks["attn"]:
-                x = t(blocks["attn"][leaf][i])
-                sd[f"{pre}attn.{mod}.{kind}"] = x.T.contiguous() if kind == "weight" else x
-        for leaf, x in blocks["mlp"].items():
-            sd[f"{pre}mlp.{leaf}.weight"] = t(x[i]).T.contiguous()
+        if not cfg.ssm:
+            _tf_block(sd, pre, blocks, i, t)
+            continue
+        for leaf, (name, transpose) in _MAMBA_LEAVES.items():
+            x = t(blocks[leaf][i])
+            sd[pre + name] = x.T.contiguous() if transpose else x
+    for j in range(cfg.n_shared_attn if cfg.attn_every else 0):
+        _tf_block(sd, f"shared_attn.{j}.", params["shared_attn"], j, t)
     return sd

@@ -19,9 +19,10 @@ from .flash_attention import flash_attention_call, flash_attention_plain
 from .potus_price import potus_price_call, potus_price_plain
 from .potus_schedule import potus_schedule_alloc_plain, potus_schedule_call
 from .potus_slot import potus_slot_call, potus_slot_step_plain
+from .ssd_scan import ssd_intra_chunk_call, ssd_intra_chunk_plain
 
-__all__ = ["flash_attention", "decode_attention", "potus_slot_step", "potus_price",
-           "potus_schedule_alloc", "cohort_drain_split", "plain"]
+__all__ = ["flash_attention", "decode_attention", "ssd_intra_chunk", "potus_slot_step",
+           "potus_price", "potus_schedule_alloc", "cohort_drain_split", "plain"]
 
 
 def _flash_attention_with(fn, q, k, v, causal):
@@ -40,6 +41,13 @@ def decode_attention(q, k_cache, v_cache, pos):
     """q: (B, Hq, D); caches: (B, S, Hkv, D); pos: (B,) -> (B, Hq, D)."""
     fn = decode_attention_plain if q.device.type == "cpu" else decode_attention_call
     return fn(q, k_cache, v_cache, pos.to(torch.int32))
+
+
+def ssd_intra_chunk(xc, dtc, dA_cum, Bc, Cc):
+    """xc (b, nc, Q, H, P); dtc, dA_cum (b, nc, Q, H); Bc, Cc (b, nc, Q, S) ->
+    (y_diag (b, nc, Q, H, P), states (b, nc, H, P, S) float32)."""
+    fn = ssd_intra_chunk_plain if xc.device.type == "cpu" else ssd_intra_chunk_call
+    return fn(xc, dtc, dA_cum, Bc, Cc)
 
 
 def potus_slot_step(consts, state, act, pred, nxt, t0, *, scheduler="potus", age_cap=64,
@@ -75,6 +83,7 @@ def cohort_drain_split(src_ext, shipped, ratio, inst_comp, age_bucket):
 #: the plain versions under the wrappers' names, on any device
 plain = SimpleNamespace(flash_attention=partial(_flash_attention_with, flash_attention_plain),
                         decode_attention=decode_attention_plain,
+                        ssd_intra_chunk=ssd_intra_chunk_plain,
                         potus_slot_step=potus_slot_step_plain,
                         potus_price=potus_price_plain,
                         potus_schedule_alloc=potus_schedule_alloc_plain,

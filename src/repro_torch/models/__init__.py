@@ -1,3 +1,3 @@
-"""The model zoo of the port: the dense decoder (``model_zoo``) and its
-building blocks (``common``). Mixture-of-experts, SSM and hybrid models are
-not ported yet."""
+"""The model zoo of the port: the dense, SSM and hybrid decoders
+(``model_zoo``), their building blocks (``common``) and the Mamba2 blocks
+(``mamba``). Mixture-of-experts and encoder models are not ported yet."""

@@ -3,7 +3,8 @@
 
 Modules: :class:`RMSNorm`, :class:`MLP` (swiglu, geglu, gelu) and
 :class:`Attention` (``_qkv``, the full-sequence ``forward`` and the one-token
-``decode``); functions :func:`rms_norm`, :func:`rope` and :func:`apply_rope`.
+``decode``); functions :func:`rms_norm`, :func:`rope`, :func:`apply_rope` and
+:func:`einsum` (promoting mixed operands as ``jnp.einsum`` does).
 The reference's bfloat16 rounding points are kept: ``rms_norm`` normalises
 in float32, casts to ``x``'s type, then multiplies by the weight;
 ``rope`` works in float32 and ``apply_rope`` casts back.
@@ -20,11 +21,13 @@ are (in, out) and ``convert.model_params_from_numpy`` transposes them.
 """
 from __future__ import annotations
 
+from functools import reduce
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["DTYPES", "rms_norm", "rope", "apply_rope", "RMSNorm", "MLP", "Attention"]
+__all__ = ["DTYPES", "einsum", "rms_norm", "rope", "apply_rope", "RMSNorm", "MLP", "Attention"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -33,6 +36,13 @@ def _ops(ops):
     if ops is None:
         from ..kernels import ops
     return ops
+
+
+def einsum(eq, *operands):
+    """``torch.einsum`` over operands promoted to one type first, as
+    ``jnp.einsum`` promotes them (``torch.einsum`` refuses mixed types)."""
+    dtype = reduce(torch.promote_types, (t.dtype for t in operands))
+    return torch.einsum(eq, *(t.to(dtype) for t in operands))
 
 
 # ---------------------------------------------------------------------------

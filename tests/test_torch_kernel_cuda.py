@@ -12,7 +12,10 @@ match their plain versions within the tolerances of ``tests/test_kernels.py``
 (2e-5 in float32, 2e-2 in bfloat16: the plain versions cast the softmax
 weights to the value type, the kernels do not) on its shape grids plus the
 served model's widths, a ragged tile and head_dim 256, and repeat bitwise.
-Run on the machine with the card:
+The SSD intra-chunk kernel matches its plain version within 1e-5 (float32)
+and 1e-2 (bfloat16) of the tensor's scale at mamba2-1.3b widths in the
+model's types, bitwise on dyadic inputs, and repeats bitwise. Run on the
+machine with the card:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
@@ -176,3 +179,102 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError):
         kd.decode_attention_call(q[:, :, 0], k.transpose(1, 2), k.transpose(1, 2),
                                  torch.zeros(1, dtype=torch.int64, device=cuda_device))
+
+
+SSD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # of max |ref|: tests/test_kernels.py:98-108
+
+
+def _ssd_close(got, want, dtype):
+    """y_diag within its type's limit, the float32 states within float32's."""
+    for g, w, tol in zip(got, want, (SSD_TOL[dtype], SSD_TOL["float32"])):
+        scale = max(float(w.float().abs().max()), 1e-6)
+        assert float((g.float() - w.float()).abs().max()) / scale < tol
+
+
+@pytest.mark.parametrize("b,T,dtype", [(1, 2048, "bfloat16"), (1, 2048, "float32"),
+                                       (2, 1000, "float32"), (2, 1000, "bfloat16"),
+                                       (1, 300, "float32")])
+def test_ssd_intra_chunk_kernel_matches_plain_version(cuda_device, b, T, dtype):
+    """mamba2-1.3b widths (H=64, P=64, S=128, chunk 256) in the model's types,
+    the inputs caught on ``ssd_chunked``'s kernel route (T=1000 pads to
+    nc=4); the kernel's y_diag is in x's type, its states float32."""
+    from repro_torch.kernels import ssd_scan as kss
+
+    x, dt, A, B, C = chip_smoke.ssd_inputs(T, b, T, getattr(torch, dtype), cuda_device)
+    args = chip_smoke.ssd_kernel_inputs(x, dt, A, B, C, 256)
+    kss.launches.reset()
+    got = kss.ssd_intra_chunk_call(*args)
+    again = kss.ssd_intra_chunk_call(*args)
+    want = kss.ssd_intra_chunk_plain(*args)
+    torch.cuda.synchronize()
+    assert kss.launches.n == 2
+    assert got[0].dtype == args[0].dtype and got[1].dtype == torch.float32
+    _ssd_close(got, want, dtype)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))  # no atomics: runs repeat
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_intra_chunk_kernel_at_zamba2_widths(cuda_device, dtype):
+    """zamba2-1.2b's prefill shapes (H=64, P=64, S=64, chunk 256, a 512-token
+    prompt: nc=2), the inputs caught on ``ssd_chunked``'s kernel route."""
+    from repro_torch.kernels import ssd_scan as kss
+
+    x, dt, A, B, C = chip_smoke.ssd_inputs(5, 1, 512, getattr(torch, dtype), cuda_device, S=64)
+    args = chip_smoke.ssd_kernel_inputs(x, dt, A, B, C, 256)
+    got = kss.ssd_intra_chunk_call(*args)
+    again = kss.ssd_intra_chunk_call(*args)
+    _ssd_close(got, kss.ssd_intra_chunk_plain(*args), dtype)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_ssd_intra_chunk_kernel_is_exact_on_dyadic_inputs(cuda_device, x_dtype):
+    """dA_cum = 0 (every decay is exp(0) = 1), dt in {0.5, 1, 2}, x, B, C small
+    integers: every product and sum is exact in float32, so kernel and plain
+    version agree bitwise whatever their summation orders."""
+    from repro_torch.kernels import ssd_scan as kss
+
+    rng = np.random.default_rng(7)
+    b, nc, Q, H, P, S = 2, 3, 96, 3, 80, 40  # ragged q, p and s tiles
+    dev, xdt = cuda_device, getattr(torch, x_dtype)
+
+    def ints(*shape):
+        return torch.as_tensor(rng.integers(-2, 3, shape), dtype=xdt, device=dev)
+
+    xc, Bc, Cc = ints(b, nc, Q, H, P), ints(b, nc, Q, S), ints(b, nc, Q, S)
+    dtc = torch.as_tensor(rng.choice([0.5, 1.0, 2.0], (b, nc, Q, H)), dtype=torch.float32,
+                          device=dev)
+    dA = torch.zeros((b, nc, Q, H), dtype=torch.float32, device=dev)
+    got = kss.ssd_intra_chunk_call(xc, dtc, dA, Bc, Cc)
+    y, st = kss.ssd_intra_chunk_plain(xc, dtc, dA, Bc, Cc)
+    assert torch.equal(got[0], y.to(xdt)) and torch.equal(got[1], st)
+
+
+def test_ssd_chunked_kernel_route_matches_plain_route(cuda_device):
+    """End to end (the pattern of ``tests/test_kernels.py:110``): the chunked
+    scan through the kernel against ``kernels.ops.plain``, float32, a T that
+    is not a multiple of the chunk."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba as pm
+
+    x, dt, A, B, C = chip_smoke.ssd_inputs(0, 2, 700, torch.float32, cuda_device)
+    got = pm.ssd_chunked(x, dt, A, B, C, 256)
+    want = pm.ssd_chunked(x, dt, A, B, C, 256, ops=ops.plain)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_intra_chunk_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import ssd_scan as kss
+
+    xc = torch.zeros((1, 1, 16, 2, 8), device=cuda_device)
+    dt = torch.zeros((1, 1, 16, 2), device=cuda_device)
+    Bc = torch.zeros((1, 1, 16, 4), device=cuda_device)
+    with pytest.raises(TypeError):  # dA_cum must be float32
+        kss.ssd_intra_chunk_call(xc, dt, dt.bfloat16(), Bc, Bc)
+    with pytest.raises(TypeError):  # x, B and C share one type
+        kss.ssd_intra_chunk_call(xc, dt, dt, Bc.bfloat16(), Bc)
+    with pytest.raises(ValueError):
+        kss.ssd_intra_chunk_call(xc.transpose(3, 4).contiguous().transpose(3, 4), dt, dt, Bc,
+                                 Bc)
+    with pytest.raises(ValueError):
+        kss.ssd_intra_chunk_call(xc.cpu(), dt.cpu(), dt.cpu(), Bc.cpu(), Bc.cpu())

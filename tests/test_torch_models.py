@@ -10,8 +10,9 @@
   ``use_pallas`` False (dense einsum attention) and True (Pallas in
   interpret mode): float32 logits within rtol = atol = 1e-4 (the
   reference's own two paths differ by ~2e-6), and the KV cache likewise;
-* the families the port does not run raise ``NotImplementedError``, and the
-  entry points refuse a missing card unless given ``device="cpu"``.
+* the families the port does not run raise ``NotImplementedError`` naming
+  the ROADMAP.md item that ports them, and the entry points refuse a missing
+  card unless given ``device="cpu"``.
 """
 import dataclasses
 
@@ -151,7 +152,9 @@ def test_norm_and_rope_keep_the_reference_rounding_points():
 
 def test_init_draws_the_reference_scales():
     """Leaf.materialize's scales: embed 0.02, matrices 1/sqrt(fan_in), biases
-    zero, norms one; the same generator seed gives the same weights."""
+    zero, norms one; the same generator seed gives the same weights. The
+    Mamba2 leaves: ``conv_w`` 0.5 (``mamba.py:37``), ``A_log``, ``D`` and
+    ``gate_norm`` one, ``dt_bias`` and ``conv_b`` zero."""
     cfg = pconfigs.get_config("qwen2_5_32b").reduced()
     a = pz.init(cfg, torch.Generator().manual_seed(1), "cpu")
     b = pz.init(cfg, torch.Generator().manual_seed(1), "cpu")
@@ -164,15 +167,41 @@ def test_init_draws_the_reference_scales():
     assert float(a.blocks[0].attn.wq.bias.abs().max()) == 0.0
     assert float((a.blocks[0].ln1.weight - 1).abs().max()) == 0.0
 
+    cfg = pconfigs.get_config("zamba2_1_2b").reduced().with_(d_model=256)
+    m = pz.init(cfg, torch.Generator().manual_seed(1), "cpu")
+    blk = m.blocks[1]
+    assert isinstance(m, pz.SSMDecoder) and len(m.shared_attn) == cfg.n_shared_attn
+    assert abs(float(blk.conv_w.std()) - 0.5) < 0.02
+    assert abs(float(blk.in_proj.weight.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
+    d_in = cfg.ssm_expand * cfg.d_model
+    assert abs(float(blk.out_proj.weight.std()) * np.sqrt(d_in) - 1.0) < 0.05
+    for one in (blk.A_log, blk.D, blk.gate_norm.weight, blk.norm.weight):
+        assert float((one - 1).abs().max()) == 0.0
+    for zero in (blk.dt_bias, blk.conv_b):
+        assert float(zero.abs().max()) == 0.0
+    wq = m.shared_attn[0].attn.wq.weight
+    assert abs(float(wq.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
 
-@pytest.mark.parametrize("name", ["granite_moe_1b", "mamba2_1_3b", "zamba2_1_2b",
-                                  "hubert_xlarge", "internvl2_1b"])
+
+@pytest.mark.parametrize("name", ["granite_moe_1b", "hubert_xlarge", "internvl2_1b"])
 def test_unported_families_raise(name):
     cfg = pconfigs.get_config(name).reduced()
     with pytest.raises(NotImplementedError, match="not ported yet"):
         pz.init(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pz.cache_spec(cfg, 1, 16)
+
+
+@pytest.mark.parametrize("field,value,item", [("moe", True, 6), ("is_encoder", True, 7),
+                                              ("frontend", "vision_stub", 7)])
+def test_check_supported_names_the_roadmap_item(field, value, item):
+    """MoE, encoder-only and frontend configs still raise, each naming the
+    ROADMAP.md section 1 item that ports it; SSM and hybrid configs run."""
+    cfg = pconfigs.get_config("qwen2_5_32b").reduced().with_(**{field: value})
+    with pytest.raises(NotImplementedError, match=rf"module item {item}\)"):
+        pz.check_supported(cfg)
+    for name in ("mamba2_1_3b", "zamba2_1_2b"):
+        pz.check_supported(pconfigs.get_config(name))
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked_for():
