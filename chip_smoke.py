@@ -28,8 +28,9 @@ I=16384 serving fleet, counting the kernel launches of each:
   (8 of 64 layers, bf16, weights from a seeded ``torch.Generator``): the
   flash attention kernel (``flash_attention``, per prefill and layer) and
   the decode attention kernel (``decode_attention``, per decode round and
-  layer); both kernels alone at qwen widths beside SDPA; the kernel route
-  against the plain route teacher-forced, in bf16 and in f32;
+  layer); both kernels alone at qwen2.5-32b and zamba2-1.2b widths beside
+  SDPA; the kernel route against the plain route teacher-forced, in bf16
+  and in f32;
 * phase H, the SSM and hybrid models at full width and depth in bf16,
   weights from a seeded ``torch.Generator``: the SSD intra-chunk kernel
   (``ssd_intra_chunk``) alone at mamba2-1.3b widths through
@@ -52,7 +53,10 @@ It checks the results and prints:
 * per check, the largest difference kernel vs plain version;
 * per kernel, one call's kernel, plain and bound ms at the main path's
   shapes (for the slot kernel each phase's device time, for the drain
-  kernel the library call's ms);
+  kernel the library call's ms); for the attention kernels the device ms
+  per call, from a ``torch.profiler`` trace, of the kernel and of
+  ``scaled_dot_product_attention`` beside their event-timed ms, the route
+  each call took (tensor cores or SIMT) and the reached TFLOP/s or GB/s;
 * per path, its wall ms per slot, its metrics, the device busy share, the
   top device items and (path 2, phase D) the peak device memory; each
   phase's seconds; for the served run its tokens, slots, wall seconds,
@@ -263,6 +267,35 @@ def time_calls(fn, n):
     return start.elapsed_time(stop) / n
 
 
+def device_ms(fn, n, parts=None):
+    """Device ms per call of ``fn``, from a ``torch.profiler`` trace of ``n``
+    calls: for each device function, its mean duration per record times its
+    launches per call (records / n, rounded), summed. Unlike
+    ``time_calls``, the host's cost of launching is left out, so a call that
+    costs the host more than the card is not timed at the host's rate. The
+    trace now and then drops a record (or all of them: it is then taken
+    again, up to three times); a mean over the records kept is not shortened
+    by that. ``parts``, a dict, receives the ms per call of each name."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_times(prof)
+        if rows:
+            per_call = {name.split("(")[0]: ms / count * max(1, round(count / n))
+                        for name, count, ms in rows}
+            if parts is not None:
+                parts.update(per_call)
+            return sum(per_call.values())
+    check(False, f"device_ms: three traces of {n} calls held no device records")
+
+
 def device_times(prof):
     """(name, count, device ms) per device-side event name, longest first.
     A ``record_function`` span shows on the device timeline too; it is a range
@@ -443,8 +476,9 @@ def one_call(kp, ks, pq, convert, prob, U, mid_state, cuda, card):
     return out
 
 
-def profile_run(fn, top=8, suffix=""):
-    """Device busy share and the top device items of one profiled run."""
+def profile_run(fn, top=8, suffix="", also=()):
+    """Device busy share and the top device items of one profiled run, and
+    the items whose name starts with one of ``also`` wherever they rank."""
     import torch
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -458,8 +492,9 @@ def profile_run(fn, top=8, suffix=""):
     if busy_ms > 0:
         print(f"  device busy {busy_ms:.3f} ms of {prof_ms:.3f} ms wall: "
               f"share {busy_ms / prof_ms:.4f} (profiled run){suffix}")
-        for name, count, ms in rows[:top]:
-            print(f"    {ms:10.3f} ms  x{count:<6d} {name[:90]}{suffix}")
+        for i, (name, count, ms) in enumerate(rows):
+            if i < top or name.split("<")[0].split("(")[0].removeprefix("void ").startswith(also):
+                print(f"    {ms:10.3f} ms  x{count:<6d} {name[:90]}{suffix}")
     else:
         print(f"  device busy share: not measured (the profiler saw no device time){suffix}")
 
@@ -809,9 +844,32 @@ def counters():
             "ssd_intra_chunk": kss.launches}
 
 
+def route_counters():
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+
+    return {"flash_attention": kfa, "decode_attention": kda}
+
+
+def kernel_routes():
+    """Launches of each route of kernels 5 and 6 (tensor cores, SIMT) since
+    the last reset: {kernel: {"tc": n, "simt": n}}."""
+    return {name: {"tc": m.launches_tc.n, "simt": m.launches_simt.n}
+            for name, m in route_counters().items()}
+
+
+def all_on_tensor_cores(n):
+    """The routes expected when every launch of kernels 5 and 6 in the
+    counts ``n`` took the tensor cores (bf16 at head_dim 64 or 128)."""
+    return {name: {"tc": n[name], "simt": 0} for name in route_counters()}
+
+
 def reset_counts():
     for c in counters().values():
         c.reset()
+    for m in route_counters().values():
+        m.launches_tc.reset()
+        m.launches_simt.reset()
 
 
 def read_counts():
@@ -1094,13 +1152,21 @@ def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
 # ---------------------------------------------------------------------------
 
 ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:13
-# kernels 5 and 6 alone at qwen2.5-32b widths: (B, Hq, Hkv, D); flash (S, dtype, causal) cases;
-# decode (B, S, Hq, Hkv, D)
-FLASH_DIMS = (1, 40, 8, 128)
-FLASH_CASES = ((32, "bfloat16", True), (128, "bfloat16", True), (512, "bfloat16", True),
-               (4096, "bfloat16", True), (512, "float32", True), (512, "bfloat16", False))
-FLASH_ENTRY = (512, "bfloat16", True)  # the kernels line's case: the largest served prompt
-DECODE_DIMS = (4, 1024, 40, 8, 128)
+# kernels 5 and 6 alone at the served models' widths: flash (B, Hq, Hkv, D) and decode
+# (B, S, Hq, Hkv, D); flash (widths, S, dtype, causal) cases, S=300 a ragged tile
+FLASH_DIMS = {"qwen2.5-32b": (1, 40, 8, 128), "zamba2-1.2b": (1, 32, 32, 64)}
+FLASH_CASES = (("qwen2.5-32b", 32, "bfloat16", True), ("qwen2.5-32b", 128, "bfloat16", True),
+               ("qwen2.5-32b", 300, "bfloat16", True), ("qwen2.5-32b", 512, "bfloat16", True),
+               ("qwen2.5-32b", 4096, "bfloat16", True), ("qwen2.5-32b", 512, "float32", True),
+               ("qwen2.5-32b", 512, "bfloat16", False), ("zamba2-1.2b", 512, "bfloat16", True),
+               ("zamba2-1.2b", 544, "bfloat16", True))
+# the kernels line's case: the largest served prompt
+FLASH_ENTRY = ("qwen2.5-32b", 512, "bfloat16", True)
+DECODE_DIMS = {"qwen2.5-32b": (4, 1024, 40, 8, 128), "zamba2-1.2b": (2, 544, 32, 32, 64)}
+DECODE_ENTRY = ("qwen2.5-32b", "bfloat16")
+# the device function names of kernels 5 and 6, printed wherever they rank in a profile
+ATTENTION_KERNELS = ("flash_tc_kernel", "flash_simt_kernel", "decode_split_tc_kernel",
+                     "decode_split_kernel", "decode_merge_kernel")
 
 
 def attention_bound(nbytes, flops, dtype):
@@ -1134,47 +1200,61 @@ def library_sdpa(q, k, v, **kw):
 
 
 def flash_kernel_checks(card, cuda):
-    """Kernel 5 alone against its plain version at qwen widths (Hq=40, Hkv=8,
-    D=128, B=1): ms, plain ms, library ms (SDPA), bound. Returns the kernels
-    line's entry (the S=512 causal bf16 case, the largest served prompt)."""
+    """Kernel 5 alone against its plain version at qwen2.5-32b widths (Hq=40,
+    Hkv=8, D=128) and zamba2-1.2b widths (Hq=Hkv=32, D=64), B=1: two runs
+    bitwise, the route each call took (tensor cores for bf16 at D 64 and 128,
+    SIMT otherwise), the device ms per call of the kernel and of SDPA (and
+    their event-timed ms), the plain version's ms, the bound and the reached
+    TFLOP/s. Returns the kernels line's entry (``FLASH_ENTRY``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops as kops
 
-    B, Hq, Hkv, D = FLASH_DIMS
     worst, entry = 0.0, None
-    for S, name, causal in FLASH_CASES:
+    for widths, S, name, causal in FLASH_CASES:
+        B, Hq, Hkv, D = FLASH_DIMS[widths]
         dtype = getattr(torch, name)
         g = torch.Generator(device=cuda).manual_seed(S)
         q, k, v = (torch.randn((B, h, S, D), generator=g, device=cuda).to(dtype)
                    for h in (Hq, Hkv, Hkv))
+        reset_counts()
         out = kf.flash_attention_call(q, k, v, causal)
         want = kf.flash_attention_plain(q, k, v, causal)
         again = kf.flash_attention_call(q, k, v, causal)
         torch.cuda.synchronize()
-        label = f"flash S={S} {name} causal={causal}"
+        kernel_route = kf.route(dtype, D)
+        label = f"flash {widths} S={S} {name} causal={causal} ({kernel_route})"
+        routes = kernel_routes()["flash_attention"]
+        check(routes == {r: 2 * (r == kernel_route) for r in ("tc", "simt")},
+              f"{label}: routes {routes}")
         err = attention_close(label, out, want, name)
         check(torch.equal(out, again), f"{label}: two kernel runs differ")
         worst = max(worst, err)
         del want
-        n = 5 if S > 1024 else 20
-        ms = time_calls(lambda: kf.flash_attention_call(q, k, v, causal), n)
+        n = 20
+        kernel = partial(kf.flash_attention_call, q, k, v, causal)
+        sdpa = partial(library_sdpa, q, k, v, is_causal=causal)
+        ms, event_ms = device_ms(kernel, n), time_calls(kernel, n)
+        library_ms, library_event_ms = device_ms(sdpa, n), time_calls(sdpa, n)
         plain_ms = time_calls(lambda: kf.flash_attention_plain(q, k, v, causal), 3)
-        library_ms = time_calls(lambda: library_sdpa(q, k, v, is_causal=causal), n)
         elem = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * elem  # q, k, v in; out
         flops = 4 * B * Hq * D * S * S // (2 if causal else 1)
         bound_ms, bound_by = attention_bound(nbytes, flops, dtype)
-        print(f"{label}: max_abs_err={err:.3e} (tol {ATT_TOL[name]}), two runs bitwise; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {flops} flops) [{card}]")
-        if (S, name, causal) == FLASH_ENTRY:
-            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms)
+        print(f"{label}: max_abs_err={err:.3e} (tol {ATT_TOL[name]}), two runs bitwise; device "
+              f"ms per call: kernel {ms:.4f}, library (SDPA) {library_ms:.4f}; event ms per call: "
+              f"kernel {event_ms:.4f}, SDPA {library_event_ms:.4f}, plain {plain_ms:.4f}; bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {flops} flops); kernel "
+              f"{flops / ms / 1e9:.2f} TFLOP/s, SDPA {flops / library_ms / 1e9:.2f} [{card}]")
+        if (widths, S, name, causal) == FLASH_ENTRY:
+            entry = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms,
+                         library_event_ms=library_event_ms)
         del q, k, v, out, again
         torch.cuda.empty_cache()
     # the model's (B, S, H, D) layout through kernels.ops: strided views, no copy
+    B, Hq, Hkv, D = FLASH_DIMS["qwen2.5-32b"]
     g = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (torch.randn((2, 300, h, D), generator=g, device=cuda).to(torch.bfloat16)
                for h in (Hq, Hkv, Hkv))
@@ -1192,51 +1272,88 @@ def flash_kernel_checks(card, cuda):
             **entry}
 
 
+def decode_pos_sets(B, S, L, rng):
+    """The timed ``pos`` (0, S-1 and random values) and the batches that put
+    every split edge of the plan's L (0, L-1, L, 2L-1, S-1) in some request."""
+    timed = np.array([0, S - 1, *rng.integers(1, S - 1, B - 2)], np.int32)[:B]
+    edges = [p for p in (0, L - 1, L, 2 * L - 1, S - 1) if p < S]
+    edges += [S - 1] * (-len(edges) % B)
+    return timed, [np.array(edges[i:i + B], np.int32) for i in range(0, len(edges), B)]
+
+
 def decode_kernel_checks(card, cuda):
-    """Kernel 6 alone against its plain version at B=4, S=1024, Hq=40, Hkv=8,
-    D=128 in bf16 and f32, pos with 0, 1023 and random values. Returns the
-    kernels line's entry (the bf16 case)."""
+    """Kernel 6 alone against its plain version at qwen2.5-32b widths (B=4,
+    S=1024, Hq=40, Hkv=8, D=128) and zamba2-1.2b widths (B=2, S=544,
+    Hq=Hkv=32, D=64), bf16 and f32: on the timed ``pos`` and on every split
+    edge of the plan (two runs bitwise each), the device ms per call of the
+    kernel and of SDPA (and their event-timed ms), the plain version's ms, the
+    bound and the reached GB/s. Returns the kernels line's entry
+    (``DECODE_ENTRY``)."""
     import torch
 
     from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
 
-    B, S, Hq, Hkv, D = DECODE_DIMS
-    rng = np.random.default_rng(0)
-    pos_np = np.array([0, S - 1, *rng.integers(1, S - 1, B - 2)], np.int32)
-    pos = torch.as_tensor(pos_np, device=cuda)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
     worst, entry = 0.0, None
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        g = torch.Generator(device=cuda).manual_seed(6)
-        q = torch.randn((B, Hq, D), generator=g, device=cuda).to(dtype)
-        kc, vc = (torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(dtype)
-                  for _ in range(2))
-        out = kd.decode_attention_call(q, kc, vc, pos)
-        want = kd.decode_attention_plain(q, kc, vc, pos)
-        again = kd.decode_attention_call(q, kc, vc, pos)
-        torch.cuda.synchronize()
-        label = f"decode B={B} S={S} {name} pos={pos_np.tolist()}"
-        err = attention_close(label, out, want, name)
-        check(torch.equal(out, again), f"{label}: two kernel runs differ")
-        worst = max(worst, err)
-        ms = time_calls(lambda: kd.decode_attention_call(q, kc, vc, pos), 50)
-        plain_ms = time_calls(lambda: kd.decode_attention_plain(q, kc, vc, pos), 10)
-        # SDPA on the kernel-native layout, made outside the timing
-        qs, ks, vs = q[:, :, None], kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-        mask = (torch.arange(S, device=cuda)[None, :] <= pos[:, None].long())[:, None, None, :]
-        library_ms = time_calls(lambda: library_sdpa(qs, ks, vs, attn_mask=mask), 50)
-        elem = q.element_size()
-        rows = int((pos_np.astype(np.int64) + 1).sum())
-        nbytes = 2 * rows * Hkv * D * elem + 2 * q.numel() * elem + 4 * B
-        flops = 4 * Hq * D * rows
-        bound_ms, bound_by = attention_bound(nbytes, flops, dtype)
-        print(f"{label}: max_abs_err={err:.3e} (tol {ATT_TOL[name]}), two runs bitwise; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA, bool mask) "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes over "
-              f"the {rows} cache rows read, {flops} flops) [{card}]")
-        if dtype == torch.bfloat16:
-            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms)
+    for widths, (B, S, Hq, Hkv, D) in DECODE_DIMS.items():
+        L, splits = kd.decode_split_plan(B, Hkv, S, n_sm)
+        pos_np, edges = decode_pos_sets(B, S, L, np.random.default_rng(0))
+        pos = torch.as_tensor(pos_np, device=cuda)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            g = torch.Generator(device=cuda).manual_seed(6)
+            q = torch.randn((B, Hq, D), generator=g, device=cuda).to(dtype)
+            kc, vc = (torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(dtype)
+                      for _ in range(2))
+            kernel_route = kf.route(dtype, D)
+            label = (f"decode {widths} B={B} S={S} {name} ({kernel_route}, L={L}, {splits} "
+                     f"splits, {B * Hkv * splits} blocks)")
+            err = 0.0
+            reset_counts()
+            for p_np in (pos_np, *edges):
+                p = torch.as_tensor(p_np, device=cuda)
+                out = kd.decode_attention_call(q, kc, vc, p)
+                again = kd.decode_attention_call(q, kc, vc, p)
+                torch.cuda.synchronize()
+                at = f"{label} pos={p_np.tolist()}"
+                err = max(err, attention_close(at, out, kd.decode_attention_plain(q, kc, vc, p),
+                                               name))
+                check(torch.equal(out, again), f"{at}: two kernel runs differ")
+            routes = kernel_routes()["decode_attention"]
+            check(routes == {r: 2 * (1 + len(edges)) * (r == kernel_route) for r in ("tc", "simt")},
+                  f"{label}: routes {routes}")
+            worst = max(worst, err)
+            kernel = partial(kd.decode_attention_call, q, kc, vc, pos)
+            # SDPA on the kernel-native layout, made outside the timing
+            qs = q[:, :, None]
+            ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+            mask = (torch.arange(S, device=cuda)[None, :] <= pos[:, None].long())[:, None, None, :]
+            sdpa = partial(library_sdpa, qs, ks, vs, attn_mask=mask)
+            passes = {}
+            ms, event_ms = device_ms(kernel, 50, passes), time_calls(kernel, 50)
+            library_ms, library_event_ms = device_ms(sdpa, 50), time_calls(sdpa, 50)
+            plain_ms = time_calls(lambda: kd.decode_attention_plain(q, kc, vc, pos), 10)
+            elem = q.element_size()
+            rows = int((pos_np.astype(np.int64) + 1).sum())
+            nbytes = 2 * rows * Hkv * D * elem + 2 * q.numel() * elem + 4 * B
+            flops = 4 * Hq * D * rows
+            bound_ms, bound_by = attention_bound(nbytes, flops, dtype)
+            print(f"{label}: max_abs_err={err:.3e} (tol {ATT_TOL[name]}) over pos "
+                  f"{[pos_np.tolist(), *(e.tolist() for e in edges)]}, two runs bitwise; device "
+                  f"ms per call (timed pos {pos_np.tolist()}): kernel {ms:.4f} ("
+                  + ", ".join(f"{k.split('<')[0]} {v:.4f}" for k, v in passes.items())
+                  + f"), library (SDPA, "
+                  f"bool mask) {library_ms:.4f}; event ms per call: kernel {event_ms:.4f}, SDPA "
+                  f"{library_event_ms:.4f}, plain {plain_ms:.4f}; bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {nbytes} bytes over the {rows} cache rows read, {flops} flops); "
+                  f"kernel {nbytes / ms / 1e6:.1f} GB/s [{card}]")
+            if (widths, name) == DECODE_ENTRY:
+                entry = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms,
+                             library_event_ms=library_event_ms)
+            del q, kc, vc, ks, vs
+            torch.cuda.empty_cache()
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:23", "max_abs_err": worst,
@@ -1395,7 +1512,7 @@ def serving_path(card, cuda):
     reqs, slots, fleet = serve(cfg, model, cuda, timed_engine_class())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = read_counts()
+    n, routes = read_counts(), kernel_routes()
     peak = torch.cuda.max_memory_allocated()
     rounds = sum(e.decode_rounds for e in fleet.replicas)
     tokens = fleet.tokens_served
@@ -1415,10 +1532,13 @@ def serving_path(card, cuda):
           f"bound {round_bound_ms:.4f} ms ({round_bytes} weight bytes); "
           f"prefill {prefill_ms / prefill_tok:.4f} ms per prompt token ({prefill_tok} tokens); "
           f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
-    print("  launches: " + " ".join(f"{k}={v}" for k, v in n.items()) + f" [{card}]")
+    print("  launches: " + " ".join(f"{k}={v}" for k, v in n.items()) + f"; routes {routes} "
+          f"[{card}]")
     want = dict(ZERO_COUNTS, flash_attention=SERVE_LAYERS * SERVE_REQUESTS,
                 decode_attention=SERVE_LAYERS * rounds, potus_schedule=slots)
     check(n == want, f"served run launches {n}, expected {want}")
+    check(routes == all_on_tensor_cores(n),
+          f"served run: a bf16 attention launch at head_dim 128 missed the tensor cores: {routes}")
     check(len(reqs) == SERVE_REQUESTS and all(
         r.done and len(r.generated) == SERVE_MAX_NEW for r in reqs),
         "served run: a request did not finish with 16 tokens")
@@ -1429,7 +1549,8 @@ def serving_path(card, cuda):
     same = slots2 == slots and {r.rid: list(r.generated) for r in reqs2} == first
     print(f"  two runs give identical tokens: {same} [{card}]")
     check(same, "served run: two runs differ")
-    profile_run(lambda: serve(cfg, model, cuda, ServingEngine), top=10, suffix=f" [{card}]")
+    profile_run(lambda: serve(cfg, model, cuda, ServingEngine), top=10, suffix=f" [{card}]",
+                also=ATTENTION_KERNELS)
     del model
     torch.cuda.empty_cache()
 
@@ -1817,7 +1938,8 @@ def handover_gap(cfg, model, prompts, toks, logits, cuda):
 def hybrid_served(card, cuda):
     """H3: zamba2-1.2b at full width and depth. In bf16: two prompts of 512
     tokens served by a ``ServingEngine`` (prefill each, then 16 decode
-    rounds), counted and timed; the same generation by the entry points,
+    rounds), counted and timed, then served for 3 rounds under the profiler
+    (device items by name); the same generation by the entry points,
     whose tokens must equal the engine's; once more with every launch of
     the three kernels held against its plain version on the path's own
     arguments (``HeldRoute``); and every Mamba2 block and shared-attention
@@ -1833,7 +1955,7 @@ def hybrid_served(card, cuda):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.models import model_zoo as pz
-    from repro_torch.serving.engine import Request
+    from repro_torch.serving.engine import Request, ServingEngine
 
     cfg = get_config(HYBRID_ARCH)
     model = pz.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
@@ -1857,19 +1979,31 @@ def hybrid_served(card, cuda):
     eng.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = read_counts()
+    n, routes = read_counts(), kernel_routes()
     print(f"  served: 2 prompts x {HYBRID_PROMPT} tokens, {eng.decode_rounds} decode rounds, "
           f"{eng.tokens_served} tokens in {wall:.3f} s; prefill "
           f"{sum(eng.prefill_ms) / sum(eng.prefill_tokens):.4f} ms per prompt token, decode "
           f"round median {np.median(eng.round_ms):.3f} ms (min {min(eng.round_ms):.3f}, max "
           f"{max(eng.round_ms):.3f}) [{card}]")
-    print("  launches: " + " ".join(f"{k}={v}" for k, v in n.items()) + f" [{card}]")
+    print("  launches: " + " ".join(f"{k}={v}" for k, v in n.items()) + f"; routes {routes} "
+          f"[{card}]")
     want = dict(ZERO_COUNTS, ssd_intra_chunk=2 * cfg.n_layers, flash_attention=2 * n_inv,
                 decode_attention=HYBRID_STEPS * n_inv)
     check(n == want, f"H3 served launches {n}, expected {want}")
+    check(routes == all_on_tensor_cores(n),
+          f"H3: a bf16 attention launch at head_dim 64 missed the tensor cores: {routes}")
     check(all(r.done and len(r.generated) == HYBRID_STEPS + 1 for r in reqs),
           "H3: a request did not finish")
     served = [list(r.generated) for r in reqs]
+
+    def serve_again():  # 3 decode rounds: tracing ~1000 calls a round costs seconds
+        again = ServingEngine(cfg, model, max_batch=2, max_len=HYBRID_MAX_LEN,
+                              service_rate=float(HYBRID_STEPS))
+        for i, p in enumerate(prompts):
+            again.submit(Request(i, p, max_new=4))
+        again.step()
+
+    profile_run(serve_again, top=8, suffix=f" [{card}]", also=ATTENTION_KERNELS)
 
     toks, logits = hybrid_generate(cfg, model, prompts, cuda)
     same = served == toks.tolist()

@@ -7,18 +7,29 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:24``
 (``flash_attention_kernel``). One block per (query-row tile, KV head,
 request) holds the G query heads of its KV head, so each K/V tile staged in
 shared memory serves all of them; the running (m, l, acc) stay in float32,
-q is scaled by 1/sqrt(D) before Q Kᵀ, the causal loop stops at the block's
-diagonal, and nothing is summed with atomics (two runs are bitwise equal).
-The products are warp-level float32 FMAs, no matrix library.
+the causal loop stops at the block's diagonal, and nothing is summed with
+atomics (two runs are bitwise equal). Two kernels, chosen by an explicit
+rule before the launch (:func:`route`), never by a failure:
+
+* ``"tc"`` — bfloat16 at head_dim 64 or 128 (every bf16 launch of the
+  served models): both products on the tensor cores (``mma.sync`` m16n8k16,
+  float32 accumulators), K and V staged in bf16 by ``cp.async`` in a
+  two-stage ring, the softmax in registers and P rounded to bf16 as the
+  A operand of P·V. Every pointer and row stride must be 16-byte aligned;
+  the wrapper raises otherwise.
+* ``"simt"`` — float32 (TF32 tensor cores would break its 2e-5 limit), and
+  bfloat16 at any other head_dim up to 256: warp-level float32 FMAs, q
+  scaled by 1/sqrt(D) before Q Kᵀ, the softmax weights kept in float32.
 
 The plain version is ``src/repro/kernels/ref.py:15``
 (``flash_attention_reference``): the full score matrix, masked to -inf, a
 float32 softmax whose weights are cast to ``v``'s type before the PV
-product. So in bfloat16 the kernel (which keeps the weights in float32, as
-the TPU kernel does) and the plain version differ by design and agree
-within 2e-2; in float32 within 2e-5.
+product. The tensor-core kernel rounds the unnormalised weights to bf16,
+the SIMT kernel keeps them in float32 (as the TPU kernel does), so in
+bfloat16 kernel and plain version agree within 2e-2; in float32 within
+2e-5.
 
-:func:`flash_attention_call` launches the kernel on CUDA tensors and raises
+:func:`flash_attention_call` launches a kernel on CUDA tensors and raises
 on anything else; there is no fallback. ``kernels.ops.flash_attention``
 takes :func:`flash_attention_plain` for CPU tensors only.
 """
@@ -31,13 +42,17 @@ import torch
 
 from ._build import LaunchCounter
 
-__all__ = ["flash_attention_call", "flash_attention_plain", "launches", "check_dtype",
-           "MAX_HEAD_DIM"]
+__all__ = ["flash_attention_call", "flash_attention_plain", "route", "launches",
+           "launches_tc", "launches_simt", "check_dtype", "MAX_HEAD_DIM", "TC_HEAD_DIMS"]
 
-#: launches of the CUDA kernel (one per :func:`flash_attention_call`)
+#: launches of either CUDA kernel (one per :func:`flash_attention_call`)
 launches = LaunchCounter()
+#: launches of the tensor-core kernel, and of the SIMT kernel
+launches_tc = LaunchCounter()
+launches_simt = LaunchCounter()
 
-MAX_HEAD_DIM = 256  # the largest NS*32 instantiated in the source
+MAX_HEAD_DIM = 256  # the largest NS*32 instantiated in the SIMT kernel
+TC_HEAD_DIMS = (64, 128)  # the head dims instantiated in the tensor-core kernel
 
 _P = ctypes.c_void_p
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -47,10 +62,11 @@ def _library():
     from ._build import load
 
     lib = load("flash_attention")
-    lib.flash_attention_run.argtypes = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
-                                        ctypes.c_float, ctypes.c_int, _P]
-    lib.flash_attention_run.restype = ctypes.c_int
+    shape = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, _P, ctypes.c_int, ctypes.c_float]
+    lib.flash_attention_tc_run.argtypes = [*shape, _P]
+    lib.flash_attention_simt_run.argtypes = [*shape, ctypes.c_int, _P]
+    lib.flash_attention_tc_run.restype = lib.flash_attention_simt_run.restype = ctypes.c_int
     return lib
 
 
@@ -68,6 +84,12 @@ def check_dtype(name: str, *tensors) -> torch.dtype:
             raise TypeError(f"{name}: every tensor must be {dtype} on {dev}, got {t.dtype} "
                             f"on {t.device}")
     return dtype
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a call of this type and head_dim takes: ``"tc"`` (tensor
+    cores) for bfloat16 at head_dim 64 or 128, ``"simt"`` otherwise."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "simt"
 
 
 def flash_attention_call(q, k, v, causal: bool = True):
@@ -91,6 +113,14 @@ def flash_attention_call(q, k, v, causal: bool = True):
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride() != k.stride():
         raise ValueError("flash_attention_call: the head dimension must be contiguous and v "
                          "must have k's strides")
+    kernel = route(dtype, D)
+    if kernel == "tc":
+        elem = q.element_size()
+        misaligned = [name for name, t in (("q", q), ("k", k), ("v", v))
+                      if t.data_ptr() % 16 or any(st * elem % 16 for st in t.stride()[:3])]
+        if misaligned:
+            raise ValueError(f"flash_attention_call: the tensor-core kernel needs 16-byte aligned "
+                             f"pointers and strides; {', '.join(misaligned)} is not")
     out = torch.empty((B, S, Hq, D), dtype=dtype, device=q.device).transpose(1, 2)
     if q.numel() == 0:
         return out
@@ -98,12 +128,16 @@ def flash_attention_call(q, k, v, causal: bool = True):
                            dtype=torch.int64)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_run(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                                  Hq, Hkv, S, D, strides.data_ptr(), int(bool(causal)),
-                                  1.0 / math.sqrt(D), int(dtype == torch.bfloat16), stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D,
+            strides.data_ptr(), int(bool(causal)), 1.0 / math.sqrt(D))
+    if kernel == "tc":
+        err = lib.flash_attention_tc_run(*args, stream)
+    else:
+        err = lib.flash_attention_simt_run(*args, int(dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"flash attention kernel failed: CUDA error {err}")
+        raise RuntimeError(f"flash attention kernel ({kernel}) failed: CUDA error {err}")
     launches.n += 1
+    (launches_tc if kernel == "tc" else launches_simt).n += 1
     return out
 
 

@@ -10,8 +10,10 @@ the schedule kernel matches within ``rtol/atol 1e-5`` (the shapes of
 ``tests/test_kernels.py:176-181``). The flash and decode attention kernels
 match their plain versions within the tolerances of ``tests/test_kernels.py``
 (2e-5 in float32, 2e-2 in bfloat16: the plain versions cast the softmax
-weights to the value type, the kernels do not) on its shape grids plus the
-served model's widths, a ragged tile and head_dim 256, and repeat bitwise.
+weights to the value type and the kernels do not, or round them at another
+point) on its shape grids plus the served models' widths, ragged tiles,
+head_dim 256 and every split edge of the decode plan, repeat bitwise, and
+count which flash route (tensor cores or SIMT) ran.
 The SSD intra-chunk kernel matches its plain version within 1e-5 (float32)
 and 1e-2 (bfloat16) of the tensor's scale at mamba2-1.3b widths in the
 model's types, bitwise on dyadic inputs, and repeats bitwise. Run on the
@@ -111,19 +113,27 @@ def _randn(rng, shape, dtype, device):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,Hq,Hkv,S,D", [(1, 4, 4, 128, 32), (2, 8, 2, 256, 64),
                                           (1, 4, 1, 512, 64), (2, 6, 2, 128, 48),
-                                          (1, 40, 8, 300, 128), (1, 2, 1, 33, 256)])
+                                          (1, 40, 8, 300, 128), (1, 2, 1, 33, 256),
+                                          (1, 32, 32, 512, 64), (1, 32, 32, 544, 64),
+                                          (2, 40, 8, 77, 128)])
 def test_flash_attention_kernel_matches_plain_version(cuda_device, B, Hq, Hkv, S, D, causal,
                                                       dtype):
+    """The shape grid of ``tests/test_kernels.py``, the served models' widths
+    (qwen2.5-32b: 40/8 heads of 128; zamba2-1.2b: 32/32 heads of 64) and
+    ragged tiles; the route counters show which kernel ran."""
     from repro_torch.kernels import flash_attention as kf
 
     rng = np.random.default_rng(S + D)
     q, k, v = (_randn(rng, (B, h, S, D), dtype, cuda_device) for h in (Hq, Hkv, Hkv))
-    kf.launches.reset()
+    for c in (kf.launches, kf.launches_tc, kf.launches_simt):
+        c.reset()
     out = kf.flash_attention_call(q, k, v, causal)
     again = kf.flash_attention_call(q, k, v, causal)
     want = kf.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     assert kf.launches.n == 2 and out.dtype == q.dtype and out.shape == (B, Hq, S, D)
+    tc = dtype == "bfloat16" and D in (64, 128)
+    assert (kf.launches_tc.n, kf.launches_simt.n) == ((2, 0) if tc else (0, 2))
     tol = ATT_TOL[dtype]
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     assert torch.equal(out, again)  # no atomics: runs repeat bitwise
@@ -131,22 +141,39 @@ def test_flash_attention_kernel_matches_plain_version(cuda_device, B, Hq, Hkv, S
 
 def test_flash_attention_kernel_reads_the_model_layout(cuda_device):
     """``kernels.ops.flash_attention`` hands the kernel (B, S, H, D) tensors as
-    strided (B, H, S, D) views and gets a contiguous (B, S, H, D) back."""
+    strided (B, H, S, D) views and gets a contiguous (B, S, H, D) back, on
+    both routes."""
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(0)
-    q, k, v = (_randn(rng, (2, 100, h, 64), "float32", cuda_device) for h in (6, 2, 2))
-    got = ops.flash_attention(q, k, v, causal=True)
-    want = ops.plain.flash_attention(q, k, v, causal=True)
-    assert got.is_contiguous()
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for dtype, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+        q, k, v = (_randn(rng, (2, 100, h, 64), dtype, cuda_device) for h in (6, 2, 2))
+        kf.launches_tc.reset()
+        got = ops.flash_attention(q, k, v, causal=True)
+        want = ops.plain.flash_attention(q, k, v, causal=True)
+        assert got.is_contiguous()
+        assert kf.launches_tc.n == (dtype == "bfloat16")
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _split_edge_pos(B, S, L, rng):
+    """Batches of ``pos`` that put 0, L-1, L, 2L-1 and S-1 in some request,
+    the rest random."""
+    edges = [p for p in (0, L - 1, L, 2 * L - 1, S - 1) if p < S]
+    edges += list(rng.integers(0, S, -len(edges) % B))
+    return [np.array(edges[i:i + B], np.int32) for i in range(0, len(edges), B)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 4, 4, 256, 32), (3, 8, 2, 512, 64),
                                           (1, 4, 1, 1024, 128), (4, 40, 8, 1024, 128),
-                                          (2, 2, 1, 100, 256)])
+                                          (2, 2, 1, 100, 256), (2, 32, 32, 544, 64)])
 def test_decode_attention_kernel_matches_plain_version(cuda_device, B, Hq, Hkv, S, D, dtype):
+    """On random positions and on every split edge of the plan's L (0, L-1,
+    L, 2L-1, S-1): the kernels' pair against the plain version, two runs
+    bitwise, one counted launch per call, pass 1 on the tensor cores for
+    bf16 at head_dim 64 and 128 and on the CUDA cores otherwise."""
     from repro_torch.kernels import decode_attention as kd
 
     rng = np.random.default_rng(S + D)
@@ -154,16 +181,22 @@ def test_decode_attention_kernel_matches_plain_version(cuda_device, B, Hq, Hkv, 
     kc, vc = (_randn(rng, (B, S, Hkv, D), dtype, cuda_device) for _ in range(2))
     pos_np = rng.integers(0, S, size=B).astype(np.int32)
     pos_np[0], pos_np[-1] = 0, S - 1  # one row, and the whole cache
-    pos = torch.as_tensor(pos_np, device=cuda_device)
-    kd.launches.reset()
-    out = kd.decode_attention_call(q, kc, vc, pos)
-    again = kd.decode_attention_call(q, kc, vc, pos)
-    want = kd.decode_attention_plain(q, kc, vc, pos)
-    torch.cuda.synchronize()
-    assert kd.launches.n == 2 and out.dtype == q.dtype
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    L, _ = kd.decode_split_plan(B, Hkv, S, n_sm)
     tol = ATT_TOL[dtype]
-    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
-    assert torch.equal(out, again)
+    for p_np in (pos_np, *_split_edge_pos(B, S, L, rng)):
+        pos = torch.as_tensor(p_np, device=cuda_device)
+        for c in (kd.launches, kd.launches_tc, kd.launches_simt):
+            c.reset()
+        out = kd.decode_attention_call(q, kc, vc, pos)
+        again = kd.decode_attention_call(q, kc, vc, pos)
+        want = kd.decode_attention_plain(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        assert kd.launches.n == 2 and out.dtype == q.dtype
+        tc = dtype == "bfloat16" and D in (64, 128)
+        assert (kd.launches_tc.n, kd.launches_simt.n) == ((2, 0) if tc else (0, 2))
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+        assert torch.equal(out, again)
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(cuda_device):
@@ -179,6 +212,25 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError):
         kd.decode_attention_call(q[:, :, 0], k.transpose(1, 2), k.transpose(1, 2),
                                  torch.zeros(1, dtype=torch.int64, device=cuda_device))
+    # the tensor-core route: a view 2 bytes off a 16-byte boundary
+    wide = torch.zeros((1, 4, 8, 72), dtype=torch.bfloat16, device=cuda_device)
+    kv = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        kf.flash_attention_call(wide[..., 1:65], kv, kv)
+    cache = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16, device=cuda_device)
+    qd = torch.zeros((1, 4, 64), dtype=torch.bfloat16, device=cuda_device)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        kd.decode_attention_call(qd.half(), cache.half(), cache.half(), pos)
+    with pytest.raises(ValueError):  # G = 33 > MAX_GROUP
+        kd.decode_attention_call(torch.zeros((1, 66, 64), dtype=torch.bfloat16,
+                                             device=cuda_device), cache, cache, pos)
+    flat = torch.zeros(cache.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off
+        kd.decode_attention_call(qd, flat[1:].view(cache.shape), cache, pos)
+    with pytest.raises(ValueError, match="aligned"):  # rows of 60 bf16: not whole 16 bytes
+        kd.decode_attention_call(qd[..., :60].contiguous(), cache[..., :60].contiguous(),
+                                 cache[..., :60].contiguous(), pos)
 
 
 SSD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # of max |ref|: tests/test_kernels.py:98-108
