@@ -52,9 +52,10 @@ It checks the results and prints:
   seconds;
 * per check, the largest difference kernel vs plain version;
 * per kernel, one call's kernel, plain and bound ms at the main path's
-  shapes (for the slot kernel each phase's device time, for the drain
-  kernel the library call's ms); for the attention kernels the device ms
-  per call, from a ``torch.profiler`` trace, of the kernel and of
+  shapes (for the drain kernel the library call's ms); for the slot and
+  SSD kernels the device ms per call from a ``torch.profiler`` trace, split
+  by device function, beside the event-timed ms; for the attention kernels
+  the device ms per call of the kernel and of
   ``scaled_dot_product_attention`` beside their event-timed ms, the route
   each call took (tensor cores or SIMT) and the reached TFLOP/s or GB/s;
 * per path, its wall ms per slot, its metrics, the device busy share, the
@@ -116,6 +117,8 @@ SSD_CASES = ((1, 2048, "bfloat16"), (1, 2048, "float32"), (2, 1000, "float32"))
 # case (both sides compute them in f32), only a bf16 y_diag at the bf16 one
 SSD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 SSM_T, HYBRID_PROMPT, HYBRID_STEPS, HYBRID_MAX_LEN = 2048, 512, 16, 544
+SSM_FORWARD_RUNS = 10  # timed forwards of H2
+HYBRID_PREFILL_RUNS = 5  # warm prefills of each H3 prompt, timed
 
 
 def check(cond: bool, what: str) -> None:
@@ -499,18 +502,26 @@ def profile_run(fn, top=8, suffix="", also=()):
         print(f"  device busy share: not measured (the profiler saw no device time){suffix}")
 
 
-def timed_runs(fn, T, n):
-    """Wall ms per slot of ``n`` synchronised runs."""
+def wall_and_issue(fn, n):
+    """Wall ms of ``n`` synchronised calls of ``fn``, and the host's ms until
+    each call returns (everything issued, before the synchronize): where the
+    two meet, the host sets the wall."""
     import torch
 
-    walls = []
+    walls, issued = [], []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
+        issued.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3 / T)
-    return np.array(walls)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return np.array(walls), np.array(issued)
+
+
+def timed_runs(fn, T, n):
+    """Wall ms per slot of ``n`` synchronised runs."""
+    return wall_and_issue(fn, n)[0] / T
 
 
 SERIES = ("backlog", "comm_cost", "q_in_total", "q_out_total", "served_total")
@@ -1656,15 +1667,22 @@ def ssd_kernel_checks(card, cuda, chunk):
         check(torch.equal(y, y2) and torch.equal(st, st2), f"{label}: two kernel runs differ")
         worst = max(worst, err)
         del yp, sp
-        ms = time_calls(lambda: kss.ssd_intra_chunk_call(*args), 20)
+        parts = {}
+        ms = device_ms(lambda: kss.ssd_intra_chunk_call(*args), 20, parts=parts)
+        event_ms = time_calls(lambda: kss.ssd_intra_chunk_call(*args), 20)
         plain_ms = time_calls(lambda: kss.ssd_intra_chunk_plain(*args), 3)
         bound_ms, bound_by, nbytes, flops = ssd_bound(args, dtype)
+        split = ", ".join(f"{k[:40]} {v:.4f}" for k, v in sorted(parts.items(),
+                                                                 key=lambda r: -r[1]))
         print(f"{label}: y rel {rels[0]:.3e} (limit {SSD_TOL[name]}), states rel {rels[1]:.3e} "
-              f"(limit {SSD_TOL['float32']}) of max |ref|, max_abs_err={err:.3e}, two runs bitwise; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, "
-              f"{flops} flops); library: none, no one PyTorch call computes the block [{card}]")
+              f"(limit {SSD_TOL['float32']}) of max |ref|, max_abs_err={err:.3e}, two runs "
+              f"bitwise; device ms per call: kernel {ms:.4f} ({split}); event ms per call: "
+              f"kernel {event_ms:.4f}, plain {plain_ms:.4f}; bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes} bytes, {flops} flops); library: none, no one PyTorch "
+              f"call computes the block [{card}]")
         if (b, T, name) == SSD_CASES[0]:
-            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            entry = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
         torch.cuda.empty_cache()
     return {"name": "ssd_intra_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
@@ -1771,11 +1789,13 @@ def ssm_forward(card, cuda):
     print(f"  kernel vs plain route, each of the {cfg.n_layers} blocks from the same input, bf16: "
           f"largest max |dout| / max |out| {worst:.4e} (limit 5e-2) [{card}]")
     check(worst <= 5e-2, "H2 bf16: a block's kernel route beyond 5e-2 of its plain route")
-    walls = timed_runs(lambda: pz.forward(model, cfg, batch), SSM_T, 3) * SSM_T
+    walls, issued = wall_and_issue(lambda: pz.forward(model, cfg, batch), SSM_FORWARD_RUNS)
     peak = torch.cuda.max_memory_allocated()
-    print(f"  forward wall ms over 3 runs: median {np.median(walls):.3f} (min {walls.min():.3f}, "
-          f"max {walls.max():.3f}), {SSM_T / np.median(walls) * 1e3:.1f} tokens/s; peak device "
-          f"memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
+    print(f"  forward wall ms over {SSM_FORWARD_RUNS} runs: median {np.median(walls):.3f} (min "
+          f"{walls.min():.3f}, max {walls.max():.3f}), {SSM_T / np.median(walls) * 1e3:.1f} "
+          f"tokens/s; host ms to issue it: median {np.median(issued):.3f} (min "
+          f"{issued.min():.3f}, max {issued.max():.3f}); peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB) [{card}]")
     profile_run(lambda: pz.forward(model, cfg, batch), top=10, suffix=f" [{card}]")
     launches = n["ssd_intra_chunk"]
     del model, logits
@@ -1995,6 +2015,19 @@ def hybrid_served(card, cuda):
     check(all(r.done and len(r.generated) == HYBRID_STEPS + 1 for r in reqs),
           "H3: a request did not finish")
     served = [list(r.generated) for r in reqs]
+    # the served run holds the process's first zamba2 prefills, with their first-use costs:
+    # time each prompt's prefill again, warm
+    pre, issued = [], []
+    for p in prompts:
+        batch = {"tokens": torch.as_tensor(p, device=cuda)[None]}
+        w, i = wall_and_issue(lambda: pz.prefill(model, cfg, batch, HYBRID_MAX_LEN),
+                              HYBRID_PREFILL_RUNS)
+        pre.append(w / HYBRID_PROMPT)
+        issued.append(i / HYBRID_PROMPT)
+    pre, issued = np.concatenate(pre), np.concatenate(issued)
+    print(f"  warm prefill over {len(pre)} runs: median {np.median(pre):.4f} ms per prompt token "
+          f"(min {pre.min():.4f}, max {pre.max():.4f}); host ms per token to issue it: median "
+          f"{np.median(issued):.4f} (min {issued.min():.4f}, max {issued.max():.4f}) [{card}]")
 
     def serve_again():  # 3 decode rounds: tracing ~1000 calls a round costs seconds
         again = ServingEngine(cfg, model, max_batch=2, max_len=HYBRID_MAX_LEN,
@@ -2063,36 +2096,19 @@ def ssm_path(card, cuda):
     return dict(entry, launches=launches)
 
 
-def main() -> int:
+def slot_kernel(card, cuda):
+    """Section 2: the slot kernel against its plain version on the card: the
+    dyadic system bitwise (potus, shuffle, jsq; K=1 and 8), the I=16384
+    fleet's metrics and two runs, and one call at the main path's shapes,
+    held bitwise and timed. Returns the fleet, its constants, streams and
+    mid-run state, and the kernel's row of the kernels line (its
+    ``launches`` filled in by :func:`main_path`)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device; this script runs on the card",
-              file=sys.stderr)
-        return 2
     import repro_torch.core as pt
     from repro_torch.core import cohort_fused as cf
-    from repro_torch.kernels import _build
     from repro_torch.kernels import potus_slot as ps
 
-    cuda = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # -- 1. the card ---------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per csrc/<kernel>.cu, all together
-        list(pool.map(_build.build, KERNELS))
-    print("kernel build: " + ", ".join(f"{k} {_build.BUILD_SECONDS[k]:.2f} s" for k in KERNELS)
-          + f" (wall {time.perf_counter() - t0:.2f} s, in parallel)")
-
-    # -- 2. kernel against plain version on the card -------------------------
     T_d, W_d, AC_d = 40, 2, 16
     topo, net, placement, arr = dyadic_system(pt, T_d, W_d)
     for sched in ("potus", "shuffle", "jsq"):
@@ -2139,26 +2155,39 @@ def main() -> int:
     s_k, m_k = ps.potus_slot_call(*args, **kw)
     s_p, m_p = ps.potus_slot_step_plain(*args, **kw)
     one_err = max_abs(s_k, torch.stack(m_k), s_p, torch.stack(m_p))
-    ms_kernel = time_calls(lambda: ps.potus_slot_call(*args, **kw), 50)
+    # every output (state and metrics) bitwise, as on every run so far at these shapes
+    check(one_err == 0.0, f"one call at I={FLEET_I}: kernel vs plain max_abs_err={one_err}")
+    slot_parts = {}
+    ms_kernel = device_ms(lambda: ps.potus_slot_call(*args, **kw), 50, parts=slot_parts)
+    event_ms = time_calls(lambda: ps.potus_slot_call(*args, **kw), 50)
     ms_plain = time_calls(lambda: ps.potus_slot_step_plain(*args, **kw), 10)
     nbytes, nops = bytes_and_ops(consts, mid, 1)
     bound_ms = max(nbytes / PEAK_BYTES_S, nops / PEAK_F32_S) * 1e3
     bound_by = "bytes" if nbytes / PEAK_BYTES_S >= nops / PEAK_F32_S else "operations"
-    print(f"one call at I={FLEET_I}: max_abs_err={one_err:.3e} kernel {ms_kernel:.4f} ms, "
-          f"plain {ms_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, "
-          f"{nops} ops) [{card}]")
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            ps.potus_slot_call(*args, **kw)
-        torch.cuda.synchronize()
-    phases = [r for r in device_times(prof) if r[0].startswith("potus_p")]
-    for name, count, ms in sorted(phases):
-        print(f"  phase {name.split('(')[0]}: {ms / max(count, 1):.4f} ms per launch")
-    if not phases:
-        print("  phase times: not measured (the profiler saw no device time)")
+    print(f"one call at I={FLEET_I}: max_abs_err={one_err:.3e} device ms per call: kernel "
+          f"{ms_kernel:.4f}; event ms per call: kernel {event_ms:.4f}, plain {ms_plain:.4f}; "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {nops} ops) [{card}]")
+    for name, ms in sorted(slot_parts.items(), key=lambda r: -r[1]):
+        print(f"  part {name[:60]}: {ms:.4f} ms per call")
+    row = {"name": "potus_slot", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/potus_slot.cu",
+           "replaces": "src/repro/kernels/potus_slot.py:57", "launches": None,
+           "max_abs_err": one_err, "ms": ms_kernel, "event_ms": event_ms, "plain_ms": ms_plain,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return SimpleNamespace(fleet=(topo, net, placement, arr), consts=consts, streams=streams,
+                           mid=mid, row=row)
 
-    # -- 3. the main path ----------------------------------------------------
+
+def main_path(fleet, card):
+    """Section 3: main path 1, ``simulate`` on the I=16384 fleet through the
+    cohort-fused engine's slot kernel: launches counted (one per slot), two
+    runs bitwise, the result finite, wall ms/slot over five runs and a
+    profiled run's device busy share. Returns the kernel's launches."""
+    import torch
+
+    import repro_torch.core as pt
+
+    topo, net, placement, arr = fleet
     spec = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr, T=FLEET_T,
                          scheduler="potus", V=FLEET_V, window=FLEET_W,
                          age_cap=FLEET_AGE_CAP, device="cuda")
@@ -2209,17 +2238,51 @@ def main() -> int:
             print(f"    {ms:10.3f} ms  x{count:<6d} {name[:90]}")
     else:
         print("  device busy share: not measured (the profiler saw no device time)")
+    return main_launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    import repro_torch.core as pt
+    from repro_torch.core import cohort_fused as cf
+    from repro_torch.kernels import _build
+
+    cuda = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 1. the card ---------------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per csrc/<kernel>.cu, all together
+        list(pool.map(_build.build, KERNELS))
+    print("kernel build: " + ", ".join(f"{k} {_build.BUILD_SECONDS[k]:.2f} s" for k in KERNELS)
+          + f" (wall {time.perf_counter() - t0:.2f} s, in parallel)")
+
+    # -- 2. kernel against plain version on the card, 3. the main path ----------
+    slot = slot_kernel(card, cuda)
+    slot.row["launches"] = main_path(slot.fleet, card)
 
     for sched in ("potus", "shuffle", "jsq"):
-        compare_cohort("fleet", cf, pt, (topo, net, placement, arr), FLEET_T,
+        compare_cohort("fleet", cf, pt, slot.fleet, FLEET_T,
                        pt.SimConfig(V=FLEET_V, window=FLEET_W, scheduler=sched), cuda,
                        age_cap=FLEET_AGE_CAP)
     compare_cohort("paper", cf, pt, paper_system(pt, 300), 300,
                    pt.SimConfig(V=2.0, window=2, scheduler="potus"), cuda, age_cap=64)
 
     # -- 4. the fused cohort engine's dense route and events route: phases A-F ------
-    drain_kernel = cohort_dense(pt, card, cuda, (topo, net, placement, arr), consts, mid,
-                                streams)
+    drain_kernel = cohort_dense(pt, card, cuda, slot.fleet, slot.consts, slot.mid,
+                                slot.streams)
 
     # -- 5. the plain scan engine: kernels 2 and 3, main path 2 --------------------
     scan_kernels = scan_engine(pt, card, cuda)
@@ -2231,14 +2294,8 @@ def main() -> int:
     ssd_kernel = ssm_path(card, cuda)
 
     # -- 8. the kernels line, 9. the last line ---------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "potus_slot", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/potus_slot.cu",
-        "replaces": "src/repro/kernels/potus_slot.py:57",
-        "launches": main_launches, "max_abs_err": one_err, "ms": ms_kernel,
-        "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
-    }, *scan_kernels, drain_kernel, *attention_kernels, ssd_kernel]}))
+    print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
+                                  ssd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

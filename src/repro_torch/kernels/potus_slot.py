@@ -6,18 +6,20 @@ Replaces the TPU kernel ``src/repro/kernels/potus_slot.py:57``
 for K slots inside one Pallas program with all queue state in VMEM. On the
 H100 the state does not fit one SM (``q_out`` alone is 4.5 MB at I=16384,
 Atot=69) and the slot needs grid-wide folds in the middle, so the CUDA
-version is a sequence of eight phase kernels per slot on one stream; the
-source's header describes the phases. It is bound by bytes: each phase
-streams the (I, ., Atot) queue state once, at a few hundred operations per
-row. The state is updated in place in the output buffers after one copy in.
+version is five kernels per slot on one stream, one warp per instance row
+with the lanes across the age axis; the source's header describes them. The
+state in is read where it lies and the state out is written by the kernels.
 
 :func:`potus_slot_call` launches the kernel on CUDA tensors and raises on
-anything else; there is no fallback. :func:`potus_slot_step_plain` is the
-plain PyTorch version (the port's ``compact_slot_step`` looped over the K
-slots); ``kernels.ops.potus_slot_step`` takes it for CPU tensors only.
-Every float reduction of the kernel has a fixed order, so its runs are
-bitwise reproducible; the plain version sums in PyTorch's order, so the two
-agree bitwise wherever the sums are exact (the dyadic tier) and to rounding
+anything else; there is no fallback. It checks the constants and allocates
+the scratch once per (constants, shapes, stream) and keeps them with the
+filled argument struct, so a call costs the host little beyond its own
+tensors' checks. :func:`potus_slot_step_plain` is the plain PyTorch version
+(the port's ``compact_slot_step`` looped over the K slots);
+``kernels.ops.potus_slot_step`` takes it for CPU tensors only. Every float
+reduction of the kernel has a fixed order, so its runs are bitwise
+reproducible; the plain version sums in PyTorch's order, so the two agree
+bitwise wherever the sums are exact (the dyadic tier) and to rounding
 elsewhere.
 """
 from __future__ import annotations
@@ -44,7 +46,7 @@ launches = LaunchCounter()
 _PTR_FIELDS = (
     # constants
     "U", "mu", "inv_service", "sel", "stream", "valid", "succ", "term", "inst_comp",
-    "inst_cont", "gamma", "comp_count", "spout", "adj", "vb", "comp_start", "cont_rows",
+    "inst_cont", "gamma", "comp_count", "spout", "adj", "V", "beta", "comp_start", "cont_rows",
     "cont_start",
     # arrivals
     "act", "pred", "nxt",
@@ -52,12 +54,17 @@ _PTR_FIELDS = (
     "q_rem_in", "admit_in", "q_in_in", "q_out_in", "transit_in", "rmass_in", "rtime_in",
     "q_rem", "admit", "q_in", "q_out", "transit", "rmass", "rtime", "met",
     # scratch
-    "q_in_arr", "q_out_arr", "must", "row_bl", "row_cost", "M", "J", "usum", "winner",
-    "win_ok", "shipped", "w_pt", "w_ev", "d_land", "served_term", "P_pt", "P_ev", "CM",
-    "land", "ev_cb", "cmass",
+    "q_in_arr", "q_out_arr", "must", "M", "J", "usum", "winner", "win_ok", "wpt", "wev",
+    "d_land", "served_term", "P_pt", "P_ev", "CM", "land", "land_stamp", "ev_cb", "cmass",
+    "part",
     "stream_handle",
 )
-_INT_FIELDS = ("I", "S", "W1", "C", "NK", "Atot", "L", "age_cap", "n_slots", "t0", "sched")
+_INT_FIELDS = ("I", "S", "W1", "C", "NK", "Atot", "L", "age_cap", "n_slots", "t0", "sched",
+               "stamp0")
+_STATE = ("q_rem", "admit", "q_in", "q_out", "transit", "rmass", "rtime")
+_INT_TENSORS = ("succ", "inst_comp", "inst_cont", "comp_start", "cont_rows", "cont_start",
+                "J", "winner", "win_ok", "land_stamp")
+_PLANS_KEPT = 4
 
 
 class _Args(ctypes.Structure):
@@ -65,6 +72,24 @@ class _Args(ctypes.Structure):
 
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTR_FIELDS]
                 + [(n, ctypes.c_int) for n in _INT_FIELDS])
+
+
+class _Plan:
+    """What a call needs besides its state and arrivals, made once per
+    (constants, shapes, stream): the checked constants, the scratch tensors
+    and the argument struct with their pointers filled in. ``keep`` holds the
+    constants and the scratch alive, so the plan's key (the constants' id
+    among them) names only this set. ``stamp`` is the last landing stamp used
+    (``land_stamp`` starts at 0, stamps at 1)."""
+
+    def __init__(self, args: _Args, keep: dict, dims: tuple):
+        self.args, self.keep, self.dims, self.stamp = args, keep, dims, 0
+        I, S, W1, C, NK, A, L = dims
+        self.state_shapes = ((I, S, W1), (I, S), (I, A), (I, S, A), (I, A), (C, L), (C, L))
+
+
+#: plans by (id of the constants, shapes, stream), the newest last
+_PLANS: dict = {}
 
 
 def _library():
@@ -114,60 +139,97 @@ def _shapes(consts: StepConsts, state, act):
     return I, S, W1, C, NK, A, rmass.shape[1]
 
 
-def _launch(lib, consts: StepConsts, state, act, pred, nxt, t0: int, scheduler: str,
-            age_cap: int, stream_handle):
-    """Fill the argument struct and run the kernel; no device checks here."""
-    I, S, W1, C, NK, A, L = _shapes(consts, state, act)
-    n = act.shape[0]
-    dev = act.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    out = tuple(torch.empty_like(x) for x in state)
-    met = torch.empty((4, n), **f32)
-    vb = torch.stack([consts.V.reshape(()), consts.beta.reshape(())]).to(torch.float32)
-    scratch = {
-        "q_in_arr": torch.empty((I,), **f32), "q_out_arr": torch.empty((I, C), **f32),
-        "must": torch.empty((I, C), **f32), "row_bl": torch.empty((2, I), **f32),
-        "row_cost": torch.empty((2, I), **f32), "M": torch.empty((NK, C), **f32),
-        "J": torch.empty((NK, C), **i32), "usum": torch.empty((NK, C), **f32),
-        "winner": torch.zeros((C,), **i32), "win_ok": torch.zeros((C,), **i32),
-        "shipped": torch.empty((I, C), **f32), "w_pt": torch.empty((I, C), **f32),
-        "w_ev": torch.empty((I, C), **f32), "d_land": torch.empty((I, S, A), **f32),
-        "served_term": torch.empty((I, A), **f32), "P_pt": torch.empty((NK, C, A), **f32),
-        "P_ev": torch.empty((NK, C, A), **f32), "CM": torch.empty((NK, C, A), **f32),
-        "land": torch.empty((I, A), **f32), "ev_cb": torch.empty((C, A), **f32),
-        "cmass": torch.empty((C, A), **f32),
-    }
-    tensors = {
-        "U": consts.U, "mu": consts.mu, "inv_service": consts.inv_service,
-        "sel": consts.sel_cmp, "stream": consts.stream_cmp, "valid": consts.valid_cmp,
-        "succ": consts.succ_map, "term": consts.term_f, "inst_comp": consts.inst_comp,
-        "inst_cont": consts.inst_cont, "gamma": consts.gamma,
-        "comp_count": consts.comp_count, "spout": consts.spout_f, "adj": consts.adj_rows,
-        "vb": vb, "comp_start": consts.comp_start, "cont_rows": consts.cont_rows,
-        "cont_start": consts.cont_start, "act": act, "pred": pred, "nxt": nxt,
-        "met": met, **scratch,
-    }
-    for name, x, o in zip(("q_rem", "admit", "q_in", "q_out", "transit", "rmass", "rtime"),
-                          state, out):
-        tensors[name + "_in"] = x
-        tensors[name] = o
+def _check_tensors(tensors: dict, dev) -> None:
+    """Type, layout and device of every tensor the kernel reads or writes."""
     for name, x in tensors.items():
-        want = torch.int32 if name in ("succ", "inst_comp", "inst_cont", "comp_start",
-                                       "cont_rows", "cont_start", "J", "winner",
-                                       "win_ok") else torch.float32
+        want = torch.int32 if name in _INT_TENSORS else torch.float32
         if x.dtype != want:
             raise TypeError(f"potus slot kernel: {name} is {x.dtype}, expected {want}")
         if not x.is_contiguous():
             raise ValueError(f"potus slot kernel: {name} is not contiguous")
         if x.device != dev:
             raise ValueError(f"potus slot kernel: {name} is on {x.device}, expected {dev}")
-    args = _Args(**{name: x.data_ptr() for name, x in tensors.items()},
-                 stream_handle=stream_handle, I=I, S=S, W1=W1, C=C, NK=NK, Atot=A, L=L,
-                 age_cap=age_cap, n_slots=n, t0=t0, sched=_SCHED_CODE[scheduler])
+
+
+def _const_tensors(consts: StepConsts) -> dict:
+    return {
+        "U": consts.U, "mu": consts.mu, "inv_service": consts.inv_service,
+        "sel": consts.sel_cmp, "stream": consts.stream_cmp, "valid": consts.valid_cmp,
+        "succ": consts.succ_map, "term": consts.term_f, "inst_comp": consts.inst_comp,
+        "inst_cont": consts.inst_cont, "gamma": consts.gamma,
+        "comp_count": consts.comp_count, "spout": consts.spout_f, "adj": consts.adj_rows,
+        "V": consts.V.reshape(()).to(torch.float32),
+        "beta": consts.beta.reshape(()).to(torch.float32),
+        "comp_start": consts.comp_start, "cont_rows": consts.cont_rows,
+        "cont_start": consts.cont_start,
+    }
+
+
+def _plan(consts: StepConsts, state, act, stream_handle, dev) -> _Plan:
+    """The cached plan of these constants, shapes and stream; made, with every
+    check of the constants, on first use."""
+    key = (id(consts), tuple(state[0].shape), state[2].shape[-1], tuple(state[5].shape),
+           stream_handle, dev)
+    plan = _PLANS.pop(key, None)
+    if plan is None:
+        dims = _shapes(consts, state, act)
+        I, S, W1, C, NK, A, L = dims
+        const = _const_tensors(consts)
+        _check_tensors(const, dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        scratch = {
+            "q_in_arr": torch.empty((I,), **f32), "q_out_arr": torch.empty((I, C), **f32),
+            "must": torch.empty((I, C), **f32), "M": torch.empty((NK, C), **f32),
+            "J": torch.empty((NK, C), **i32), "usum": torch.empty((NK, C), **f32),
+            "winner": torch.zeros((C,), **i32), "win_ok": torch.zeros((C,), **i32),
+            "wpt": torch.empty((I, S), **f32), "wev": torch.empty((I, S), **f32),
+            "d_land": torch.empty((I, S, A), **f32),
+            "served_term": torch.empty((I, A), **f32), "P_pt": torch.empty((NK, C, A), **f32),
+            "P_ev": torch.empty((NK, C, A), **f32), "CM": torch.empty((NK, C, A), **f32),
+            "land": torch.empty((I, A), **f32), "land_stamp": torch.zeros((I,), **i32),
+            "ev_cb": torch.empty((C, A), **f32), "cmass": torch.empty((C, A), **f32),
+            "part": torch.empty((2, I, 4), **f32),
+        }
+        args = _Args(**{name: x.data_ptr() for name, x in {**const, **scratch}.items()},
+                     stream_handle=stream_handle, I=I, S=S, W1=W1, C=C, NK=NK, Atot=A, L=L)
+        plan = _Plan(args, {"consts": consts, **const, **scratch}, dims)
+        while len(_PLANS) >= _PLANS_KEPT:
+            _PLANS.pop(next(iter(_PLANS)))
+    _PLANS[key] = plan  # the newest last
+    return plan
+
+
+def _launch(lib, consts: StepConsts, state, act, pred, nxt, t0: int, scheduler: str,
+            age_cap: int, stream_handle):
+    """Check the call's own tensors, fill the plan's struct and run the kernel."""
+    dev = act.device
+    plan = _plan(consts, state, act, stream_handle, dev)
+    I, S, W1, C, NK, A, L = plan.dims
+    n = act.shape[0]
+    if (tuple(tuple(x.shape) for x in state) != plan.state_shapes
+            or tuple(act.shape[1:]) != (I, C)):
+        _shapes(consts, state, act)  # raises, naming the tensor
+        raise ValueError("potus slot kernel: the state's shapes do not match")
+    out = tuple(torch.empty_like(x) for x in state)
+    met = torch.empty((4, n), dtype=torch.float32, device=dev)
+    tensors = {"act": act, "pred": pred, "nxt": nxt, "met": met}
+    for name, x, o in zip(_STATE, state, out):
+        tensors[name + "_in"] = x
+        tensors[name] = o
+    _check_tensors(tensors, dev)
+    if plan.stamp + n >= 2 ** 30:  # stamps stay far from the int32 limit
+        plan.keep["land_stamp"].zero_()
+        plan.stamp = 0
+    args = plan.args
+    for name, x in tensors.items():
+        setattr(args, name, x.data_ptr())
+    args.age_cap, args.n_slots, args.t0 = age_cap, n, t0
+    args.sched, args.stamp0 = _SCHED_CODE[scheduler], plan.stamp + 1
     err = lib.potus_slot_run(ctypes.byref(args))
     if err != 0:
         raise RuntimeError(f"potus slot kernel failed: CUDA error {err}")
+    plan.stamp += n
     return out, (met[0], met[1], met[2], met[3])
 
 

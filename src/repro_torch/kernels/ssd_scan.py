@@ -8,12 +8,15 @@ Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py:23``
   y_diag[q] = sum_{k <= q} (C_q . B_k) exp(dA_q - dA_k) dt_k x_k
   state     = sum_k x_k^T (B_k exp(dA_end - dA_k) dt_k)          (P, S)
 
-One kernel writes y_diag, one block per (64-row q tile, head, b*nc), over
-the key tiles up to its diagonal, with the decay selected before the exp
-(for k > q the exponent is positive and may overflow); a second writes the
-states, one block per (64 x 64 tile of (P, S), head, b*nc), summing over the
-chunk's keys in one fixed order. No atomics: two runs are bitwise equal.
-C·Bᵀ is recomputed per head, as on the TPU.
+C·Bᵀ is formed once per (batch, chunk) into a float32 scratch that the
+heads read from L2. For bf16 inputs y_diag and the states run on the tensor
+cores (``mma.sync``), with float32 operands split into bf16 terms: two for
+y_diag's decay-weighted C·Bᵀ, three for x scaled by each key's weight in
+the states (their limit is 1e-5 of scale); float32 inputs take the CUDA
+cores. The decay is selected
+before the exp (for k > q the exponent is positive and may overflow). Every
+block owns its outputs and sums in one fixed order, with no atomics: two
+runs are bitwise equal.
 
 The plain version is ``src/repro/kernels/ref.py:49``
 (``ssd_intra_chunk_reference``). Its einsums (``models.common.einsum``)
@@ -22,7 +25,8 @@ promote mixed operands to one type first, as ``jnp.einsum`` does
 model's bf16 activations and float32 ``dA_cum`` it returns y_diag in
 float32, while the kernel returns it in ``xc``'s type, as the TPU kernel
 does. The two agree within 1e-5 of the tensor's scale in float32 and 1e-2
-in bfloat16 (``tests/test_kernels.py:98-108``).
+in bfloat16 (``tests/test_kernels.py:98-108``); the states within 1e-5 in
+both.
 
 :func:`ssd_intra_chunk_call` launches the kernel on CUDA tensors and raises
 on anything else; there is no fallback. ``kernels.ops.ssd_intra_chunk``
@@ -48,7 +52,8 @@ def _library():
     from ._build import load
 
     lib = load("ssd_intra_chunk")
-    lib.ssd_intra_chunk_run.argtypes = [_P, _P, _P, _P, _P, _P, _P, *[ctypes.c_int] * 7, _P]
+    lib.ssd_intra_chunk_run.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, *[ctypes.c_int] * 7,
+                                        _P]
     lib.ssd_intra_chunk_run.restype = ctypes.c_int
     return lib
 
@@ -89,9 +94,11 @@ def ssd_intra_chunk_call(xc, dtc, dA_cum, Bc, Cc):
         return y, states.zero_()
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    cb = torch.empty((b * nc, Q, Q), dtype=torch.float32, device=dev)  # C·Bᵀ per chunk
     err = lib.ssd_intra_chunk_run(xc.data_ptr(), dtc.data_ptr(), dA_cum.data_ptr(),
                                   Bc.data_ptr(), Cc.data_ptr(), y.data_ptr(), states.data_ptr(),
-                                  b * nc, Q, H, P, S, int(xc.dtype == torch.bfloat16),
+                                  cb.data_ptr(), b * nc, Q, H, P, S,
+                                  int(xc.dtype == torch.bfloat16),
                                   int(dtc.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"SSD intra-chunk kernel failed: CUDA error {err}")

@@ -15,9 +15,11 @@ point) on its shape grids plus the served models' widths, ragged tiles,
 head_dim 256 and every split edge of the decode plan, repeat bitwise, and
 count which flash route (tensor cores or SIMT) ran.
 The SSD intra-chunk kernel matches its plain version within 1e-5 (float32)
-and 1e-2 (bfloat16) of the tensor's scale at mamba2-1.3b widths in the
-model's types, bitwise on dyadic inputs, and repeats bitwise. Run on the
-machine with the card:
+and 1e-2 (bfloat16) of the tensor's scale (the states within 1e-5 in both)
+at mamba2-1.3b and zamba2-1.2b widths in the model's types and at widths no
+16-byte load fits, bitwise on dyadic inputs, and repeats bitwise; bf16
+takes its tensor-core route, float32 the CUDA cores. The slot kernel also
+runs bitwise on a 603-bucket age axis. Run on the machine with the card:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
@@ -62,6 +64,29 @@ def test_kernel_matches_plain_version_bitwise(cuda_device, scheduler):
         for x, y, z in zip(s_k + (m_k,), s_p + (m_p,), s_k2 + (m_k2,)):
             assert torch.equal(x, y)  # exact sums on the dyadic tier: bitwise
             assert torch.equal(x, z)  # fixed reduction order: runs repeat bitwise
+
+
+@pytest.mark.parametrize("scheduler", ["potus", "shuffle", "jsq"])
+def test_kernel_matches_plain_version_bitwise_on_a_long_age_axis(cuda_device, scheduler):
+    """age_cap 600 (603 buckets): a row's shared memory passes 48 KB and the
+    container partials split the components into chunks; still bitwise on the
+    dyadic system, in one-slot and eight-slot launches."""
+    import repro_torch.core as pt
+    from repro_torch.core import cohort_fused as cf
+    from repro_torch.kernels import potus_slot as ps
+
+    T, W, age_cap = 24, 2, 600
+    topo, net, placement, arr = chip_smoke.dyadic_system(pt, T, W)
+    consts, state, streams = chip_smoke.step_inputs(cf, topo, net, placement, arr, T, W, 2.0,
+                                                    0.5, age_cap, cuda_device)
+    s_p, m_p = chip_smoke.run_slots(ps.potus_slot_step_plain, consts, state, streams, 1,
+                                    scheduler, age_cap)
+    for K in (1, 8):
+        s_k, m_k = chip_smoke.run_slots(ps.potus_slot_call, consts, state, streams, K,
+                                        scheduler, age_cap)
+        torch.cuda.synchronize()
+        for x, y in zip(s_k + (m_k,), s_p + (m_p,)):
+            assert torch.equal(x, y)
 
 
 def test_scan_kernels_match_plain_version_bitwise_on_dyadic_states(cuda_device):
@@ -273,6 +298,21 @@ def test_ssd_intra_chunk_kernel_at_zamba2_widths(cuda_device, dtype):
 
     x, dt, A, B, C = chip_smoke.ssd_inputs(5, 1, 512, getattr(torch, dtype), cuda_device, S=64)
     args = chip_smoke.ssd_kernel_inputs(x, dt, A, B, C, 256)
+    got = kss.ssd_intra_chunk_call(*args)
+    again = kss.ssd_intra_chunk_call(*args)
+    _ssd_close(got, kss.ssd_intra_chunk_plain(*args), dtype)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_intra_chunk_kernel_on_unaligned_widths(cuda_device, dtype):
+    """Q=90, P=60, S=20: rows of x, B, C and C·Bᵀ that no 16-byte load fits,
+    ragged q, k, p and s tiles, two heads; limits as above, runs repeat."""
+    from repro_torch.kernels import ssd_scan as kss
+
+    x, dt, A, B, C = chip_smoke.ssd_inputs(9, 2, 180, getattr(torch, dtype), cuda_device, H=2,
+                                           P=60, S=20)
+    args = chip_smoke.ssd_kernel_inputs(x, dt, A, B, C, 90)
     got = kss.ssd_intra_chunk_call(*args)
     again = kss.ssd_intra_chunk_call(*args)
     _ssd_close(got, kss.ssd_intra_chunk_plain(*args), dtype)
