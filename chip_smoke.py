@@ -447,8 +447,9 @@ def dyadic_scan_checks(pt, kp, ks, cuda):
 
 def one_call(kp, ks, pq, convert, prob, U, mid_state, cuda, card):
     """Kernels 2 and 3 once at I=16384 from a mid-run state: bitwise equal to
-    their plain versions (+inf in the same places), ms per call (CUDA events,
-    warmed up), plain ms, bound."""
+    their plain versions (+inf in the same places), device ms per call (a
+    ``torch.profiler`` trace) beside the event-timed ms (CUDA events, warmed
+    up), plain ms, bound."""
     import torch
 
     state = convert.sim_state_from_numpy(mid_state, device=cuda)
@@ -468,14 +469,16 @@ def one_call(kp, ks, pq, convert, prob, U, mid_state, cuda, card):
         check(torch.equal(k, p), f"one {name} call at I={FLEET_I}: kernel differs from the "
               f"plain version (max_abs_err {err:.3e}); both repeat one operation order")
         del k, p
+        dev_ms = device_ms(lambda: call(*args, *extra, FLEET_V, 1.0), 20)
         ms = time_calls(lambda: call(*args, *extra, FLEET_V, 1.0), 20)
         plain_ms = time_calls(lambda: plain(*args, *extra, FLEET_V, 1.0), 3)
         bound_ms, bound_by, nbytes, nops = kernel_bound(args, gamma)
         print(f"one {name} call at I={FLEET_I} (mid-run state, t=64): max_abs_err={err:.3e} "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {nbytes} bytes, {nops} ops) [{card}]")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+              f"device ms per call: kernel {dev_ms:.4f}; event ms per call: kernel {ms:.4f}, "
+              f"plain {plain_ms:.4f}; bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, "
+              f"{nops} ops) [{card}]")
+        out[name] = dict(max_abs_err=err, ms=dev_ms, device_ms=dev_ms, event_ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     return out
 
 
@@ -798,6 +801,184 @@ def drain_bound(args, age_bucket):
             nops, nnz, 2 * I * I * Atot / PEAK_F32_S * 1e3)
 
 
+def fleet_inputs(pt, cf, cuda):
+    """The I=16384 fleet, its step constants, initial state and streams."""
+    fleet = fleet_system(pt, FLEET_I, FLEET_T)
+    check(fleet[0].n_instances == FLEET_I, "fleet size")
+    return (fleet, *step_inputs(cf, *fleet, FLEET_T, FLEET_W, FLEET_V, 1.0, FLEET_AGE_CAP,
+                                cuda))
+
+
+def fleet_mid(ps, consts, state0, streams):
+    """Path 1's state after 64 slots of the slot kernel (launches of 8)."""
+    return run_slots(ps.potus_slot_call, consts, state0, streams, 8, "potus", FLEET_AGE_CAP,
+                     T=64)[0]
+
+
+def dense_stepper(pt, cf, fleet, consts, streams, cuda):
+    """``step(ops, state, t, drain_split=None)``: one slot of the dense
+    potus-loop route's ``_fused_step`` on the I=16384 fleet, from any state,
+    with the sort scheduler (kernel 2 on the kernel route)."""
+    from repro_torch.core import potus as pp
+
+    topo, net, placement, _ = fleet
+    dense = pp.make_problem(topo, net, placement, cuda)
+    edges = cf._compact(topo).edges
+    u_pair = pp._u_pair(consts.U, dense.inst_container)
+    act, pred, nxt = streams
+
+    def step(ops, state, t, drain_split=None):
+        sched = partial(pp._schedule_with, ops, method="sort")
+        return cf._fused_step(consts, dense, sched, edges, u_pair, FLEET_V, 1.0, FLEET_AGE_CAP,
+                              state, (act[t], pred[t], nxt[t], t),
+                              drain_split=drain_split or ops.cohort_drain_split)
+
+    return step
+
+
+class _Captured(Exception):
+    """Ends a run once the drain's inputs of the wanted slot are taken."""
+
+
+def drain_args_fleet(step, mid):
+    """Kernel 4's arguments at I=16384: one dense step from path 1's state at
+    slot 64 (X from the sort scheduler). Returns ``(args, age_bucket)``."""
+    from repro_torch.kernels import ops as kops
+
+    captured = []
+
+    def capture(*args):
+        captured.append(args)
+        return kops.plain.cohort_drain_split(*args)
+
+    step(kops, mid, 64, drain_split=capture)
+    return captured[0][:4], captured[0][4]
+
+
+def drain_args_loop(pt, cf, cuda, t=64):
+    """Kernel 4's arguments on route A's I=1024 fleet at slot ``t``: the dense
+    potus-loop route on the card (kernel 3, the plain drain) run up to that
+    slot. Returns ``(args, age_bucket)``."""
+    from repro_torch.kernels import ops as kops
+
+    topo, net, placement, arr = fleet_system(pt, LOOP_I, FLEET_T)
+    seen = []
+
+    def capture(*args):
+        seen.append(args)
+        if len(seen) > t:
+            raise _Captured
+        return kops.plain.cohort_drain_split(*args)
+
+    ops = SimpleNamespace(**vars(kops.plain))
+    ops.potus_price = kops.potus_price
+    ops.cohort_drain_split = capture
+    try:
+        cf._run_cohort_fused_impl(topo, net, placement, arr, None, FLEET_T,
+                                  pt.SimConfig(V=FLEET_V, window=FLEET_W,
+                                               scheduler="potus-loop"),
+                                  age_cap=FLEET_AGE_CAP, device=cuda, ops=ops)
+    except _Captured:
+        pass
+    check(len(seen) == t + 1, f"route A ran {len(seen)} slots, not {t + 1}")
+    return seen[t][:4], seen[t][4]
+
+
+def drain_timing(kd, args, age_bucket, label, card):
+    """Kernel 4 on one input: held against its plain version (bitwise on
+    exact inputs, else rtol/atol 1e-5), two runs bitwise, something landed;
+    then its device ms per call and per phase (a ``torch.profiler`` trace),
+    the event-timed ms, the reached GB/s of the ratio read (its bytes over
+    the phase that reads it) and that phase's ms on an all-zero ratio of the
+    same shape (the stream without the products of the nonzeros), the plain
+    version's ms, the library call's (``ratio.T @ land_src`` over all
+    component planes, by device and by event) and the bound. Returns the
+    numbers."""
+    import torch
+
+    from repro_torch.core.compact import drain_ages
+
+    err, same = check_drain(kd, args, age_bucket, label)
+    landed = float(kd.cohort_drain_split_plain(*args, age_bucket).sum())
+    check(landed > 0, f"{label}: nothing landed")
+    parts = {}
+    dev = device_ms(lambda: kd.cohort_drain_call(*args, age_bucket), 20, parts=parts)
+    ev = time_calls(lambda: kd.cohort_drain_call(*args, age_bucket), 20)
+    plain_ms = time_calls(lambda: kd.cohort_drain_split_plain(*args, age_bucket), 5)
+    src, ship, ratio, comp = args
+    I, C, Aext = src.shape
+    drained = drain_ages(src, ship)
+    land_src = drained[:, :, :Aext - 1].clone()
+    land_src[:, :, age_bucket] += drained[:, :, -1]
+    lhs, rhs = ratio.T, land_src.reshape(I, C * (Aext - 1))
+    lib_dev = device_ms(lambda: torch.matmul(lhs, rhs), 5)
+    lib_ev = time_calls(lambda: torch.matmul(lhs, rhs), 5)
+    del drained, land_src, lhs, rhs
+    # the stream alone: the same call on an all-zero ratio, which has no products to take
+    zero, stream_parts = torch.zeros_like(ratio), {}
+    device_ms(lambda: kd.cohort_drain_call(src, ship, zero, comp, age_bucket), 20,
+              parts=stream_parts)
+    del zero
+    bound_ms, bound_by, nbytes, nops, nnz, dense_ms = drain_bound(args, age_bucket)
+    per_col = (ratio != 0).sum(dim=0)
+    ratio_ms = sum(ms for name, ms in parts.items() if "phase_b" in name)
+    stream_ms = sum(ms for name, ms in stream_parts.items() if "phase_b" in name)
+    gb_s = ratio.numel() * ratio.element_size() / (ratio_ms * 1e-3) / 1e9 if ratio_ms else 0.0
+    print(f"{label}: max_abs_err={err:.3e} bitwise={same}, two runs bitwise; device ms per "
+          f"call: kernel {dev:.4f}; event ms per call: kernel {ev:.4f}, plain {plain_ms:.4f}; "
+          f"ratio read at {gb_s:.1f} GB/s (phase B {ratio_ms:.4f} ms; on an all-zero ratio "
+          f"{stream_ms:.4f}); library (the all-plane f32 matmul) device "
+          f"{lib_dev:.4f} (event {lib_ev:.4f}); bound {bound_ms:.4f} ms ({bound_by}: {nbytes} "
+          f"bytes, {nops} ops, {nnz} nonzero ratios of {I * I} in "
+          f"{int((per_col > 0).sum())} columns, at most {int(per_col.max())} a column); dense "
+          f"own-plane work 2*I^2*Atot would take {dense_ms:.4f} ms [{card}]")
+    for name, ms in sorted(parts.items(), key=lambda r: -r[1]):
+        print(f"  part {name[:60]}: {ms:.4f} ms per call")
+    return dict(max_abs_err=err, device_ms=dev, event_ms=ev, parts=parts, ratio_gb_s=gb_s,
+                stream_ms=stream_ms, plain_ms=plain_ms, library_ms=lib_dev,
+                library_event_ms=lib_ev, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def drain_kernel(card, cuda, step=None, mid=None):
+    """Kernel 4 alone at the shapes of its two paths, each held against its
+    plain version and timed by device and by phase (:func:`drain_timing`):
+    phase D's I=16384 input (path 1's state at slot 64, one dense step) and
+    route A's I=1024 input at slot 64; and one dense step at I=16384 from
+    slot 64, wall-timed. ``step`` (:func:`dense_stepper`) and
+    ``mid`` come from the caller, or are built here from the fleet, so that
+    two checkouts can be compared in turns on one card. Returns kernel 4's
+    entry of the kernels line, its ``launches`` left to the caller."""
+    import torch
+
+    import repro_torch.core as pt
+    from repro_torch.core import cohort_fused as cf
+    from repro_torch.kernels import cohort_drain as kd
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import potus_slot as ps
+
+    if step is None:
+        fleet, consts, state0, streams = fleet_inputs(pt, cf, cuda)
+        mid = fleet_mid(ps, consts, state0, streams)
+        step = dense_stepper(pt, cf, fleet, consts, streams, cuda)
+    args, age_bucket = drain_args_fleet(step, mid)
+    big = drain_timing(kd, args, age_bucket, f"one cohort_drain call at I={FLEET_I} (path 1's "
+                       "state at t=64, X from the sort scheduler)", card)
+    del args
+    walls, issued = wall_and_issue(lambda: step(kops, mid, 64), 8)
+    print(f"one dense step at I={FLEET_I} from t=64 (kernels 2 and 4): wall ms over 8: median "
+          f"{np.median(walls):.4f}, min {walls.min():.4f}, max {walls.max():.4f}; host ms to "
+          f"issue it: median {np.median(issued):.4f} [{card}]")
+    torch.cuda.empty_cache()
+    args, age_bucket = drain_args_loop(pt, cf, cuda)
+    small = drain_timing(kd, args, age_bucket, f"one cohort_drain call at I={LOOP_I} (route "
+                         "A's state at t=64, X from the argmin loop)", card)
+    return {"name": "cohort_drain", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cohort_drain.cu",
+            "replaces": "src/repro/kernels/cohort_drain.py:38", "launches": None,
+            "ms": big["device_ms"], **big, "dense_step_ms": float(np.median(walls)),
+            f"at_I{LOOP_I}": small}
+
+
 def compare_cohort(label, cf, pt, sys_, T, cfg, cuda, against="plain", kernel=None, **kw):
     """The card's kernel route (``kernel``: a result already run, else run
     here) against the plain route on the card (``against="plain"``) or the
@@ -951,15 +1132,14 @@ def card_vs_cpu_paper(label, cf, sys_, T, cfg, cuda, **kw):
 
 def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
     """Phases A-F: the dense potus-loop route end to end (A), kernel 4 on
-    dyadic and random inputs (B), one kernel-4 call (C) and 16 dense steps (D)
-    at I=16384 from path 1's mid-run state, events on the compact route at
-    I=16384 (E), and the benchmarks/disruption.py scenario (F). Returns
-    kernel 4's entry of the kernels line."""
+    dyadic and random inputs (B), kernel 4 alone at I=16384 from path 1's
+    mid-run state and at route A's I=1024 (C), 16 dense steps at I=16384 from
+    path 1's mid-run state (D), events on the compact route at I=16384 (E),
+    and the benchmarks/disruption.py scenario (F). Returns kernel 4's entry of
+    the kernels line."""
     import torch
 
     from repro_torch.core import cohort_fused as cf
-    from repro_torch.core import potus as pp
-    from repro_torch.kernels import cohort_drain as kd
     from repro_torch.kernels import ops as kops
 
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: plain products would round")
@@ -1007,53 +1187,10 @@ def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
     drain_checks(pt, cuda)
     print(f"  phase B {time.perf_counter() - t_phase:.1f} s")
 
-    # -- C. one kernel-4 call at I=16384 from path 1's mid-run state ---------------
+    # -- C. kernel 4 alone at I=16384 (path 1's state at t=64) and at I=1024 (route A) --
     t_phase = time.perf_counter()
-    topo, net, placement, _ = fleet
-    dense = pp.make_problem(topo, net, placement, cuda)
-    edges = cf._compact(topo).edges
-    u_pair = pp._u_pair(consts.U, dense.inst_container)
-    act, pred, nxt = streams
-
-    def step(ops, state, t, drain_split=None):
-        sched = partial(pp._schedule_with, ops, method="sort")  # kernel 2 on the kernel route
-        return cf._fused_step(consts, dense, sched, edges, u_pair, FLEET_V, 1.0, FLEET_AGE_CAP,
-                              state, (act[t], pred[t], nxt[t], t),
-                              drain_split=drain_split or ops.cohort_drain_split)
-
-    captured = []
-
-    def capture(*args):
-        captured.append(args)
-        return kops.plain.cohort_drain_split(*args)
-
-    step(kops, mid, 64, drain_split=capture)
-    args, age_bucket = captured[0][:4], captured[0][4]
-    k = kd.cohort_drain_call(*args, age_bucket)
-    p = kd.cohort_drain_split_plain(*args, age_bucket)
-    torch.cuda.synchronize()
-    err = float((k.double() - p.double()).abs().max())
-    check(torch.allclose(k, p, rtol=1e-5, atol=1e-5),
-          f"one cohort_drain call at I={FLEET_I}: beyond rtol/atol 1e-5 (max_abs_err {err:.3e})")
-    check(float(p.sum()) > 0, f"one cohort_drain call at I={FLEET_I}: nothing landed")
-    del k, p
-    ms = time_calls(lambda: kd.cohort_drain_call(*args, age_bucket), 20)
-    plain_ms = time_calls(lambda: kd.cohort_drain_split_plain(*args, age_bucket), 5)
-    src, ship, ratio, comp = args
-    I, C, Aext = src.shape
-    drained = pt.drain_ages(src, ship)
-    land_src = drained[:, :, :Aext - 1].clone()
-    land_src[:, :, age_bucket] += drained[:, :, -1]
-    lhs, rhs = ratio.T, land_src.reshape(I, C * (Aext - 1))
-    library_ms = time_calls(lambda: torch.matmul(lhs, rhs), 5)
-    del drained, land_src, rhs
-    bound_ms, bound_by, nbytes, nops, nnz, dense_ms = drain_bound(args, age_bucket)
-    print(f"one cohort_drain call at I={FLEET_I} (path 1's state at t=64, X from the sort "
-          f"scheduler): max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library (the all-plane f32 matmul) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {nbytes} bytes, {nops} ops, {nnz} nonzero ratios of {I * I}); dense "
-          f"own-plane work 2*I^2*Atot would take {dense_ms:.4f} ms [{card}]")
-    del captured, args, src, ship, ratio, comp, lhs
+    step = dense_stepper(pt, cf, fleet, consts, streams, cuda)
+    entry = drain_kernel(card, cuda, step=step, mid=mid)
     print(f"  phase C {time.perf_counter() - t_phase:.1f} s")
 
     # -- D. 16 dense steps at I=16384, kernel route against plain route ------------
@@ -1085,12 +1222,13 @@ def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
     check(n == dict(ZERO_COUNTS, potus_schedule=16, cohort_drain=16), f"phase D launches {n}")
     check(np.isfinite(mk).all() and r16 <= 1e-4, "phase D: kernel route vs plain route")
     profile_run(lambda: step(kops, mid, 64))
-    del dense, u_pair
+    del step
     torch.cuda.empty_cache()
     print(f"  phase D {time.perf_counter() - t_phase:.1f} s")
 
     # -- E. events on the compact route at I=16384 ---------------------------------
     t_phase = time.perf_counter()
+    topo, net, placement, _ = fleet
     events = fleet_restart(pt, topo, 64)
     ev_spec = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=fleet[3], T=64,
                             scheduler="potus", V=FLEET_V, window=FLEET_W, age_cap=FLEET_AGE_CAP,
@@ -1151,11 +1289,7 @@ def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
                 f"{rel_diff(v, ref[name]):.3f})" for name, v in got.items()) + f" [{card}]")
     print(f"  phase F {time.perf_counter() - t_phase:.1f} s")
 
-    return {"name": "cohort_drain", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/cohort_drain.cu",
-            "replaces": "src/repro/kernels/cohort_drain.py:38", "launches": a_launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    return dict(entry, launches=a_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2123,10 +2257,7 @@ def slot_kernel(card, cuda):
             print(f"dyadic {sched} K={K}: kernel vs plain max_abs_err={err} bitwise={same}")
             check(same, f"dyadic {sched} K={K}: kernel differs from the plain version")
 
-    topo, net, placement, arr = fleet_system(pt, FLEET_I, FLEET_T)
-    check(topo.n_instances == FLEET_I, "fleet size")
-    consts, state0, streams = step_inputs(cf, topo, net, placement, arr, FLEET_T, FLEET_W,
-                                          FLEET_V, 1.0, FLEET_AGE_CAP, cuda)
+    fleet, consts, state0, streams = fleet_inputs(pt, cf, cuda)
     sp, mp = run_slots(ps.potus_slot_step_plain, consts, state0, streams, 1, "potus",
                        FLEET_AGE_CAP)
     mp = mp.cpu().numpy()
@@ -2147,8 +2278,7 @@ def slot_kernel(card, cuda):
         check(repeat, "fleet: two kernel runs differ")
 
     # one call at the main path's shapes, from a mid-run state
-    mid, _ = run_slots(ps.potus_slot_call, consts, state0, streams, 8, "potus", FLEET_AGE_CAP,
-                       T=64)
+    mid = fleet_mid(ps, consts, state0, streams)
     one = tuple(x[64:65] for x in streams)
     args = (consts, mid, *one, 64)
     kw = dict(scheduler="potus", age_cap=FLEET_AGE_CAP, n_slots=1)
@@ -2174,8 +2304,7 @@ def slot_kernel(card, cuda):
            "replaces": "src/repro/kernels/potus_slot.py:57", "launches": None,
            "max_abs_err": one_err, "ms": ms_kernel, "event_ms": event_ms, "plain_ms": ms_plain,
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    return SimpleNamespace(fleet=(topo, net, placement, arr), consts=consts, streams=streams,
-                           mid=mid, row=row)
+    return SimpleNamespace(fleet=fleet, consts=consts, streams=streams, mid=mid, row=row)
 
 
 def main_path(fleet, card):
@@ -2241,6 +2370,35 @@ def main_path(fleet, card):
     return main_launches
 
 
+def card_setup():
+    """TF32 off for cuBLAS and cuDNN; prints and returns the card's name and
+    power limit (``nvidia-smi``) and the device. A section called alone
+    (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``) starts
+    with this and :func:`build_kernels`."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    return card, torch.device("cuda")
+
+
+def build_kernels(names=KERNELS):
+    """One ``nvcc`` per ``csrc/<kernel>.cu``, all started together."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))
+    print("kernel build: " + ", ".join(f"{k} {_build.BUILD_SECONDS[k]:.2f} s" for k in names)
+          + f" (wall {time.perf_counter() - t0:.2f} s, in parallel)")
+
+
 def main() -> int:
     import torch
 
@@ -2250,24 +2408,10 @@ def main() -> int:
         return 2
     import repro_torch.core as pt
     from repro_torch.core import cohort_fused as cf
-    from repro_torch.kernels import _build
-
-    cuda = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. the card ---------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per csrc/<kernel>.cu, all together
-        list(pool.map(_build.build, KERNELS))
-    print("kernel build: " + ", ".join(f"{k} {_build.BUILD_SECONDS[k]:.2f} s" for k in KERNELS)
-          + f" (wall {time.perf_counter() - t0:.2f} s, in parallel)")
+    card, cuda = card_setup()
+    build_kernels()
 
     # -- 2. kernel against plain version on the card, 3. the main path ----------
     slot = slot_kernel(card, cuda)

@@ -10,12 +10,16 @@ admission slot into bucket ``age_bucket``, and the landing buckets
 
 The Pallas kernel contracts each source stripe against all C component
 planes on the MXU and keeps one plane per target with a one-hot product; the
-CUDA version reads only the plane ``comp(j)`` of each target column, in two
-phases (the source's header describes them). It is bound by the one read of
-the (I, I) ``ratio`` matrix and by the own-plane products of its nonzero
-entries. No float is accumulated with an atomic: each landing bucket sums
-its sources in ascending order, so two runs are bitwise identical and, on
-exact (dyadic) inputs, equal the plain version.
+CUDA version reads only the plane ``comp(j)`` of each target column (the
+source's header describes its phases). It is bound by the one read of the
+(I, I) ``ratio`` matrix: a warp streams a strip of 32 target columns over a
+chunk of the sources, finds the few nonzero ratios by a warp vote and adds
+their products into a landing tile in shared memory; a second pass adds the
+chunks' tiles. :func:`drain_plan` cuts the sources into chunks. No float is
+accumulated with an atomic: each landing bucket sums its chunk's nonzero
+terms in ascending source order and then the chunks in ascending order, so
+two runs are bitwise identical and, on exact (dyadic) inputs, equal the
+plain version.
 
 :func:`cohort_drain_call` launches the kernel on CUDA tensors and raises on
 anything else; there is no fallback. :func:`cohort_drain_split_plain` is the
@@ -25,25 +29,67 @@ tensors only.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ._build import LaunchCounter
 
-__all__ = ["cohort_drain_call", "cohort_drain_split_plain", "launches"]
+__all__ = ["cohort_drain_call", "cohort_drain_split_plain", "drain_plan", "launches"]
 
 #: launches of the CUDA drain kernel (one per :func:`cohort_drain_call`)
 launches = LaunchCounter()
 
 _P = ctypes.c_void_p
 
+#: source rows a warp reads per step (``DRAIN_GROUP`` in the source); a chunk is a multiple
+GROUP_ROWS = 32
+#: warps of the streaming pass the plan aims for: about 16 an SM of the H100's 132
+TARGET_WARPS = 2048
+#: source rows of a chunk, at least (two load groups)
+MIN_CHUNK_ROWS = 64
 
+#: the last call's plan: (device, stream, I, C, Atot) -> (rows_per_chunk, n_chunks, scratch)
+_PLAN: dict = {}
+
+
+def drain_plan(I: int) -> tuple[int, int]:
+    """``(rows_per_chunk, n_chunks)``: the source rows cut into chunks, so
+    that ``ceil(I / 32)`` column strips times the chunks give about
+    ``TARGET_WARPS`` warps, each chunk at least ``MIN_CHUNK_ROWS`` rows and a
+    multiple of ``GROUP_ROWS``. The landing buckets add the chunks' partial
+    sums in ascending chunk order, so the plan fixes the order of the sums."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    n = max(1, min(cdiv(TARGET_WARPS, cdiv(I, 32)), cdiv(I, MIN_CHUNK_ROWS)))
+    rows = cdiv(cdiv(I, n), GROUP_ROWS) * GROUP_ROWS
+    return rows, cdiv(I, rows)
+
+
+def _plan(dev, stream: int, I: int, C: int, Atot: int):
+    """``(rows_per_chunk, n_chunks, scratch)`` for these shapes: the scratch
+    holds ``land_src`` (I, C, Atot), then the chunks' partial tiles
+    (n_chunks, I, Atot). The last call's plan is kept, so a run of calls of
+    one shape on one stream (the dense route's slots) allocates nothing but
+    its outputs; work on one stream runs in order, so it may reuse the
+    scratch."""
+    key = (dev, stream, I, C, Atot)
+    if key not in _PLAN:
+        rows, n_chunks = drain_plan(I)
+        n = I * C * Atot + (n_chunks * I * Atot if n_chunks > 1 else 0)
+        _PLAN.clear()
+        _PLAN[key] = (rows, n_chunks, torch.empty(n, dtype=torch.float32, device=dev))
+    return _PLAN[key]
+
+
+@functools.cache
 def _library():
     from ._build import load
 
     lib = load("cohort_drain")
-    lib.cohort_drain_run.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int, _P]
+    lib.cohort_drain_run.argtypes = [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
     lib.cohort_drain_run.restype = ctypes.c_int
     return lib
 
@@ -85,12 +131,13 @@ def cohort_drain_call(src_ext, shipped, ratio, inst_comp, age_bucket: int):
     I, C, Atot = _check(src_ext, shipped, ratio, inst_comp, age_bucket)
     lib = _library()
     dev = src_ext.device
-    land_src = torch.empty((I, C, Atot), dtype=torch.float32, device=dev)
-    land = torch.empty((I, Atot), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    rows, n_chunks, scratch = _plan(dev, stream, I, C, Atot)
+    land = torch.empty((I, Atot), dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
     err = lib.cohort_drain_run(src_ext.data_ptr(), shipped.data_ptr(), ratio.data_ptr(),
-                               inst_comp.data_ptr(), land_src.data_ptr(), land.data_ptr(),
-                               I, C, Atot, age_bucket, stream)
+                               inst_comp.data_ptr(), base, base + 4 * I * C * Atot,
+                               land.data_ptr(), I, C, Atot, age_bucket, rows, n_chunks, stream)
     if err != 0:
         raise RuntimeError(f"cohort drain kernel failed: CUDA error {err}")
     launches.n += 1

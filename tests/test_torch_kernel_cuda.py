@@ -19,7 +19,11 @@ and 1e-2 (bfloat16) of the tensor's scale (the states within 1e-5 in both)
 at mamba2-1.3b and zamba2-1.2b widths in the model's types and at widths no
 16-byte load fits, bitwise on dyadic inputs, and repeats bitwise; bf16
 takes its tensor-core route, float32 the CUDA cores. The slot kernel also
-runs bitwise on a 603-bucket age axis. Run on the machine with the card:
+runs bitwise on a 603-bucket age axis. The drain kernel matches its plain
+version at ragged I (300, 1025: a cut column strip and chunk, no 16-byte
+loads at 1025) and at I=16384 with the dense route's sparsity, gives zeros
+for an all-zero ratio and a NaN row for an out-of-range component, and
+repeats bitwise. Run on the machine with the card:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
@@ -124,6 +128,72 @@ def test_drain_kernel_matches_plain_version(cuda_device):
     kd.launches.reset()
     chip_smoke.drain_checks(pt, cuda_device)
     assert kd.launches.n == 2 * (8 + 40)  # two kernel runs per check
+
+
+@pytest.mark.parametrize("dyadic", [True, False])
+@pytest.mark.parametrize("I,C,Atot,age_bucket", [(300, 12, 69, 64), (1025, 12, 69, 64),
+                                                 (100, 3, 300, 200)])
+def test_drain_kernel_at_ragged_sizes(cuda_device, I, C, Atot, age_bucket, dyadic):
+    """Kernel 4 at the fleet's widths (C=12, Atot=69) on I that cuts a column
+    strip and a chunk (I=1025: no 16-byte loads), and on an age axis longer
+    than one landing tile (Atot=300: two bucket slices): against its plain
+    version, bitwise on exact inputs, else within 1e-5; two runs bitwise."""
+    from repro_torch.kernels import cohort_drain as kd
+
+    args = chip_smoke.drain_problem(1, I, C, Atot, dyadic, cuda_device)
+    _, same = chip_smoke.check_drain(kd, args, age_bucket, f"drain I={I} Atot={Atot}")
+    assert same or not dyadic
+
+
+def test_drain_kernel_at_the_fleet_size_and_sparsity(cuda_device):
+    """Kernel 4 at I=16384, C=12, Atot=69 with phase C's sparsity: 5616
+    nonzero ratios gathered in 300 target columns (X sends each source's
+    mass to the cheapest instances), within 1e-5 of its plain version; two
+    runs bitwise."""
+    from repro_torch.kernels import cohort_drain as kd
+
+    I, C, Atot = 16384, 12, 69
+    rng = np.random.default_rng(2)
+    src = torch.as_tensor((rng.uniform(0, 4, (I, C, Atot + 1))
+                           * (rng.random((I, C, Atot + 1)) < 0.4)).astype(np.float32),
+                          device=cuda_device)
+    ship = torch.as_tensor(rng.uniform(0, 10, (I, C)).astype(np.float32), device=cuda_device)
+    comp = torch.as_tensor(rng.integers(0, C, I).astype(np.int32), device=cuda_device)
+    cols = rng.choice(I, 300, replace=False)
+    flat = np.unique(rng.integers(0, I, 5616) * I + rng.choice(cols, 5616))
+    ratio = torch.zeros(I * I, dtype=torch.float32, device=cuda_device)
+    ratio[torch.as_tensor(flat, device=cuda_device)] = torch.as_tensor(
+        rng.uniform(0.01, 1, flat.size).astype(np.float32), device=cuda_device)
+    args = (src, ship, ratio.reshape(I, I), comp)
+    chip_smoke.check_drain(kd, args, 64, "drain I=16384")
+
+
+def test_drain_kernel_on_an_all_zero_ratio(cuda_device):
+    from repro_torch.kernels import cohort_drain as kd
+
+    src, ship, ratio, comp = chip_smoke.drain_problem(3, 1025, 12, 69, False, cuda_device)
+    land = kd.cohort_drain_call(src, ship, torch.zeros_like(ratio), comp, 64)
+    torch.cuda.synchronize()
+    assert land.shape == (1025, 69) and not land.any()
+
+
+@pytest.mark.parametrize("I", [300, 1024])
+def test_drain_kernel_writes_a_nan_row_for_an_out_of_range_component(cuda_device, I):
+    from repro_torch.kernels import cohort_drain as kd
+
+    src, ship, ratio, comp = chip_smoke.drain_problem(4, I, 12, 69, True, cuda_device)
+    bad = torch.tensor([0, 33, I - 1], device=cuda_device)
+    comp_bad = comp.clone()
+    comp_bad[bad] = torch.tensor([-1, 12, 40], dtype=torch.int32, device=cuda_device)
+    got = kd.cohort_drain_call(src, ship, ratio, comp_bad, 64)
+    got2 = kd.cohort_drain_call(src, ship, ratio, comp_bad, 64)
+    want = kd.cohort_drain_split_plain(src, ship, ratio, comp, 64)
+    torch.cuda.synchronize()
+    good = torch.ones(I, dtype=torch.bool, device=cuda_device)
+    good[bad] = False
+    assert torch.isnan(got[bad]).all()
+    assert torch.equal(got[good], want[good])
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(got2))
 
 
 ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
