@@ -17,7 +17,7 @@ I=16384 serving fleet, counting the kernel launches of each:
   kernel (``cohort_drain``); kernel 4 alone on dyadic and random inputs
   (B), once (C) and in 16 dense steps (D) at I=16384 from path 1's mid-run
   state; ``events=`` on the compact route, which launches no kernel (E);
-  the ``benchmarks/disruption.py`` k-failure scenario (F);
+  the ``benchmarks/disruption.py`` grid as one ``run_sweep`` (F);
 * main path 2 — ``simulate(EngineSpec(engine="jax", scheduler="potus",
   device="cuda"))``, the plain scan engine (the Fig. 5 path): the fused
   schedule kernel (``potus_schedule``); and its ``scheduler="potus-loop"``
@@ -44,7 +44,14 @@ I=16384 serving fleet, counting the kernel launches of each:
   that path held against its plain version on the path's own arguments
   in bf16 and f32, each block and attention invocation held to the plain
   route from the same input in bf16, the kernel route against the plain
-  route end to end in f32, and prefill/decode against a forward.
+  route end to end in f32, and prefill/decode against a forward;
+* phase I, scenario sweeps — ``run_sweep(engine="cohort-fused")`` on the
+  I=16384 fleet's V x W grid: the slot kernel once a launch for all the
+  scenarios of a partition (its grid has a scenario axis), each scenario
+  bitwise its own ``simulate``; the dyadic sweep against the CPU and every
+  batched call against the batched plain version; the paper profile's
+  Fig. 6ab and Fig. 5 grids (``benchmarks/torch_figures.py``) against the
+  CPU, whose runs go in a process of their own started first.
 
 It checks the results and prints:
 
@@ -65,7 +72,11 @@ It checks the results and prints:
   device memory;
 * each comparison of the kernel route with the plain route or with the
   port on the CPU;
-* one JSON line ``{"kernels": [...]}`` (seven kernels), then, last,
+* for phase I, the sweep's and a loop of ``simulate`` calls' wall s in
+  turns and scenario-slots/s, the busy share, and the slot kernel's device
+  ms per call at N=4 and N=1;
+* one JSON line ``{"kernels": [...]}`` (seven kernels; the slot kernel's
+  row carries its batched entry under ``"batched"``), then, last,
   ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full f32: TF32 is switched off for cuBLAS
@@ -221,18 +232,40 @@ def step_inputs(cf, topo, net, placement, arr, T, W, V, beta, age_cap, device):
 
 
 def run_slots(step, consts, state, streams, K, scheduler, age_cap, T=None):
-    """T slots through ``step`` in launches of K; returns (state, (4, T) metrics)."""
+    """T slots through ``step`` in launches of K; returns (state, (4, T)
+    metrics), or (4, N, T) for a batch of N scenarios (streams (T, I, C)
+    shared or (N, T, I, C) stacked)."""
     import torch
 
     act, pred, nxt = streams
-    T = act.shape[0] if T is None else T
+    T = act.shape[-3] if T is None else T
     mets = []
     for t0 in range(0, T, K):
         n = min(K, T - t0)
-        state, m = step(consts, state, act[t0:t0 + n], pred[t0:t0 + n], nxt[t0:t0 + n], t0,
+        sl = (..., slice(t0, t0 + n), slice(None), slice(None))
+        state, m = step(consts, state, act[sl], pred[sl], nxt[sl], t0,
                         scheduler=scheduler, age_cap=age_cap, n_slots=n)
         mets.append(torch.stack(m))
-    return state, torch.cat(mets, dim=1)
+    return state, torch.cat(mets, dim=-1)
+
+
+def batch_inputs(cf, sys_, T, W, Vs, betas, age_cap, device, stacked):
+    """One partition's slot-kernel inputs for N = len(Vs) scenarios: the
+    batched constants (V and beta (N,)), state and streams — shared, or
+    stacked with scenario n's arrivals rolled by n slots — and each
+    scenario's own (consts, state, streams)."""
+    import torch
+
+    topo, net, placement, arr = sys_
+    one = [step_inputs(cf, topo, net, placement, np.roll(arr, n, axis=0) if stacked else arr,
+                       T, W, V, beta, age_cap, device)
+           for n, (V, beta) in enumerate(zip(Vs, betas))]
+    f32 = dict(dtype=torch.float32, device=device)
+    consts = one[0][0]._replace(V=torch.tensor(Vs, **f32), beta=torch.tensor(betas, **f32))
+    state = tuple(torch.stack([o[1][q] for o in one]) for q in range(7))
+    streams = (tuple(torch.stack([o[2][q] for o in one]) for q in range(3)) if stacked
+               else one[0][2])
+    return consts, state, streams, one
 
 
 def max_abs(a_state, a_met, b_state, b_met) -> float:
@@ -240,19 +273,24 @@ def max_abs(a_state, a_met, b_state, b_met) -> float:
                for x, y in zip(tuple(a_state) + (a_met,), tuple(b_state) + (b_met,)))
 
 
-def bytes_and_ops(consts, state, n_slots):
+def bytes_and_ops(consts, state, n_slots, stacked=False):
     """What one call must move (each input read once, each output written
-    once) and the arithmetic it does, counted from the shapes."""
+    once) and the arithmetic it does, counted from the shapes. A batch of N
+    scenarios (``state`` with its leading axis, ``consts.V`` (N,)) moves
+    its state and metrics N times, the shared constants once, and the
+    (K, I, C) arrival streams once if shared, N times if ``stacked``."""
     q_rem, admit, q_in, q_out, transit, rmass, rtime = state
-    I, S, W1 = q_rem.shape
+    N = q_rem.shape[0] if q_rem.dim() == 4 else 1
+    I, S, W1 = q_rem.shape[-3:]
     A = q_in.shape[-1]
     C = consts.adj_rows.shape[1]
     NK = consts.U.shape[0]
     state_floats = sum(x.numel() for x in state)
     const_floats = (sum(x.numel() for x in consts[:17]) - consts.comp_onehot.numel()
                     + sum(x.numel() for x in consts[17:]))
-    floats = 2 * state_floats + const_floats + 3 * n_slots * I * C + 4 * n_slots
-    ops = n_slots * (3 * NK * I + I * (2 * C * C + 10 * S * (A + 1) + 12 * A + 20 * C))
+    stream_floats = (N if stacked else 1) * 3 * n_slots * I * C
+    floats = 2 * state_floats + const_floats + stream_floats + 4 * N * n_slots
+    ops = N * n_slots * (3 * NK * I + I * (2 * C * C + 10 * S * (A + 1) + 12 * A + 20 * C))
     return 4 * floats, ops
 
 
@@ -503,6 +541,7 @@ def profile_run(fn, top=8, suffix="", also=()):
                 print(f"    {ms:10.3f} ms  x{count:<6d} {name[:90]}{suffix}")
     else:
         print(f"  device busy share: not measured (the profiler saw no device time){suffix}")
+    return busy_ms, prof_ms
 
 
 def wall_and_issue(fn, n):
@@ -1068,14 +1107,6 @@ def read_counts():
     return {name: c.n for name, c in counters().items()}
 
 
-def recovery_slots(backlog, t0, t1) -> int:
-    """benchmarks/disruption.py:_recovery_slots: slots after recovery until
-    backlog returns within 10% of the pre-failure mean."""
-    pre = backlog[max(t0 - 20, 0):t0].mean()
-    ok = np.nonzero(backlog[t1:] <= 1.1 * pre)[0]
-    return int(ok[0]) if ok.size else int(len(backlog[t1:]))
-
-
 def dyadic_events_card_vs_cpu(pt, cf, cuda):
     """Both routes under events on the dyadic system (tests/test_torch_cohort_events.py):
     every sum is exact, so the card's run equals the port's run on the CPU
@@ -1102,32 +1133,29 @@ def dyadic_events_card_vs_cpu(pt, cf, cuda):
           "bitwise for potus, shuffle, jsq and potus-loop")
 
 
-def card_vs_cpu_paper(label, cf, sys_, T, cfg, cuda, **kw):
-    """The card against the port on the CPU on the paper profile. Shuffle
-    ignores queue state: per-slot backlog/cost within rtol 1e-4 over the
-    first 16 slots, means within 2%. POTUS breaks the paper system's many
-    exact price ties by the last bit of its queues, which the two devices
-    round differently (the CPU's cumsum accumulates in double), so its
-    trajectories part within a few slots (DESIGN.md §8): its first-16 rel
-    diff is printed, and its means are held to the chaos floor of
-    tests/test_cohort_fused.py::TestPotusPaperSystem (response and backlog
-    10%, cost 2%)."""
-    topo, net, placement, arr = sys_
-    a = cf._run_cohort_fused_impl(topo, net, placement, arr, None, T, cfg, device=cuda, **kw)
-    b = cf._run_cohort_fused_impl(topo, net, placement, arr, None, T, cfg, device="cpu", **kw)
+def hold_card_vs_cpu(label, scheduler, a, b):
+    """A card's result ``a`` against the port's on the CPU ``b``, on the
+    paper profile. Shuffle ignores queue state: per-slot backlog/cost within
+    rtol 1e-4 over the first 16 slots, means within 2%. POTUS breaks the
+    paper system's many exact price ties by the last bit of its queues,
+    which the two devices round differently (the CPU's cumsum accumulates in
+    double), so its trajectories part within a few slots (DESIGN.md §8): its
+    first-16 rel diff is printed, and its means are held to the chaos floor
+    of tests/test_cohort_fused.py::TestPotusPaperSystem (response and
+    backlog 10%, cost 2%)."""
     r16 = max(rel_diff(a.backlog[:16], b.backlog[:16]),
               rel_diff(a.comm_cost[:16], b.comm_cost[:16]))
     means = {f: rel_diff(getattr(a, f), getattr(b, f))
              for f in ("avg_backlog", "avg_cost", "avg_response")}
-    print(f"{label} {cfg.scheduler} T={T}: card vs CPU first 16 slots rel diff {r16:.3e}, means "
+    print(f"{label}: card vs CPU first 16 slots rel diff {r16:.3e}, means "
           + ", ".join(f"{f} {v:.3e}" for f, v in means.items()))
     check(np.isfinite(a.backlog).all() and a.completed_mass > 0, f"{label}: not finite")
-    if cfg.scheduler == "shuffle":
+    if scheduler == "shuffle":
         check(r16 <= 1e-4 and max(means.values()) <= 0.02, f"{label} shuffle: card vs CPU")
     else:
-        check(means["avg_response"] <= 0.10 and means["avg_backlog"] <= 0.10
-              and means["avg_cost"] <= 0.02, f"{label} {cfg.scheduler}: beyond the chaos floor")
-    return a
+        floor = {"avg_response": 0.10, "avg_backlog": 0.10, "avg_cost": 0.02}
+        check(all(v <= floor[f] for f, v in means.items()),
+              f"{label} {scheduler}: beyond the chaos floor")
 
 
 def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
@@ -1135,8 +1163,8 @@ def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
     dyadic and random inputs (B), kernel 4 alone at I=16384 from path 1's
     mid-run state and at route A's I=1024 (C), 16 dense steps at I=16384 from
     path 1's mid-run state (D), events on the compact route at I=16384 (E),
-    and the benchmarks/disruption.py scenario (F). Returns kernel 4's entry of
-    the kernels line."""
+    and the benchmarks/disruption.py grid as one sweep (F). Returns kernel 4's
+    entry of the kernels line."""
     import torch
 
     from repro_torch.core import cohort_fused as cf
@@ -1254,39 +1282,9 @@ def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
     dyadic_events_card_vs_cpu(pt, cf, cuda)
     print(f"  phase E {time.perf_counter() - t_phase:.1f} s")
 
-    # -- F. the benchmarks/disruption.py scenario ----------------------------------
+    # -- F. the benchmarks/disruption.py grid, one sweep -----------------------------
     t_phase = time.perf_counter()
-    T = 300
-    sys_ = paper_system(pt, T)
-    ptopo = sys_[0]
-    t_fail, dur = T // 3, max(T // 6, 4)
-    k = max(int(0.2 * len(ptopo.bolt_instances)), 2)
-    kfail = pt.k_failures(ptopo, k=k, start=t_fail, duration=dur,
-                          rng=np.random.default_rng(11)).compile(ptopo, T)
-    kw = dict(age_cap=max(4 * dur, 48), warmup=max(t_fail - 1, 1),
-              drain_margin=T - min(t_fail + dur + 10, T - 1))
-    bench = {(r["scheduler"], r["W"]): r for r in json.loads(
-        (ROOT / "BENCH_disruption.json").read_text())["rows"] if r["section"] == "disruption"}
-    for sched in ("potus", "shuffle"):
-        for W in (0, 2, 6):
-            cfg = pt.SimConfig(V=1.0, window=W, scheduler=sched)
-            run = partial(cf._run_cohort_fused_impl, ptopo, sys_[1], sys_[2], sys_[3], None, T,
-                          cfg, device=cuda, **kw)
-            if W == 2:  # the card against the port on the CPU
-                hurt = card_vs_cpu_paper(f"phase F k{k}-failure W={W}", cf, sys_, T, cfg, cuda,
-                                         events=kfail, **kw)
-            else:
-                hurt = run(events=kfail)
-            base = run()
-            got = dict(resp_transient=float(hurt.avg_response),
-                       peak_backlog=float(hurt.backlog[t_fail:t_fail + dur + 10].max()),
-                       recovery_slots=recovery_slots(hurt.backlog, t_fail, t_fail + dur),
-                       resp_degradation=float(hurt.avg_response - base.avg_response))
-            check(all(np.isfinite(v) for v in got.values()), f"phase F {sched} W={W}: not finite")
-            ref = bench[(sched, W)]
-            print(f"  disruption {sched} W={W}: " + ", ".join(
-                f"{name} {v:.3f} (BENCH_disruption.json {ref[name]}, rel "
-                f"{rel_diff(v, ref[name]):.3f})" for name, v in got.items()) + f" [{card}]")
+    disruption_sweep(pt, card, cuda)
     print(f"  phase F {time.perf_counter() - t_phase:.1f} s")
 
     return dict(entry, launches=a_launches)
@@ -2230,6 +2228,296 @@ def ssm_path(card, cuda):
     return dict(entry, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase F and phase I: scenario sweeps (core/sweep.py, run_fused_sweep)
+# ---------------------------------------------------------------------------
+
+def cpu_run(name):
+    """The port's run on the CPU that phase F or I3 holds the card against:
+    ``transient`` (phase F's W=2 scenarios), ``fig6ab`` or ``fig5`` (I3);
+    returns (sweep, wall s). It runs after the card's run it is held
+    against, so no timed phase runs beside it."""
+    import torch
+
+    import benchmarks.torch_figures as tf
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the paper profile's tensors are tiny
+    try:
+        if name == "transient":
+            grid = tf.transient_grid("cpu", T=300, windows=(2,))
+            return grid[6], grid[7]
+        if name == "fig6ab":
+            return tf.fig6ab_sweep("cpu")[3:]
+        return tf.fig5_sweep("fat-tree", "cpu")[3:]
+    finally:
+        torch.set_num_threads(threads)
+
+
+def disruption_sweep(pt, card, cuda):
+    """Phase F: ``benchmarks/disruption.py``'s grid (potus and shuffle x W
+    (0, 2, 6) x events (none, a k-failure), T=300 on the paper profile) as
+    one ``run_sweep`` through ``benchmarks/torch_figures.py``; the W=2
+    scenarios held against the port on the CPU, the rows printed beside
+    ``BENCH_disruption.json`` (recorded, not checked)."""
+    import torch
+
+    import benchmarks.torch_figures as tf
+
+    grid = tf.transient_grid(cuda, T=300)
+    _, T, t_fail, dur, scen, Ws, sw, wall = grid
+    torch.cuda.synchronize()
+    print(f"phase F: one sweep of {len(sw)} scenarios in {sw.n_batches} partitions, T={T}, "
+          f"{scen.name}: wall {wall:.3f} s [{card}]")
+    cpu = cpu_run("transient")[0]
+    for (scn, a) in sw.select(window=2):
+        b = cpu.result(scheduler=scn.scheduler, window=2, events=scn.events)
+        hold_card_vs_cpu(f"phase F {scn.scheduler} W=2 events={scn.events}", scn.scheduler, a,
+                         b)
+    bench = {(r["scheduler"], r["W"]): r for r in json.loads(
+        (ROOT / "BENCH_disruption.json").read_text())["rows"] if r["section"] == "disruption"}
+    for sched in ("potus", "shuffle"):
+        for W in Ws:
+            hurt = sw.result(scheduler=sched, window=W, events="kfail")
+            got = dict(resp_transient=float(hurt.avg_response),
+                       peak_backlog=float(hurt.backlog[t_fail:t_fail + dur + 10].max()),
+                       recovery_slots=tf.recovery_slots(hurt.backlog, t_fail, t_fail + dur),
+                       resp_degradation=tf.degradation(sw, sched, W))
+            check(all(np.isfinite(v) for v in got.values()), f"phase F {sched} W={W}: not finite")
+            ref = bench[(sched, W)]
+            print(f"  disruption {sched} W={W}: " + ", ".join(
+                f"{name} {v:.3f} (BENCH_disruption.json {ref[name]}, rel "
+                f"{rel_diff(v, ref[name]):.3f})" for name, v in got.items()) + f" [{card}]")
+    for row in tf.disruption_rows(grid):
+        print(f"  {row.csv()}")
+
+
+class HeldSlotRoute:
+    """An ``ops`` namespace for the fused engine's compact partitions that
+    launches the slot kernel through ``kernels.ops`` and holds every call,
+    bitwise, against the plain version on the same batched arguments.
+    ``calls`` counts the held calls."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def potus_slot_step(self, *args, **kw):
+        import torch
+
+        from repro_torch.kernels import ops as kops
+
+        s_k, m_k = kops.potus_slot_step(*args, **kw)
+        s_p, m_p = kops.plain.potus_slot_step(*args, **kw)
+        same = (all(torch.equal(x, y) for x, y in zip(s_k, s_p))
+                and all(torch.equal(x, y) for x, y in zip(m_k, m_p)))
+        check(same, f"I2: a batched slot-kernel call (N={s_k[0].shape[0]}) differs from the "
+              "batched plain version")
+        self.calls += 1
+        return s_k, m_k
+
+
+SWEEP_V, SWEEP_W = (1.0, 2.0, 5.0, 10.0), (0, 4)
+
+
+def sweep_path(card, cuda, fleet=None):
+    """Phase I, scenario sweeps: I1 the I=16384 fleet's V x W grid through
+    ``run_sweep(engine="cohort-fused")`` (2 partitions of N=4 sharing one
+    arrival stream), each scenario bitwise against its own ``simulate``,
+    the kernel's launches per partition, two runs, the sweep's and a loop of
+    ``simulate``'s wall in turns, the busy share, kernel 1 at N=4 and N=1;
+    I2 the dyadic system's sweep (potus, shuffle, jsq) bitwise against the
+    CPU and every batched call against the batched plain version; I3 the
+    paper profile's Fig. 6ab grid (one partition of N=28, stacked streams)
+    and Fig. 5's V x W grid on the scan engine, held against the CPU at the
+    chaos floor (the CPU's runs made after the card's). Returns kernel 1's
+    batched entry for the kernels line."""
+    import torch
+
+    import benchmarks.torch_figures as tf
+    import repro_torch.core as pt
+    from repro_torch.core import cohort_fused as cf
+    from repro_torch.kernels import potus_slot as ps
+
+    # -- I1. the fleet, I=16384 ------------------------------------------------------
+    t_phase = time.perf_counter()
+    topo, net, placement, arr = fleet if fleet is not None else fleet_system(pt, FLEET_I, FLEET_T)
+    spec = pt.SweepSpec(V=SWEEP_V, window=SWEEP_W, scheduler="potus", use_pallas=True)
+    opts = {"age_cap": FLEET_AGE_CAP}
+
+    def sweep():
+        return pt.run_sweep(topo, net, placement, arr, FLEET_T, spec, engine="cohort-fused",
+                            engine_opts=opts, device=cuda)
+
+    def simulate(scn):
+        return pt.simulate(pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr,
+                                         T=FLEET_T, scheduler="potus", V=scn.V,
+                                         window=scn.window, age_cap=FLEET_AGE_CAP,
+                                         device="cuda"))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    sw1 = sweep()
+    torch.cuda.synchronize()
+    n = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_part = len(SWEEP_W)
+    print(f"I1: sweep of {len(sw1)} scenarios (V {SWEEP_V} x W {SWEEP_W}) on the fleet "
+          f"I={FLEET_I} T={FLEET_T}: n_batches={sw1.n_batches}, launches " + " ".join(
+              f"{k}={v}" for k, v in n.items()) + f"; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB) [{card}]")
+    check(sw1.n_batches == n_part, f"I1: {sw1.n_batches} partitions, expected {n_part}")
+    # each partition's kernel runs T calls, as one scenario's run does, not N x T
+    check(n == dict(ZERO_COUNTS, potus_slot=n_part * FLEET_T), f"I1 launches {n}")
+    sweep_launches = n["potus_slot"]
+    sw2 = sweep()
+    same = all(same_result(a, b) for (_, a), (_, b) in zip(sw1, sw2))
+    print(f"  two runs bitwise identical: {same}")
+    check(same, "I1: two sweeps differ")
+    loop = [simulate(scn) for scn in sw1.scenarios]
+    for (scn, res), one in zip(sw1, loop):
+        check(same_result(res, one) and res.completed_mass > 0 and np.isfinite(res.avg_response),
+              f"I1: scenario V={scn.V} W={scn.window} differs from its own simulate")
+    print(f"  each of the {len(sw1)} scenarios bitwise equal to its own simulate: True; "
+          + ", ".join(f"V={scn.V:g} W={scn.window}: avg_backlog {r.avg_backlog:.3f} "
+                      f"avg_response {r.avg_response:.4f}" for scn, r in sw1))
+    walls = {"sweep": [], "loop": []}
+    for _ in range(3):
+        for name, fn in (("sweep", sweep), ("loop", lambda: [simulate(scn)
+                                                             for scn in sw1.scenarios])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    slots = len(sw1) * FLEET_T
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    for name, label in (("sweep", "the sweep"), ("loop", f"a loop of {len(sw1)} simulate")):
+        print(f"  wall s of {label}, in turns: median {med[name]:.4f} "
+              f"({', '.join(f'{w:.4f}' for w in walls[name])}); {slots / med[name]:.1f} "
+              f"scenario-slots/s [{card}]")
+    print(f"  sweep against the loop: {med['loop'] / med['sweep']:.3f}x (recorded) [{card}]")
+    busy_ms, prof_ms = profile_run(sweep, top=6)
+
+    # kernel 1 alone at N=4 (the V grid at W=4, shared stream) and N=1, from slot 64
+    consts, state0, streams, one = batch_inputs(cf, (topo, net, placement, arr), FLEET_T,
+                                                FLEET_W, list(SWEEP_V), [1.0] * len(SWEEP_V),
+                                                FLEET_AGE_CAP, cuda, stacked=False)
+    mid = run_slots(ps.potus_slot_call, consts, state0, streams, 8, "potus", FLEET_AGE_CAP,
+                    T=64)[0]
+    args = (consts, mid, *(x[64:65] for x in streams), 64)
+    kw = dict(scheduler="potus", age_cap=FLEET_AGE_CAP, n_slots=1)
+    s_k, m_k = ps.potus_slot_call(*args, **kw)
+    s_p, m_p = ps.potus_slot_step_plain(*args, **kw)
+    err = max_abs(s_k, torch.stack(m_k), s_p, torch.stack(m_p))
+    check(err == 0.0, f"one batched call (N={len(SWEEP_V)}) at I={FLEET_I}: kernel vs plain "
+          f"max_abs_err={err}")
+    c1 = one[1][0]  # V=2: the main path's scenario
+    args1 = (c1, tuple(x[1].contiguous() for x in mid), *(x[64:65] for x in streams), 64)
+    s_1, m_1 = ps.potus_slot_call(*args1, **kw)
+    check(all(torch.equal(x, y[1]) for x, y in zip(s_1, s_k))
+          and all(torch.equal(x, y[1]) for x, y in zip(m_1, m_k)),
+          "scenario 1 of the batched call differs from its own call")
+    parts4, parts1 = {}, {}
+    ms4 = device_ms(lambda: ps.potus_slot_call(*args, **kw), 50, parts=parts4)
+    ms1 = device_ms(lambda: ps.potus_slot_call(*args1, **kw), 50, parts=parts1)
+    ev4 = time_calls(lambda: ps.potus_slot_call(*args, **kw), 50)
+    ev1 = time_calls(lambda: ps.potus_slot_call(*args1, **kw), 50)
+    plain_ms = time_calls(lambda: ps.potus_slot_step_plain(*args, **kw), 5)
+    N = len(SWEEP_V)
+    nbytes, nops = bytes_and_ops(consts, mid, 1, stacked=False)
+    bound_ms = max(nbytes / PEAK_BYTES_S, nops / PEAK_F32_S) * 1e3
+    bound_by = "bytes" if nbytes / PEAK_BYTES_S >= nops / PEAK_F32_S else "operations"
+    print(f"one batched call at I={FLEET_I}, N={N}, K=1: max_abs_err={err:.3e}, scenario 1 "
+          f"bitwise its own call; device ms per call: N={N} {ms4:.4f}, N=1 {ms1:.4f} (same "
+          f"process); event ms per call: N={N} {ev4:.4f}, N=1 {ev1:.4f}, plain N={N} "
+          f"{plain_ms:.4f}; bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes: the state "
+          f"in and out and the metrics {N} times, the constants and the shared (1, I, C) "
+          f"arrival streams once; {nops} ops) [{card}]")
+    def bare(parts):  # a call of N > 1 runs the <true> instances, of one the <false>
+        return {name.removeprefix("void ").split("<")[0]: ms for name, ms in parts.items()}
+
+    parts1 = bare(parts1)
+    for name, ms in sorted(bare(parts4).items(), key=lambda r: -r[1]):
+        print(f"  part {name[:60]}: N={N} {ms:.4f}, N=1 {parts1.get(name, float('nan')):.4f} ms "
+              "per call")
+    del consts, state0, streams, one, mid, args, args1, s_k, s_p, s_1
+    torch.cuda.empty_cache()
+    print(f"  I1 {time.perf_counter() - t_phase:.1f} s")
+
+    # -- I2. the dyadic system: card = CPU bitwise, each batched call = plain -----------
+    t_phase = time.perf_counter()
+    T_d = 40
+    dtopo, dnet, dplace, darr = dyadic_system(pt, T_d + 8, 2)
+    rng = np.random.default_rng(9)
+    dpred = (darr * 2.0 ** rng.integers(-1, 2, size=darr.shape)).astype(np.float32)
+    arrs = {"a": darr, "mis": (darr, dpred)}
+    dspec = pt.SweepSpec(V=(1.0, 2.0), beta=0.5, window=(0, 2),
+                         scheduler=("potus", "shuffle", "jsq"), arrival=("a", "mis"),
+                         use_pallas=True)
+    dopts = dict(age_cap=16, warmup=8, drain_margin=12)
+    card_sw = pt.run_sweep(dtopo, dnet, dplace, arrs, T_d, dspec, engine="cohort-fused",
+                           engine_opts=dopts, device=cuda)
+    cpu_sw = pt.run_sweep(dtopo, dnet, dplace, arrs, T_d, dspec, engine="cohort-fused",
+                          engine_opts=dopts, device="cpu")
+    check(card_sw.n_batches == cpu_sw.n_batches == 6, "I2: partitions")
+    check(all(same_result(a, b) and a.completed_mass > 0 for (_, a), (_, b)
+              in zip(card_sw, cpu_sw)), "I2: the card's sweep differs from the CPU's")
+    held = HeldSlotRoute()
+    arr_map = {"a": (darr, None), "mis": (darr, dpred)}
+    held_res, _ = cf.run_fused_sweep(dtopo, dnet, dplace, arr_map, T_d, dspec, device=cuda,
+                                     ops=held, **dopts)
+    check(held.calls == 6 * T_d and all(same_result(a, b) for a, (_, b)
+                                        in zip(held_res, card_sw)), "I2: held route")
+    print(f"I2: dyadic sweep of {len(card_sw)} scenarios (potus, shuffle, jsq x W (0, 2) x V "
+          f"(1, 2) x arrivals (one mis-predicted), 6 partitions of N=4, T={T_d}): card equals "
+          f"CPU bitwise; {held.calls} batched kernel calls each bitwise equal to the batched "
+          f"plain version")
+    print(f"  I2 {time.perf_counter() - t_phase:.1f} s")
+
+    # -- I3. the paper profile: Fig. 6ab and Fig. 5 against the CPU at the chaos floor ---
+    t_phase = time.perf_counter()
+    _, p_arr, preds, sw6, wall6 = tf.fig6ab_sweep(cuda)
+    sw6c, wall6c = cpu_run("fig6ab")
+    check(sw6.n_batches == 1 and len(sw6) == len(tf.FIG6AB_VS) * len(preds), "I3: Fig. 6ab grid")
+    worst = {}
+    for (scn, a), (_, b) in zip(sw6, sw6c):
+        for f in ("avg_backlog", "avg_cost", "avg_response"):
+            worst[f] = max(worst.get(f, 0.0), rel_diff(getattr(a, f), getattr(b, f)))
+    print(f"I3: Fig. 6ab grid, one partition of N={len(sw6)} with stacked streams, T="
+          f"{tf.T_COHORT}, age_cap {tf.AGE_CAP['fig6ab']}: card {wall6:.3f} s, CPU {wall6c:.3f} "
+          f"s (one thread); worst card vs CPU rel diff of the means " + ", ".join(
+              f"{f} {v:.3e}" for f, v in worst.items()) + f" [{card}]")
+    check(worst["avg_response"] <= 0.10 and worst["avg_backlog"] <= 0.10
+          and worst["avg_cost"] <= 0.02, "I3 Fig. 6ab: beyond the chaos floor")
+    for row in tf.fig6ab_rows(p_arr, preds, sw6, wall6):
+        print(f"  card {row.csv()}")
+    for row in tf.fig6ab_rows(p_arr, preds, sw6c, wall6c):
+        print(f"  CPU  {row.csv()}")
+    sys5, arr5, _, sw5, wall5 = tf.fig5_sweep("fat-tree", cuda)
+    sw5c, wall5c = cpu_run("fig5")
+    worst = {}
+    for (scn, a), (_, b) in zip(sw5, sw5c):
+        check(np.isfinite(a.backlog).all() and a.backlog.shape == (tf.T_SIM,), "I3 Fig. 5")
+        for f in ("avg_backlog", "avg_cost"):
+            worst[f] = max(worst.get(f, 0.0), rel_diff(getattr(a, f), getattr(b, f)))
+    print(f"I3: Fig. 5 grid on the scan engine, {len(sw5)} scenarios in {sw5.n_batches} "
+          f"partitions, T={tf.T_SIM}: card {wall5:.3f} s, CPU {wall5c:.3f} s; worst card vs CPU "
+          f"rel diff of the means " + ", ".join(f"{f} {v:.3e}" for f, v in worst.items())
+          + f" [{card}]")
+    check(worst["avg_backlog"] <= 0.10 and worst["avg_cost"] <= 0.02,
+          "I3 Fig. 5: beyond the chaos floor")
+    shuffle5 = tf._run_jax(sys5, arr5, tf.T_SIM, pt.SimConfig(V=1.0, scheduler="shuffle"), cuda)
+    for row in tf.fig5_rows("fat-tree", sw5, shuffle5, wall5):
+        print(f"  card {row.csv()}")
+    print(f"  I3 {time.perf_counter() - t_phase:.1f} s")
+    return {"N": N, "ms": ms4, "event_ms": ev4, "n1_ms": ms1, "n1_event_ms": ev1,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "sweep_launches": sweep_launches, "sweep_wall_s": med["sweep"],
+            "loop_wall_s": med["loop"], "busy_share": busy_ms / prof_ms if busy_ms else None}
+
+
 def slot_kernel(card, cuda):
     """Section 2: the slot kernel against its plain version on the card: the
     dyadic system bitwise (potus, shuffle, jsq; K=1 and 8), the I=16384
@@ -2412,6 +2700,12 @@ def main() -> int:
     # -- 1. the card ---------------------------------------------------------
     card, cuda = card_setup()
     build_kernels()
+    return run_phases(pt, cf, card, cuda)
+
+
+def run_phases(pt, cf, card, cuda) -> int:
+    """Every phase in order, then the kernels line and the last line."""
+    import torch
 
     # -- 2. kernel against plain version on the card, 3. the main path ----------
     slot = slot_kernel(card, cuda)
@@ -2425,8 +2719,7 @@ def main() -> int:
                    pt.SimConfig(V=2.0, window=2, scheduler="potus"), cuda, age_cap=64)
 
     # -- 4. the fused cohort engine's dense route and events route: phases A-F ------
-    drain_kernel = cohort_dense(pt, card, cuda, slot.fleet, slot.consts, slot.mid,
-                                slot.streams)
+    drain_kernel = cohort_dense(pt, card, cuda, slot.fleet, slot.consts, slot.mid, slot.streams)
 
     # -- 5. the plain scan engine: kernels 2 and 3, main path 2 --------------------
     scan_kernels = scan_engine(pt, card, cuda)
@@ -2437,7 +2730,12 @@ def main() -> int:
     # -- 7. phase H: the SSM and hybrid models, kernel 7 ----------------------------
     ssd_kernel = ssm_path(card, cuda)
 
-    # -- 8. the kernels line, 9. the last line ---------------------------------
+    # -- 8. phase I: scenario sweeps, kernel 1 batched over the scenarios --------------
+    t_phase = time.perf_counter()
+    slot.row["batched"] = sweep_path(card, cuda, slot.fleet)
+    print(f"  phase I {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    # -- 9. the kernels line, 10. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,11 @@
 """Fused cohort engine in PyTorch — response-time semantics, one step per
 slot (DESIGN.md §8).
 
-The port's counterpart of ``repro.core.cohort_fused`` for one scenario, no
-instance mesh and no metric streams. Every FIFO is an age-by-source-slot
-mass matrix (see the reference module and DESIGN.md §8). State:
+The port's counterpart of ``repro.core.cohort_fused``, without the instance
+mesh and the metric streams: one scenario (``simulate``) or a sweep's grid
+(:func:`run_fused_sweep`), whose partitions run N scenarios each. Every FIFO
+is an age-by-source-slot mass matrix (see the reference module and
+DESIGN.md §8). State, each with a leading scenario axis N:
 
 * ``q_rem``   (I, S, W+1)  — spout lookahead windows (untreated mass);
 * ``admit``   (I, S)       — admission backlog of unshipped actuals;
@@ -11,19 +13,20 @@ mass matrix (see the reference module and DESIGN.md §8). State:
 * ``q_out``   (I, S, Atot) — bolt output queues, mass per age bucket;
 * ``transit`` (I, Atot)    — mass landing in input queues next slot.
 
-The reference's ``lax.scan`` over slots is a Python loop, on one of three
-routes (DESIGN.md §12), as in the reference:
+The reference's vmapped ``lax.scan`` over slots is a Python loop, on one of
+three routes (DESIGN.md §12), as in the reference:
 
 * a compact scheduler (``potus``, ``shuffle``, ``jsq``) with no disruption
   trace: slot-kernel launches (:func:`_kernel_launches`,
-  ``kernels.ops.potus_slot_step``);
+  ``kernels.ops.potus_slot_step``), one call for all N scenarios;
 * a compact scheduler with a disruption trace (``events=``, DESIGN.md §9):
-  ``compact.compact_slot_step`` slot by slot, with the caps fold. The slot
-  kernel has no caps fold (nor has the reference's), so on CUDA this route
-  is the plain tensor code on the card and launches no slot kernel;
+  ``compact.compact_slot_step`` slot by slot, with the caps fold, each
+  scenario in turn. The slot kernel has no caps fold (nor has the
+  reference's), so on CUDA this route is the plain tensor code on the card
+  and launches no slot kernel;
 * ``potus-loop``, the dense reference scheduler: :func:`_fused_step` slot by
-  slot, on the full (I, I) problem, with the drain and split in
-  ``kernels.ops.cohort_drain_split``.
+  slot, each scenario in turn, on the full (I, I) problem, with the drain
+  and split in ``kernels.ops.cohort_drain_split``.
 
 The device decides each kernel's route: on CUDA the hand-written kernel, on
 the CPU its plain version. Arrival streams and event traces stay on the
@@ -49,10 +52,10 @@ from .compact import (COMPACT_SCHEDULERS, _EPS, StepConsts, _check_columns, _dra
 from .network import NetworkCosts
 from .potus import _schedule_with, _u_pair, caps_for_slot, make_problem
 from .simulator import (_POTUS_METHODS, SimConfig, host_trace, materialize_arrivals,
-                        pad_arrivals)
+                        pad_arrivals, stacked_host_traces)
 from .topology import Topology
 
-__all__ = ["drain_ages", "AgeCapSaturationWarning"]
+__all__ = ["drain_ages", "AgeCapSaturationWarning", "run_fused_sweep"]
 
 #: ``saturated_frac`` above this emits :class:`AgeCapSaturationWarning` —
 #: past ~1% capped completions the response mean is visibly biased low.
@@ -76,7 +79,7 @@ def _maybe_warn_saturation(saturated_frac: float, age_cap: int,
             f"silently truncated (biased low). Re-run with a deeper cap, "
             f"e.g. age_cap={2 * age_cap}.",
             AgeCapSaturationWarning,
-            stacklevel=3,
+            stacklevel=4,
         )
 
 
@@ -157,20 +160,39 @@ def _compact(topo: Topology) -> _Compact:
 
 def _kernel_launches(consts, state, actual, pred, nxt, scheduler, age_cap,
                      slots_per_launch, step=kops.potus_slot_step):
-    """Drive one chunk through the slot kernel: launches of ``K =
-    slots_per_launch`` slots plus one ragged tail (DESIGN.md §12). ``step``
-    is the launch function: the device-routed wrapper, or the plain version
-    to compare against."""
-    T = actual.shape[0]
+    """Drive one chunk of every scenario of a partition through the slot
+    kernel: launches of ``K = slots_per_launch`` slots plus one ragged tail
+    (DESIGN.md §12), each one call for all N scenarios. ``state`` carries the
+    scenario axis, ``consts.V`` and ``consts.beta`` are (N,), and the
+    arrivals are (T, I, C) when the scenarios share them, else (N, T, I, C).
+    ``step`` is the launch function: the device-routed wrapper, or the plain
+    version to compare against."""
+    T = actual.shape[-3]
     K = max(1, slots_per_launch)
     mets = []
     for s0 in range(0, T, K):
         n = min(K, T - s0)
-        state, m = step(consts, state, actual[s0:s0 + n], pred[s0:s0 + n], nxt[s0:s0 + n],
-                        s0, scheduler=scheduler, age_cap=age_cap, n_slots=n)
+        sl = (...,) + (slice(s0, s0 + n), slice(None), slice(None))
+        state, m = step(consts, state, actual[sl], pred[sl], nxt[sl], s0,
+                        scheduler=scheduler, age_cap=age_cap, n_slots=n)
         mets.append(m)
-    backlog, cost, capped, served = (torch.cat([m[q] for m in mets]) for q in range(4))
-    return state, (backlog, cost, capped.sum(), served.sum())
+    backlog, cost, capped, served = (torch.cat([m[q] for m in mets], dim=-1) for q in range(4))
+    return state, (backlog, cost, capped.sum(-1), served.sum(-1))
+
+
+def _each_scenario(runs, shared: bool, ev_shared: bool):
+    """A partition's chunk runner from one runner per scenario (``runs``, in
+    grid order): each scenario's chunk in turn, on its slice of the batched
+    state, arrivals and events; the results stacked."""
+    def run_chunk(states, actual, pred, nxt, ev):
+        outs = []
+        for n, run in enumerate(runs):
+            xs = (actual, pred, nxt) if shared else (actual[n], pred[n], nxt[n])
+            ev_n = ev if ev is None or ev_shared else tuple(e[n] for e in ev)
+            outs.append(run(tuple(x[n] for x in states), *xs, ev_n))
+        return (tuple(torch.stack([o[0][q] for o in outs]) for q in range(7)),
+                tuple(torch.stack([o[1][q] for o in outs]) for q in range(4)))
+    return run_chunk
 
 
 def _slot_loop(step, state, actual, pred, nxt, ev):
@@ -383,61 +405,158 @@ def _device_inputs(topo: Topology, net: NetworkCosts, cpt: _Compact, device, ser
     )
 
 
+class _Fleet:
+    """What every partition of a run shares, on ``device``: the compact
+    problem, the successor-compact view, the device constants, the kernel's
+    instance layout and the dense problem of ``potus-loop`` (made on first
+    use)."""
+
+    def __init__(self, topo: Topology, net: NetworkCosts, inst_container, device, service):
+        self.topo, self.net, self.placement, self.device = topo, net, inst_container, device
+        self.prob = _compact_prob(topo, inst_container, device)
+        self.cpt = _compact(topo)
+        self.mask = _stream_mask(topo)
+        self.dev = _device_inputs(topo, net, self.cpt, device, service)
+        C = topo.n_components
+        self.layout = tuple(torch.as_tensor(x, dtype=torch.int32, device=device)
+                            for x in kernel_layout(topo.inst_comp, inst_container, C,
+                                                   net.U.shape[0]))
+        self.onehot = torch.nn.functional.one_hot(self.prob.inst_comp.long(), C).to(
+            torch.float32)
+        self._dense = None
+
+    def consts(self, V, beta) -> StepConsts:
+        f32 = dict(dtype=torch.float32, device=self.device)
+        d = self.dev
+        return _step_consts(self.prob, self.onehot, d["U"], d["mu"], d["inv_service"],
+                            d["sel_cmp"], d["stream_cmp"], d["valid_cmp"], d["succ_map"],
+                            d["term_f"], d["adj_rows"], torch.tensor(V, **f32),
+                            torch.tensor(beta, **f32), self.layout)
+
+    def dense(self):
+        """The full problem of the dense route, (I, I) edge_mask included, and
+        its (I, I) pair costs."""
+        if self._dense is None:
+            prob = make_problem(self.topo, self.net, self.placement, self.device)
+            self._dense = prob, _u_pair(self.dev["U"], prob.inst_container)
+        return self._dense
+
+    def chunk_runner(self, scheduler: str, Vs: list, betas: list, has_events: bool,
+                     shared: bool, ev_shared: bool, age_cap: int, slots_per_launch: int, ops):
+        """The partition's ``run_chunk(states, act, pred, nxt, ev)`` on its
+        route: one slot-kernel call a launch for all scenarios, or each
+        scenario in turn on the events or dense route."""
+        if scheduler in COMPACT_SCHEDULERS and not has_events:
+            consts = self.consts(Vs, betas)  # V and beta (N,)
+
+            def run_chunk(states, act, pred, nxt, ev):
+                return _kernel_launches(consts, states, act, pred, nxt, scheduler, age_cap,
+                                        slots_per_launch, step=ops.potus_slot_step)
+            return run_chunk
+        runs = []
+        for V, beta in zip(Vs, betas):
+            consts = self.consts(V, beta)
+            if scheduler in COMPACT_SCHEDULERS:
+                # the caps fold is not in the slot kernel: the compact step, slot by slot
+                step = partial(compact_slot_step, consts, scheduler=scheduler, age_cap=age_cap)
+            else:
+                dense, u_pair = self.dense()
+                step = partial(_fused_step, consts, dense,
+                               partial(_schedule_with, ops, method=_POTUS_METHODS[scheduler]),
+                               self.cpt.edges, u_pair, float(V), float(beta), age_cap,
+                               drain_split=ops.cohort_drain_split)
+            runs.append(partial(_slot_loop, step))
+        return _each_scenario(runs, shared, ev_shared)
+
+
 def _run_chunked_cohort(run_chunk, age_cap: int, n_components: int, act: np.ndarray,
                         pred: np.ndarray, nxt: np.ndarray, q0: np.ndarray, ev_host,
-                        T: int, chunk: int | None, device):
-    """Run the slots ``chunk`` at a time (DESIGN.md §11).
+                        ev_shared: bool, T: int, chunk: int | None, device):
+    """Run the N scenarios of a partition ``chunk`` slots at a time
+    (DESIGN.md §11).
 
-    Arrival streams and the event trace ``ev_host`` (a host triple of (T, I)
-    rows, or None) stay on the host; each chunk goes to the device with the
-    carried queue state, so device memory is bounded by the chunk, not T.
-    ``run_chunk(states, act, pred, nxt, ev)`` runs one chunk on its route.
-    Each chunk's response-accumulator slab — indexed by chunk-local source
-    slot — is added into full-horizon host arrays at offset ``t0 -
-    age_cap``; columns before source slot 0 are provably zero and are
-    sliced off. Returns numpy ``(resp_mass, resp_time, backlog, cost,
-    capped, served)`` with resp_* of shape (C, T + W + 1).
+    Arrival streams and the event trace ``ev_host`` (a host triple of rows,
+    or None) stay on the host; each chunk goes to the device with the carried
+    queue state, so device memory is bounded by the chunk, not T. The
+    streams are (T, I, C) when the scenarios share them — copied to the
+    device once a chunk, not N times — else (N, T, I, C); the trace is (T, I)
+    rows when ``ev_shared``, else (N, T, I). ``q0`` is (N, I, Sc, W+1).
+    ``run_chunk(states, act, pred, nxt, ev)`` runs one chunk of every
+    scenario on its route. Each chunk's response-accumulator slab — indexed
+    by chunk-local source slot — is added into full-horizon host arrays at
+    offset ``t0 - age_cap``; columns before source slot 0 are provably zero
+    and are sliced off. Returns numpy ``(resp_mass, resp_time, backlog, cost,
+    capped, served)``, each with a leading scenario axis; resp_* are
+    (N, C, T + W + 1).
     """
-    I, Sc, W1 = q0.shape
+    N, I, Sc, W1 = q0.shape
     Atot = age_cap + W1
     f32 = dict(dtype=torch.float32, device=device)
     carry = (
-        torch.as_tensor(q0, **f32),
-        torch.zeros((I, Sc), **f32),
-        torch.zeros((I, Atot), **f32),
-        torch.zeros((I, Sc, Atot), **f32),
-        torch.zeros((I, Atot), **f32),
+        torch.tensor(q0, **f32),  # a copy: q0 may be a read-only broadcast
+        torch.zeros((N, I, Sc), **f32),
+        torch.zeros((N, I, Atot), **f32),
+        torch.zeros((N, I, Sc, Atot), **f32),
+        torch.zeros((N, I, Atot), **f32),
     )
-    resp_mass = np.zeros((n_components, T + W1), np.float32)
-    resp_time = np.zeros((n_components, T + W1), np.float32)
+    resp_mass = np.zeros((N, n_components, T + W1), np.float32)
+    resp_time = np.zeros((N, n_components, T + W1), np.float32)
     backlogs: list[np.ndarray] = []
     costs: list[np.ndarray] = []
-    capped_tot = 0.0
-    served_tot = 0.0
+    capped_tot = np.zeros(N, np.float64)
+    served_tot = np.zeros(N, np.float64)
 
     def to_dev(x):
         return torch.as_tensor(np.ascontiguousarray(x), **f32)
 
+    def cut(x, shared, t0, t1):  # slots [t0, t1) of a shared or stacked host array
+        return x[t0:t1] if shared else x[:, t0:t1]
+
+    shared = act.ndim == 3
     tc = T if chunk is None else int(chunk)
     for t0 in range(0, T, tc) or [0]:
         t1 = min(t0 + tc, T)
-        acc = torch.zeros((n_components, t1 - t0 + Atot), **f32)
+        acc = torch.zeros((N, n_components, t1 - t0 + Atot), **f32)
         states = carry + (acc, torch.zeros_like(acc))
-        ev = None if ev_host is None else tuple(to_dev(e[t0:t1]) for e in ev_host)
+        ev = None if ev_host is None else tuple(to_dev(cut(e, ev_shared, t0, t1))
+                                                for e in ev_host)
         states, (h, cost, capped, served) = run_chunk(
-            states, to_dev(act[t0:t1]), to_dev(pred[t0:t1]), to_dev(nxt[t0:t1]), ev)
+            states, *(to_dev(cut(x, shared, t0, t1)) for x in (act, pred, nxt)), ev)
         carry = tuple(states[:5])
         rm, rt = states[5].cpu().numpy(), states[6].cpu().numpy()
         g0 = t0 - age_cap  # global source slot of the slab's first column
         lo = max(0, -g0)
-        resp_mass[:, g0 + lo: t1 + W1] += rm[:, lo:]
-        resp_time[:, g0 + lo: t1 + W1] += rt[:, lo:]
+        resp_mass[:, :, g0 + lo: t1 + W1] += rm[:, :, lo:]
+        resp_time[:, :, g0 + lo: t1 + W1] += rt[:, :, lo:]
         backlogs.append(h.cpu().numpy())
         costs.append(cost.cpu().numpy())
-        capped_tot += float(capped)
-        served_tot += float(served)
-    return (resp_mass, resp_time, np.concatenate(backlogs), np.concatenate(costs),
-            capped_tot, served_tot)
+        capped_tot += capped.cpu().numpy().astype(np.float64)
+        served_tot += served.cpu().numpy().astype(np.float64)
+    return (resp_mass, resp_time, np.concatenate(backlogs, axis=1),
+            np.concatenate(costs, axis=1), capped_tot, served_tot)
+
+
+def _check_opts(age_cap: int, chunk, slots_per_launch: int) -> None:
+    if age_cap < 2:
+        raise ValueError(f"age_cap must be >= 2, got {age_cap}")
+    if chunk is not None and chunk <= 0:
+        raise ValueError(f"chunk must be a positive slot count, got {chunk}")
+    if slots_per_launch < 1:
+        raise ValueError(f"slots_per_launch must be >= 1, got {slots_per_launch}")
+
+
+def _results(out, weights_s, reach, labels, age_cap, T, W, warmup, drain_margin):
+    """One :class:`CohortResult` per scenario of a partition's run ``out``
+    (``weights_s``: one arrival-weights matrix, or one per scenario)."""
+    resp_mass, resp_time, backlog, cost, capped, served = out
+    results = []
+    for s, label in enumerate(labels):
+        sat = float(capped[s]) / max(float(served[s]), 1e-9)
+        _maybe_warn_saturation(sat, age_cap, label=label)
+        results.append(_aggregate(
+            resp_mass[s], resp_time[s], weights_s[s if len(weights_s) > 1 else 0], reach,
+            backlog[s], cost[s], sat, float(served[s]), T, W, warmup, drain_margin))
+    return results
 
 
 def _run_cohort_fused_impl(
@@ -458,7 +577,8 @@ def _run_cohort_fused_impl(
     device="cuda",  # the card unless the caller asks for the CPU
     ops=kops,  # the kernels' route; kernels.ops.plain compares routes on the card
 ) -> CohortResult:
-    """Fused cohort engine implementation behind ``simulate(EngineSpec)``.
+    """Fused cohort engine implementation behind ``simulate(EngineSpec)``:
+    the one-scenario partition of :func:`run_fused_sweep`.
 
     ``age_cap`` bounds the tracked response of any tuple: mass older than
     ``age_cap`` slots accumulates in the oldest bucket and reports response
@@ -470,52 +590,95 @@ def _run_cohort_fused_impl(
     ``events``). The run takes ``device="cuda"`` unless the caller asks for
     the CPU, and raises where CUDA is asked for and absent.
     """
-    if age_cap < 2:
-        raise ValueError(f"age_cap must be >= 2, got {age_cap}")
-    if chunk is not None and chunk <= 0:
-        raise ValueError(f"chunk must be a positive slot count, got {chunk}")
-    if slots_per_launch < 1:
-        raise ValueError(f"slots_per_launch must be >= 1, got {slots_per_launch}")
+    _check_opts(age_cap, chunk, slots_per_launch)
     device = resolve_device(device)
     W = cfg.window
     actual = materialize_arrivals(actual, topo, T + W + 1)
-    prob = _compact_prob(topo, inst_container, device)
-    cpt = _compact(topo)
-    mask = _stream_mask(topo)
-    act, pred, nxt, q_rem0 = _prep_streams(actual, predicted, T, W, cpt, mask)
-    dev = _device_inputs(topo, net, cpt, device, service)
-    C = topo.n_components
-    layout = tuple(torch.as_tensor(x, dtype=torch.int32, device=device) for x in kernel_layout(
-        topo.inst_comp, inst_container, C, net.U.shape[0]))
-    comp_onehot = torch.nn.functional.one_hot(prob.inst_comp.long(), C).to(torch.float32)
-    consts = _step_consts(
-        prob, comp_onehot, dev["U"], dev["mu"], dev["inv_service"], dev["sel_cmp"],
-        dev["stream_cmp"], dev["valid_cmp"], dev["succ_map"], dev["term_f"], dev["adj_rows"],
-        torch.tensor(cfg.V, dtype=torch.float32, device=device),
-        torch.tensor(cfg.beta, dtype=torch.float32, device=device), layout)
+    fleet = _Fleet(topo, net, inst_container, device, service)
+    act, pred, nxt, q_rem0 = _prep_streams(actual, predicted, T, W, fleet.cpt, fleet.mask)
     ev_host = host_trace(events, T)
-    if cfg.scheduler not in COMPACT_SCHEDULERS:
-        # the dense reference route: the full problem, (I, I) edge_mask included
-        dense = make_problem(topo, net, inst_container, device)
-        step = partial(_fused_step, consts, dense,
-                       partial(_schedule_with, ops, method=_POTUS_METHODS[cfg.scheduler]),
-                       cpt.edges, _u_pair(consts.U, dense.inst_container), float(cfg.V),
-                       float(cfg.beta), age_cap, drain_split=ops.cohort_drain_split)
-        run_chunk = partial(_slot_loop, step)
-    elif ev_host is not None:
-        # the caps fold is not in the slot kernel: the compact step, slot by slot
-        run_chunk = partial(_slot_loop, partial(compact_slot_step, consts,
-                                                scheduler=cfg.scheduler, age_cap=age_cap))
-    else:
-        def run_chunk(states, act_c, pred_c, nxt_c, ev):
-            return _kernel_launches(consts, states, act_c, pred_c, nxt_c, cfg.scheduler,
-                                    age_cap, slots_per_launch, step=ops.potus_slot_step)
-    resp_mass, resp_time, backlog, cost, capped, served = _run_chunked_cohort(
-        run_chunk, age_cap, C, act, pred, nxt, q_rem0, ev_host, T, chunk, device)
-    weights = np.einsum("sic,ic->cs", act, mask)
-    sat = capped / max(served, 1e-9)
-    _maybe_warn_saturation(sat, age_cap, label=f"scheduler={cfg.scheduler} V={cfg.V} W={W}")
-    return _aggregate(
-        resp_mass, resp_time, weights, _reachability(topo), backlog, cost, sat, served,
-        T, W, warmup, drain_margin,
-    )
+    run_chunk = fleet.chunk_runner(cfg.scheduler, [cfg.V], [cfg.beta], ev_host is not None,
+                                   True, True, age_cap, slots_per_launch, ops)
+    out = _run_chunked_cohort(run_chunk, age_cap, topo.n_components, act, pred, nxt,
+                              q_rem0[None], ev_host, True, T, chunk, device)
+    weights = np.einsum("sic,ic->cs", act, fleet.mask)
+    return _results(out, [weights], _reachability(topo),
+                    [f"scheduler={cfg.scheduler} V={cfg.V} W={W}"], age_cap, T, W, warmup,
+                    drain_margin)[0]
+
+
+def run_fused_sweep(
+    topo: Topology,
+    net: NetworkCosts,
+    inst_container: np.ndarray,
+    arr_map: dict,  # name -> (actual, predicted|None), from the sweep's normalization
+    T: int,
+    spec,
+    warmup: int = 50,
+    drain_margin: int | None = None,
+    age_cap: int = 64,
+    events_map: dict | None = None,  # name -> EventTrace|None, from the sweep's normalization
+    service=None,  # (I,) | scalar — per-tuple service time in mu units (DESIGN.md §10)
+    chunk: int | None = None,  # streaming: device slots per chunk (DESIGN.md §11)
+    slots_per_launch: int = 1,  # slots per kernel launch (DESIGN.md §12)
+    device="cuda",  # the card unless the caller asks for the CPU
+    ops=kops,  # the kernels' route; kernels.ops.plain compares routes on the card
+) -> tuple[list[CohortResult], int]:
+    """Run a whole :class:`~repro_torch.core.sweep.SweepSpec` grid on the
+    fused engine: scenarios partition by (scheduler, window, use_pallas,
+    whether they carry a disruption trace) as in the reference, and each
+    partition runs as one batch of N scenarios — on the slot-kernel route
+    one kernel call a launch for all of them, on the events and dense routes
+    each scenario in turn. Returns (results in grid order, n_batches).
+    ``spec.sharded`` raises: the instance mesh is not ported yet."""
+    _check_opts(age_cap, chunk, slots_per_launch)
+    if spec.sharded:
+        from .engine import UnsupportedEngineOption  # lazy: engine imports us
+
+        raise UnsupportedEngineOption("cohort-fused", "sharded",
+                                      reason="not ported yet (ROADMAP.md, section 1, "
+                                             "module item 5)")
+    scenarios = spec.scenarios()
+    # raising lookup, like arr_map: a named trace missing from the map is a
+    # caller error, not an undisturbed run silently labeled as disturbed
+    events_map = {"none": None, **(events_map or {})}
+    missing = [e for e in spec.events if e not in events_map]
+    if missing:
+        raise KeyError(f"spec names event scenarios {missing} not present in events_map")
+    device = resolve_device(device)
+    fleet = _Fleet(topo, net, inst_container, device, service)
+    reach = _reachability(topo)
+
+    groups: dict[tuple, list] = {}
+    for scn in scenarios:
+        key = (scn.scheduler, scn.window, scn.use_pallas, events_map[scn.events] is not None)
+        groups.setdefault(key, []).append(scn)
+
+    results: list[CohortResult | None] = [None] * len(scenarios)
+    for (scheduler, W, _, has_events), group in groups.items():
+        N = len(group)
+        shared = len({scn.arrival for scn in group}) == 1
+        if shared:  # one prep, one copy a chunk and one weights matrix for the partition
+            prepped = [_prep_streams(*arr_map[group[0].arrival], T, W, fleet.cpt, fleet.mask)]
+            act, pred, nxt, q0 = prepped[0]
+            q0 = np.broadcast_to(q0, (N, *q0.shape))
+        else:
+            prepped = [_prep_streams(*arr_map[scn.arrival], T, W, fleet.cpt, fleet.mask)
+                       for scn in group]
+            act, pred, nxt, q0 = (np.stack([p[k] for p in prepped]) for k in range(4))
+        weights_s = [np.einsum("sic,ic->cs", p[0], fleet.mask) for p in prepped]
+        ev_host, ev_shared = None, True
+        if has_events:
+            ev_host, ev_shared = stacked_host_traces(
+                [scn.events for scn in group], [events_map[scn.events] for scn in group], T)
+        Vs, betas = [scn.V for scn in group], [scn.beta for scn in group]
+        run_chunk = fleet.chunk_runner(scheduler, Vs, betas, has_events, shared, ev_shared,
+                                       age_cap, slots_per_launch, ops)
+        out = _run_chunked_cohort(run_chunk, age_cap, topo.n_components, act, pred, nxt, q0,
+                                  ev_host, ev_shared, T, chunk, device)
+        labels = [f"scheduler={scheduler} V={scn.V} W={W} arrival={scn.arrival} "
+                  f"events={scn.events}" for scn in group]
+        for scn, res in zip(group, _results(out, weights_s, reach, labels, age_cap, T, W,
+                                            warmup, drain_margin)):
+            results[scn.index] = res
+    return results, len(groups)

@@ -22,7 +22,8 @@ from ..device import resolve_device
 from .potus import SchedProblem
 from .topology import Topology
 
-__all__ = ["SimState", "init_state", "effective_qout", "slot_update", "slot_update_rows"]
+__all__ = ["SimState", "init_state", "init_state_batch", "effective_qout", "slot_update",
+           "slot_update_rows"]
 
 
 @dataclasses.dataclass
@@ -48,6 +49,17 @@ def init_state(topo: Topology, window: int, arrivals_prefix: np.ndarray,
         q_out_bolt=torch.zeros((I, C), **f32),
         transit=torch.zeros((I,), **f32),
     )
+
+
+def init_state_batch(topo: Topology, window: int, arrivals_prefixes: np.ndarray,
+                     device="cuda") -> SimState:
+    """Stacked initial states for a scenario sweep: ``arrivals_prefixes``
+    (N, window+1, I, C), one λ(0..W) prefix per scenario. Returns a
+    :class:`SimState` whose tensors carry a leading scenario axis N, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    states = [init_state(topo, window, p, device) for p in arrivals_prefixes]
+    return SimState(*(torch.stack([getattr(s, f.name) for s in states])
+                      for f in dataclasses.fields(SimState)))
 
 
 def effective_qout(prob: SchedProblem, state: SimState) -> torch.Tensor:

@@ -33,7 +33,7 @@ from .queues import SimState, effective_qout, init_state, slot_update
 from .topology import Topology
 
 __all__ = ["SimConfig", "SimResult", "sim_step", "pad_arrivals", "materialize_arrivals",
-           "host_trace"]
+           "host_trace", "stacked_host_traces"]
 
 
 def host_trace(events: EventTrace | None, T: int):
@@ -48,6 +48,16 @@ def host_trace(events: EventTrace | None, T: int):
         np.asarray(ev.gamma_t, np.float32),
         np.asarray(ev.alive_t, np.float32),
     )
+
+
+def stacked_host_traces(names, traces, T: int):
+    """``(events, shared)`` as host arrays: a single (T, I) triple when every
+    scenario names the same trace, else the three arrays stacked to
+    (N, T, I). Shared by the sweep partitions of both engines."""
+    if len(set(names)) == 1:
+        return host_trace(traces[0], T), True
+    host = [host_trace(tr, T) for tr in traces]
+    return tuple(np.stack([h[k] for h in host]) for k in range(3)), False
 
 
 def _check_mu_override(mu, events) -> None:

@@ -57,6 +57,15 @@
 // read only where the stamp is the slot's.
 // Build with --fmad=false so that a*b+c rounds twice, as the plain version does.
 // The kernels are f32 only.
+//
+// A call runs N scenarios of one sweep partition at once (the reference runs its Pallas kernel
+// under jax.vmap over the scenarios): every kernel takes its scenario from blockIdx.z and works
+// on that scenario's view of the arguments (potus_scenario): its own V, beta, state, metrics and
+// scratch, its own arrivals unless the partition shares one stream. A call stays 1 + 5K
+// launches whatever N is, and nothing a block computes, nor the order it sums in, depends on
+// N, so scenario n of a call equals a one-scenario call on that scenario bitwise. A call of one
+// scenario takes each kernel's instance without the view (BATCHED false): the view's pointer
+// arithmetic costs the row kernels registers and time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,16 +101,16 @@ struct PotusSlotArgs {
     const float* comp_count;   // (C,)
     const float* spout;        // (I,)
     const float* adj;          // (I, C)
-    const float* V;            // ()
-    const float* beta;         // ()
+    const float* V;            // (N,)
+    const float* beta;         // (N,)
     const int* comp_start;     // (C+1,) instance range of each component
     const int* cont_rows;      // (I,) instances grouped by container, ascending
     const int* cont_start;     // (NK+1,) each container's span of cont_rows
-    // n_slots slots of arrivals, (n_slots, I, C) each
+    // n_slots slots of arrivals, (n_slots, I, C) each: scenario n's at n * xs_stride
     const float* act;
     const float* pred;
     const float* nxt;
-    // state in
+    // state in; the state, metrics and scratch below carry a leading scenario axis N
     const float* q_rem_in;     // (I, S, W1)
     const float* admit_in;     // (I, S)
     const float* q_in_in;      // (I, Atot)
@@ -141,7 +150,60 @@ struct PotusSlotArgs {
     float* part;               // (2, I, 4) per-block metric sums, by slot % 2
     void* stream_handle;       // cudaStream_t of the caller
     int I, S, W1, C, NK, Atot, L, age_cap, n_slots, t0, sched, stamp0;
+    int N;                     // scenarios
+    long long xs_stride;       // floats between two scenarios' arrivals, 0 when they share them
 };
+
+// scenario blockIdx.z's view of the arguments: the slot-invariant constants are shared
+__device__ __forceinline__ PotusSlotArgs potus_scenario(const PotusSlotArgs& g) {
+    PotusSlotArgs a = g;
+    const size_t n = blockIdx.z;
+    const size_t I = g.I, S = g.S, A = g.Atot, C = g.C, NK = g.NK;
+    const size_t xs = n * (size_t)g.xs_stride;
+    const size_t rem = n * I * S * g.W1, is = n * I * S, ia = n * I * A, isa = n * I * S * A;
+    const size_t cl = n * C * g.L, ic = n * I * C, kc = n * NK * C, kca = n * NK * C * A;
+    a.V = g.V + n;
+    a.beta = g.beta + n;
+    a.act = g.act + xs;
+    a.pred = g.pred + xs;
+    a.nxt = g.nxt + xs;
+    a.q_rem_in = g.q_rem_in + rem;
+    a.admit_in = g.admit_in + is;
+    a.q_in_in = g.q_in_in + ia;
+    a.q_out_in = g.q_out_in + isa;
+    a.transit_in = g.transit_in + ia;
+    a.rmass_in = g.rmass_in + cl;
+    a.rtime_in = g.rtime_in + cl;
+    a.q_rem = g.q_rem + rem;
+    a.admit = g.admit + is;
+    a.q_in = g.q_in + ia;
+    a.q_out = g.q_out + isa;
+    a.transit = g.transit + ia;
+    a.rmass = g.rmass + cl;
+    a.rtime = g.rtime + cl;
+    a.met = g.met + n * 4 * g.n_slots;
+    a.q_in_arr = g.q_in_arr + n * I;
+    a.q_out_arr = g.q_out_arr + ic;
+    a.must = g.must + ic;
+    a.M = g.M + kc;
+    a.J = g.J + kc;
+    a.usum = g.usum + kc;
+    a.winner = g.winner + n * C;
+    a.win_ok = g.win_ok + n * C;
+    a.wpt = g.wpt + is;
+    a.wev = g.wev + is;
+    a.d_land = g.d_land + isa;
+    a.served_term = g.served_term + ia;
+    a.P_pt = g.P_pt + kca;
+    a.P_ev = g.P_ev + kca;
+    a.CM = g.CM + kca;
+    a.land = g.land + ia;
+    a.land_stamp = g.land_stamp + n * I;
+    a.ev_cb = g.ev_cb + n * C * A;
+    a.cmass = g.cmass + n * C * A;
+    a.part = g.part + n * 2 * I * 4;
+    return a;
+}
 
 // the sum of v over the warp: a fixed shuffle tree into lane 0, broadcast to every lane
 __device__ __forceinline__ float potus_warp_sum(float v) {
@@ -221,8 +283,7 @@ __device__ __forceinline__ void potus_block_part(const PotusSlotArgs& a, float (
 //             queues (slot 0: of the state in, copying q_rem, admit and the accumulators out;
 //             later slots: of the state out, in place); for slot >= 1 block 0 sums the metrics
 //             of the slot before ------------------------------------------------------------
-__global__ void __launch_bounds__(32 * POTUS_ROW_WARPS)
-potus_observe(PotusSlotArgs a, int slot) {
+__device__ __forceinline__ void potus_observe_body(const PotusSlotArgs& a, int slot) {
     __shared__ float blk[POTUS_ROW_WARPS][2];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, RW = blockDim.x >> 5;
     if (slot > 0 && blockIdx.x == 0) {  // first, so that it does not trail the row blocks
@@ -311,6 +372,13 @@ potus_observe(PotusSlotArgs a, int slot) {
     potus_block_part(a, blk, rb, slot, 0, live ? qin : 0.f, live ? qsum : 0.f);
 }
 
+template <bool BATCHED>
+__global__ void __launch_bounds__(32 * POTUS_ROW_WARPS)
+potus_observe(PotusSlotArgs g, int slot) {
+    if constexpr (BATCHED) potus_observe_body(potus_scenario(g), slot);
+    else potus_observe_body(g, slot);
+}
+
 // transit bucket b of row i after a slot: its landing (where stamped with the slot) and its
 // component's even spread, shifted by one age
 __device__ __forceinline__ float potus_transit(const PotusSlotArgs& a, int i, int b,
@@ -323,8 +391,7 @@ __device__ __forceinline__ float potus_transit(const PotusSlotArgs& a, int i, in
 }
 
 // -- finish: the transit out of the call's last slot; block 0, its metrics ------------------
-__global__ void __launch_bounds__(32 * POTUS_ROW_WARPS)
-potus_finish(PotusSlotArgs a) {
+__device__ __forceinline__ void potus_finish_body(const PotusSlotArgs& a) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, RW = blockDim.x >> 5;
     const int nblk = (a.I + RW - 1) / RW, last = a.n_slots - 1;
     if (blockIdx.x == 0) {  // first, so that it does not trail the row blocks
@@ -338,9 +405,16 @@ potus_finish(PotusSlotArgs a) {
         a.transit[(size_t)i * a.Atot + b] = potus_transit(a, i, b, landed);
 }
 
+template <bool BATCHED>
+__global__ void __launch_bounds__(32 * POTUS_ROW_WARPS)
+potus_finish(PotusSlotArgs g) {
+    if constexpr (BATCHED) potus_finish_body(potus_scenario(g));
+    else potus_finish_body(g);
+}
+
 // -- fold: per (component c, container k) cheapest candidate M, J (lowest index on ties) and
 //          the alive-column sum u_sum; for JSQ also the per-component shortest queue ----------
-__global__ void potus_fold(PotusSlotArgs a) {
+__device__ __forceinline__ void potus_fold_body(const PotusSlotArgs& a) {
     __shared__ float sv[POTUS_RED_THREADS];
     __shared__ int sj[POTUS_RED_THREADS];
     __shared__ float su[POTUS_RED_THREADS];
@@ -398,6 +472,12 @@ __global__ void potus_fold(PotusSlotArgs a) {
     }
 }
 
+template <bool BATCHED>
+__global__ void potus_fold(PotusSlotArgs g) {
+    if constexpr (BATCHED) potus_fold_body(potus_scenario(g));
+    else potus_fold_body(g);
+}
+
 // one component's decision of a row, into the warp's shared arrays
 __device__ __forceinline__ void potus_decision(float* ship_s, float* wpt_c, float* wev_c, int c,
                                                float shipped, float point, float even) {
@@ -409,8 +489,7 @@ __device__ __forceinline__ void potus_decision(float* ship_s, float* wpt_c, floa
 }
 
 // -- rows_b: decide, serve, drain oldest-first, admit leftovers, shift windows and ages -------
-__global__ void __launch_bounds__(32 * POTUS_ROW_WARPS, 3)
-potus_rows_b(PotusSlotArgs a, int slot, int per_warp) {
+__device__ __forceinline__ void potus_rows_b_body(const PotusSlotArgs& a, int slot, int per_warp) {
     extern __shared__ float potus_smem[];
     __shared__ float blk[POTUS_ROW_WARPS][2];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, RW = blockDim.x >> 5;
@@ -593,9 +672,16 @@ potus_rows_b(PotusSlotArgs a, int slot, int per_warp) {
     potus_block_part(a, blk, rb, slot, 2, live ? cost_a : 0.f, live ? cost_b : 0.f);
 }
 
+template <bool BATCHED>
+__global__ void __launch_bounds__(32 * POTUS_ROW_WARPS, 3)
+potus_rows_b(PotusSlotArgs g, int slot, int per_warp) {
+    if constexpr (BATCHED) potus_rows_b_body(potus_scenario(g), slot, per_warp);
+    else potus_rows_b_body(g, slot, per_warp);
+}
+
 // -- group: per container and chunk of cc components, the partial landing (point and even
 //           parts) per successor component and the served terminal mass per own component -----
-__global__ void potus_group(PotusSlotArgs a, int cc) {
+__device__ __forceinline__ void potus_group_body(const PotusSlotArgs& a, int cc) {
     extern __shared__ float potus_smem[];
     const int k = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int NW = blockDim.x >> 5;  // a power of two, at most POTUS_GROUP_WARPS
@@ -664,6 +750,12 @@ __global__ void potus_group(PotusSlotArgs a, int cc) {
     }
 }
 
+template <bool BATCHED>
+__global__ void potus_group(PotusSlotArgs g, int cc) {
+    if constexpr (BATCHED) potus_group_body(potus_scenario(g), cc);
+    else potus_group_body(g, cc);
+}
+
 // the one instance that rows of container k aim their point mass at in component c (I = none)
 __device__ __forceinline__ int potus_target(const PotusSlotArgs& a, int k, int c) {
     if (a.sched == SCHED_POTUS) return a.J[k * a.C + c];
@@ -673,7 +765,7 @@ __device__ __forceinline__ int potus_target(const PotusSlotArgs& a, int k, int c
 
 // -- reduce: landing per target (one writer each, stamped with the slot), even spread and
 //            served mass per component, response accumulators at columns [t, t + Atot) ------
-__global__ void potus_reduce(PotusSlotArgs a, int slot) {
+__device__ __forceinline__ void potus_reduce_body(const PotusSlotArgs& a, int slot) {
     extern __shared__ int potus_tg[];  // (NK,) each container's target in component c
     const int c = blockIdx.x, k = blockIdx.y;
     const int C = a.C, A = a.Atot, NK = a.NK;
@@ -711,6 +803,12 @@ __global__ void potus_reduce(PotusSlotArgs a, int slot) {
     }
 }
 
+template <bool BATCHED>
+__global__ void potus_reduce(PotusSlotArgs g, int slot) {
+    if constexpr (BATCHED) potus_reduce_body(potus_scenario(g), slot);
+    else potus_reduce_body(g, slot);
+}
+
 #define POTUS_CHECK(expr)                                   \
     do {                                                    \
         cudaError_t err_ = (expr);                          \
@@ -719,11 +817,14 @@ __global__ void potus_reduce(PotusSlotArgs a, int slot) {
 
 extern "C" int potus_slot_args_size() { return (int)sizeof(PotusSlotArgs); }
 
-// Runs n_slots slots: the first slot reads the state in, and writes the state out that the
-// state out. Returns cudaGetLastError() (0 on success) after the last launch, or the first
-// error; cudaErrorInvalidValue when a row or a container's partials do not fit the shared
-// memory (an age axis of thousands of buckets, or tens of thousands of containers).
-extern "C" int potus_slot_run(const PotusSlotArgs* args) {
+// Runs n_slots slots of N scenarios: the first slot reads the state in and writes the state
+// out, the later ones update the state out. Returns cudaGetLastError() (0 on success) after the
+// last launch, or the first error; cudaErrorInvalidValue when a row or a container's partials
+// do not fit the shared memory (an age axis of thousands of buckets, or tens of thousands of
+// containers). One scenario takes the kernels without the scenario view (BATCHED false), whose
+// code is that of a kernel with no scenario axis.
+template <bool BATCHED>
+static int potus_slot_run_n(const PotusSlotArgs* args) {
     const PotusSlotArgs a = *args;
     cudaStream_t st = (cudaStream_t)a.stream_handle;
     const size_t f = sizeof(float);
@@ -739,33 +840,39 @@ extern "C" int potus_slot_run(const PotusSlotArgs* args) {
     const int cc_fit = (int)(POTUS_SMEM_MAX / (NW * per_comp));
     const int cc = min(cc_fit, (a.C + POTUS_GROUP_CHUNKS - 1) / POTUS_GROUP_CHUNKS);
     const size_t smem_r = (size_t)a.NK * sizeof(int);
-    if (smem_b > POTUS_SMEM_MAX || cc < 1 || smem_r > POTUS_SMEM_MAX)
+    if (smem_b > POTUS_SMEM_MAX || cc < 1 || smem_r > POTUS_SMEM_MAX || a.N < 1 || a.N > 65535)
         return (int)cudaErrorInvalidValue;
     const size_t smem_g = (size_t)NW * cc * per_comp;
     if (smem_b > 48 * 1024)
-        POTUS_CHECK(cudaFuncSetAttribute(potus_rows_b, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        POTUS_CHECK(cudaFuncSetAttribute(potus_rows_b<BATCHED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_b));
     if (smem_g > 48 * 1024)
-        POTUS_CHECK(cudaFuncSetAttribute(potus_group, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        POTUS_CHECK(cudaFuncSetAttribute(potus_group<BATCHED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_g));
     if (smem_r > 48 * 1024)
-        POTUS_CHECK(cudaFuncSetAttribute(potus_reduce,
+        POTUS_CHECK(cudaFuncSetAttribute(potus_reduce<BATCHED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_r));
-    const int nblk = (a.I + RW - 1) / RW;
-    const dim3 comp_by_cont(a.C, a.NK);
+    const int nblk = (a.I + RW - 1) / RW, N = a.N;
+    const dim3 comp_by_cont(a.C, a.NK, N);
     for (int k = 0; k < a.n_slots; ++k) {
-        potus_observe<<<nblk + (k > 0), 32 * RW, 0, st>>>(a, k);
+        potus_observe<BATCHED><<<dim3(nblk + (k > 0), 1, N), 32 * RW, 0, st>>>(a, k);
         POTUS_CHECK(cudaGetLastError());
-        potus_fold<<<comp_by_cont, POTUS_RED_THREADS, 0, st>>>(a);
+        potus_fold<BATCHED><<<comp_by_cont, POTUS_RED_THREADS, 0, st>>>(a);
         POTUS_CHECK(cudaGetLastError());
-        potus_rows_b<<<nblk, 32 * RW, smem_b, st>>>(a, k, per_warp);
+        potus_rows_b<BATCHED><<<dim3(nblk, 1, N), 32 * RW, smem_b, st>>>(a, k, per_warp);
         POTUS_CHECK(cudaGetLastError());
-        potus_group<<<dim3(a.NK, (a.C + cc - 1) / cc), 32 * NW, smem_g, st>>>(a, cc);
+        potus_group<BATCHED><<<dim3(a.NK, (a.C + cc - 1) / cc, N), 32 * NW, smem_g, st>>>(a, cc);
         POTUS_CHECK(cudaGetLastError());
-        potus_reduce<<<comp_by_cont, POTUS_REDUCE_THREADS, smem_r, st>>>(a, k);
+        potus_reduce<BATCHED><<<comp_by_cont, POTUS_REDUCE_THREADS, smem_r, st>>>(a, k);
         POTUS_CHECK(cudaGetLastError());
     }
-    potus_finish<<<nblk + 1, 32 * RW, 0, st>>>(a);
+    potus_finish<BATCHED><<<dim3(nblk + 1, 1, N), 32 * RW, 0, st>>>(a);
     return (int)cudaGetLastError();
+}
+
+extern "C" int potus_slot_run(const PotusSlotArgs* args) {
+    return args->N > 1 ? potus_slot_run_n<true>(args) : potus_slot_run_n<false>(args);
 }

@@ -97,7 +97,7 @@ class PotusDispatcher:
         if cfg.sharded:
             raise NotImplementedError(
                 "DispatcherConfig(sharded=True) is not ported yet (ROADMAP.md, section 1, "
-                "module items 9 and 10); route on one device")
+                "module item 5); route on one device")
         R = len(replica_hosts)
         F = n_frontends
         self.cfg = cfg

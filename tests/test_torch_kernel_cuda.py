@@ -19,7 +19,9 @@ and 1e-2 (bfloat16) of the tensor's scale (the states within 1e-5 in both)
 at mamba2-1.3b and zamba2-1.2b widths in the model's types and at widths no
 16-byte load fits, bitwise on dyadic inputs, and repeats bitwise; bf16
 takes its tensor-core route, float32 the CUDA cores. The slot kernel also
-runs bitwise on a 603-bucket age axis. The drain kernel matches its plain
+runs bitwise on a 603-bucket age axis, and with N scenarios in one call
+(the scenario axis of a sweep partition) each scenario equals its own
+one-scenario call bitwise, at 69 and 290 buckets. The drain kernel matches its plain
 version at ragged I (300, 1025: a cut column strip and chunk, no 16-byte
 loads at 1025) and at I=16384 with the dense route's sparsity, gives zeros
 for an all-zero ratio and a NaN row for an out-of-range component, and
@@ -91,6 +93,46 @@ def test_kernel_matches_plain_version_bitwise_on_a_long_age_axis(cuda_device, sc
         torch.cuda.synchronize()
         for x, y in zip(s_k + (m_k,), s_p + (m_p,)):
             assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("age_cap", [66, 287])  # Atot 69 (the fleet's) and 290 (Fig. 6ab's)
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("N", [1, 3, 4])
+def test_batched_slot_kernel_equals_one_scenario_calls(cuda_device, N, stacked, age_cap):
+    """N scenarios in one call (a scenario axis in the grid): each equals its
+    own one-scenario call bitwise, the batch equals the batched plain version
+    bitwise on the dyadic system, two runs repeat bitwise, and a call of K
+    slots is one launch whatever N is; shared and stacked streams, K=1 and 4,
+    potus, shuffle and jsq."""
+    import repro_torch.core as pt
+    from repro_torch.core import cohort_fused as cf
+    from repro_torch.kernels import potus_slot as ps
+
+    T, W = 24, 2
+    sys_ = chip_smoke.dyadic_system(pt, T, W)
+    Vs, betas = [2.0, 1.0, 4.0, 0.5][:N], [0.5, 1.0, 0.25, 2.0][:N]
+    consts, state, streams, one = chip_smoke.batch_inputs(cf, sys_, T, W, Vs, betas, age_cap,
+                                                          cuda_device, stacked)
+    for scheduler in ("potus", "shuffle", "jsq"):
+        s_p, m_p = chip_smoke.run_slots(ps.potus_slot_step_plain, consts, state, streams, 1,
+                                        scheduler, age_cap)
+        for K in (1, 4):
+            ps.launches.reset()
+            s_b, m_b = chip_smoke.run_slots(ps.potus_slot_call, consts, state, streams, K,
+                                            scheduler, age_cap)
+            assert ps.launches.n == -(-T // K)
+            s_b2, m_b2 = chip_smoke.run_slots(ps.potus_slot_call, consts, state, streams, K,
+                                              scheduler, age_cap)
+            torch.cuda.synchronize()
+            for x, y, z in zip(s_b + (m_b,), s_p + (m_p,), s_b2 + (m_b2,)):
+                assert torch.equal(x, y)
+                assert torch.equal(x, z)
+            for n, (c_n, st_n, xs_n) in enumerate(one):
+                s_1, m_1 = chip_smoke.run_slots(ps.potus_slot_call, c_n, st_n, xs_n, K,
+                                                scheduler, age_cap)
+                torch.cuda.synchronize()
+                for x, y in zip(s_1 + (m_1,), tuple(b[n] for b in s_b) + (m_b[:, n],)):
+                    assert torch.equal(x, y)
 
 
 def test_scan_kernels_match_plain_version_bitwise_on_dyadic_states(cuda_device):
