@@ -10,7 +10,13 @@ cpu``). The grids, seeds and sizes are the reference's; the rows are the same
     PYTHONPATH=src python -m benchmarks.torch_figures [section ...] [--device cpu]
         [--json PATH]
 
-Sections: fig4, fig5, fig6ab, fig6c, disruption (all when none is named).
+Sections: fig4, fig5, fig6ab, fig6c, disruption, obs (all when none is named).
+``obs`` is the counterpart of ``benchmarks/disruption.py``'s metrics dump: the
+k-failure POTUS transient with every ``cohort-fused`` metric stream and span
+tracing on, written to ``OBS_disruption_torch.json`` (``repro-obs/v1``; read
+it with ``python tools/obs_report.py OBS_disruption_torch.json --recovery``)
+and ``TRACE_disruption_torch.json`` (Chrome trace), paths overridable with
+``REPRO_TORCH_OBS_DISRUPTION_JSON`` and ``REPRO_TORCH_OBS_TRACE_JSON``.
 ``REPRO_BENCH_FULL=1`` takes the full grids, ``REPRO_BENCH_SMOKE=1`` the
 smoke size. ``--json PATH`` also writes ``repro-bench/v2`` rows with the
 engine names ``torch-cohort-fused`` and ``torch-jax``, so their
@@ -35,6 +41,7 @@ from repro_torch.core import (EngineSpec, SimConfig, SweepSpec, build_topology,
                               poisson_arrivals, random_apps, run_sweep, simulate,
                               t_heron_placement, trace_synthetic)
 from repro_torch.core.prediction import misprediction_scenarios, mse, predictor_scenarios
+from repro_torch.obs import disable_tracing, enable_tracing, export_chrome_trace
 
 QUICK = os.environ.get("REPRO_BENCH_FULL", "0") != "1"
 SMOKE = os.environ.get("REPRO_BENCH_SMOKE", "0") == "1"
@@ -272,23 +279,30 @@ def fig6c_misprediction_extremes(device="cuda") -> list[Row]:
             for name in cases]
 
 
-def transient_grid(device="cuda", T: int = T_COHORT, windows=None):
-    """``benchmarks/disruption.py``'s grid: (potus, shuffle) x W x (none,
-    kfail) through a k-instance failure one third into the run that recovers
-    after a sixth of it (``windows`` replaces its W axis). Returns (system,
-    T, t0, dur, scenario, Ws, sweep, wall s)."""
+def _transient(T: int, windows=None):
+    """The transient of ``benchmarks/disruption.py``: a k-instance failure one
+    third into the run that recovers after a sixth of it. Returns (system,
+    t0, dur, scenario, arrivals, Ws, engine_opts)."""
     sys_ = paper_system("fat-tree")
     t0, dur = T // 3, max(T // 6, 4)
     k = max(int(0.2 * len(sys_.topo.bolt_instances)), 2)
     scen = k_failures(sys_.topo, k=k, start=t0, duration=dur, rng=np.random.default_rng(11))
     arr = arrivals_for(sys_, "poisson", T)
     Ws = windows or ((0, 2, 6) if (QUICK or SMOKE) else (0, 1, 2, 4, 6, 10))
-    spec = SweepSpec(V=1.0, window=Ws, scheduler=("potus", "shuffle"),
-                     events=("none", "kfail"))
     # responses of cohorts arriving while instances are down (and the recovery
     # tail); age_cap covers the outage and the queueing
     opts = {"age_cap": max(4 * dur, 48), "warmup": max(t0 - 1, 1),
             "drain_margin": T - min(t0 + dur + 10, T - 1)}
+    return sys_, t0, dur, scen, arr, Ws, opts
+
+
+def transient_grid(device="cuda", T: int = T_COHORT, windows=None):
+    """``benchmarks/disruption.py``'s grid: (potus, shuffle) x W x (none,
+    kfail) through the failure transient (``windows`` replaces its W axis).
+    Returns (system, T, t0, dur, scenario, Ws, sweep, wall s)."""
+    sys_, t0, dur, scen, arr, Ws, opts = _transient(T, windows)
+    spec = SweepSpec(V=1.0, window=Ws, scheduler=("potus", "shuffle"),
+                     events=("none", "kfail"))
     sw, wall = _sweep(sys_, arr, T, spec, device, engine="cohort-fused",
                       events={"kfail": scen}, engine_opts=opts)
     return sys_, T, t0, dur, scen, Ws, sw, wall
@@ -345,12 +359,70 @@ def disruption_bench(device="cuda") -> list[Row]:
     return disruption_rows(transient_grid(device))
 
 
+#: every stream of the fused engine, as ``benchmarks/disruption.py`` dumps them
+OBS_STREAMS = ("backlog", "queue_depth", "price", "dispatch", "transit", "backlog_comp",
+               "held", "window", "saturation", "payload")
+
+
+def recovery_story(h, tol: float = 1.1) -> tuple[int, int]:
+    """(peak-backlog slot, recovery slot) of a backlog series, as
+    ``tools/obs_report.py --recovery`` derives them from a dump: the first
+    slot after the peak within ``tol`` x the mean backlog before the peak;
+    -1 when it never recovers."""
+    h = [float(x) for x in h]
+    peak = max(range(len(h)), key=h.__getitem__)
+    pre = h[:peak] or [h[0]]
+    baseline = sum(pre) / len(pre)
+    recovery = next((t for t in range(peak + 1, len(h)) if h[t] <= tol * baseline), -1)
+    return peak, recovery
+
+
+def dump_obs(device="cuda", T: int = T_COHORT, obs_path: str | None = None,
+             trace_path: str | None = None):
+    """The metrics-on POTUS run through the failure transient at the grid's
+    largest W, with every fused-engine stream and span tracing on, through
+    ``run_sweep`` (the counterpart of ``benchmarks/disruption.py::_dump_obs``).
+    Writes the ``repro-obs/v1`` dump and the Chrome trace. Returns (result,
+    obs path, trace path, t0, dur, wall s)."""
+    obs_path = obs_path or os.environ.get("REPRO_TORCH_OBS_DISRUPTION_JSON",
+                                          "OBS_disruption_torch.json")
+    trace_path = trace_path or os.environ.get("REPRO_TORCH_OBS_TRACE_JSON",
+                                              "TRACE_disruption_torch.json")
+    sys_, t0, dur, scen, arr, Ws, opts = _transient(T)
+    W = max(Ws)
+    spec = SweepSpec(V=1.0, window=(W,), scheduler=("potus",), events=("kfail",))
+    tracer = enable_tracing()
+    tracer.clear()
+    try:
+        sw, wall = _sweep(sys_, arr, T, spec, device, engine="cohort-fused",
+                          events={"kfail": scen}, engine_opts=dict(opts, metrics=OBS_STREAMS))
+    finally:
+        disable_tracing()
+    res = sw.result(scheduler="potus", window=W, events="kfail")
+    res.metrics.save(obs_path)
+    export_chrome_trace(trace_path)
+    return res, obs_path, trace_path, t0, dur, wall
+
+
+def obs_dump(device="cuda") -> list[Row]:
+    """The ``obs`` section: :func:`dump_obs`, and one row with the recovery
+    story the dump gives."""
+    res, obs_path, trace_path, t0, dur, wall = dump_obs(device)
+    T = res.metrics.n_slots
+    peak, recovery = recovery_story(res.metrics.streams["backlog"][:, 0])
+    print(f"# wrote {obs_path} and {trace_path}", file=sys.stderr)
+    return [Row("disruption/obs/potus", wall / T * 1e6,
+                f"streams={len(res.metrics.streams)};peak_backlog_slot={peak};"
+                f"recovery_slot={recovery};recovery_slots={recovery_slots(res.backlog, t0, t0 + dur)}")]
+
+
 SECTIONS = {
     "fig4": fig4_response_vs_w,
     "fig5": fig5_backlog_and_cost_vs_v,
     "fig6ab": fig6ab_predictors,
     "fig6c": fig6c_misprediction_extremes,
     "disruption": disruption_bench,
+    "obs": obs_dump,
 }
 
 

@@ -25,12 +25,13 @@ I=16384 serving fleet, counting the kernel launches of each:
 * phase G, the serving path — ``PotusDispatcher`` on the card (the
   schedule kernel once per slot) over a ``ReplicaFleet`` of 4
   ``ServingEngine`` replicas sharing one qwen2.5-32b decoder at full width
-  (8 of 64 layers, bf16, weights from a seeded ``torch.Generator``): the
+  (4 of 64 layers, bf16, weights from a seeded ``torch.Generator``): the
   flash attention kernel (``flash_attention``, per prefill and layer) and
   the decode attention kernel (``decode_attention``, per decode round and
   layer); both kernels alone at qwen2.5-32b and zamba2-1.2b widths beside
   SDPA; the kernel route against the plain route teacher-forced, in bf16
-  and in f32;
+  and in f32; one of the two served runs with a ``FlightRecorder`` on the
+  dispatcher and one on the fleet (J4);
 * phase H, the SSM and hybrid models at full width and depth in bf16,
   weights from a seeded ``torch.Generator``: the SSD intra-chunk kernel
   (``ssd_intra_chunk``) alone at mamba2-1.3b widths through
@@ -51,7 +52,19 @@ I=16384 serving fleet, counting the kernel launches of each:
   bitwise its own ``simulate``; the dyadic sweep against the CPU and every
   batched call against the batched plain version; the paper profile's
   Fig. 6ab and Fig. 5 grids (``benchmarks/torch_figures.py``) against the
-  CPU, whose runs go in a process of their own started first.
+  CPU, whose runs go in a process of their own started first;
+* phase J, observability (``metrics=``, span tracing, the obs dump; no
+  kernel of its own): J1 the metric streams of both ported engines on the
+  dyadic system — the card's equal the CPU's, metrics on leave every
+  trajectory bitwise as off, and a compact ``cohort-fused`` run with
+  metrics (which takes ``compact_slot_step``, not the slot kernel, as the
+  reference does) equals the plain and the kernel route; J2 the I=16384
+  fleet with metrics on: path 2 (kernel 2 still once a slot) and the
+  compact ``cohort-fused`` run (``potus_slot=0``), their wall beside the
+  metrics-off paths in turns; J3 ``benchmarks/torch_figures.py``'s
+  metrics dump through the k-failure transient, read back by
+  ``tools/obs_report.py --recovery``, its Chrome trace, and a
+  ``torch.profiler`` trace listing the span names.
 
 It checks the results and prints:
 
@@ -75,6 +88,9 @@ It checks the results and prints:
 * for phase I, the sweep's and a loop of ``simulate`` calls' wall s in
   turns and scenario-slots/s, the busy share, and the slot kernel's device
   ms per call at N=4 and N=1;
+* for phase J, the wall ms/slot of path 2 and of the compact
+  ``cohort-fused`` run with metrics on and off, in turns, the launches and
+  route of each, the peak device memory and the recovery story of the dump;
 * one JSON line ``{"kernels": [...]}`` (seven kernels; the slot kernel's
   row carries its batched entry under ``"batched"``), then, last,
   ``{"ok": true, "device": {...}}``.
@@ -90,6 +106,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
@@ -112,9 +129,9 @@ ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor cores, bf16
 # tensor cores (dense)
 PEAK_BYTES_S, PEAK_F32_S, PEAK_BF16_S = 3.35e12, 67e12, 989e12
-# phase G, the served run: qwen2.5-32b at full width, depth cut to 8 of 64 layers, bf16; a
+# phase G, the served run: qwen2.5-32b at full width, depth cut to 4 of 64 layers, bf16; a
 # fleet of 4 replicas behind the dispatcher (examples/serving_demo.py's traffic, scaled up)
-SERVE_ARCH, SERVE_LAYERS = "qwen2_5_32b", 8
+SERVE_ARCH, SERVE_LAYERS = "qwen2_5_32b", 4
 SERVE_RATES = (4.0, 2.0, 2.0, 2.0)  # decode rounds per slot; replica 0 is the fast one
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_MAX_NEW, SERVE_REQUESTS = 4, 1024, 16, 32
 SERVE_PROMPT_LENS = (32, 64, 128, 256, 512)
@@ -1018,24 +1035,27 @@ def drain_kernel(card, cuda, step=None, mid=None):
             f"at_I{LOOP_I}": small}
 
 
-def compare_cohort(label, cf, pt, sys_, T, cfg, cuda, against="plain", kernel=None, **kw):
+def compare_cohort(label, cf, pt, sys_, T, cfg, cuda, against="plain", kernel=None, other=None,
+                   **kw):
     """The card's kernel route (``kernel``: a result already run, else run
-    here) against the plain route on the card (``against="plain"``) or the
-    port on the CPU (``"cpu"``): per-slot backlog and cost within rtol 1e-4
-    over the first 16 slots, long-run means within 2%."""
+    here) against the plain route on the card (``against="plain"``), the
+    port on the CPU (``"cpu"``) or the kernel route (``"kernel"``, for a
+    ``kernel`` result of another route), ``other`` when that one has run
+    already: per-slot backlog and cost within rtol 1e-4 over the first 16
+    slots, long-run means within 2%."""
     import torch
 
     from repro_torch.kernels import ops as kops
 
     topo, net, placement, arr = sys_
+    run = partial(cf._run_cohort_fused_impl, topo, net, placement, arr, None, T, cfg, **kw)
     t_a = time.perf_counter()
-    a = kernel if kernel is not None else cf._run_cohort_fused_impl(
-        topo, net, placement, arr, None, T, cfg, device=cuda, **kw)
+    a = kernel if kernel is not None else run(device=cuda)
     torch.cuda.synchronize()
     t_b = time.perf_counter()
-    b = (cf._run_cohort_fused_impl(topo, net, placement, arr, None, T, cfg, device=cuda,
-                                   ops=kops.plain, **kw) if against == "plain" else
-         cf._run_cohort_fused_impl(topo, net, placement, arr, None, T, cfg, device="cpu", **kw))
+    b = other if other is not None else {
+        "plain": lambda: run(device=cuda, ops=kops.plain), "cpu": lambda: run(device="cpu"),
+        "kernel": lambda: run(device=cuda)}[against]()
     torch.cuda.synchronize()
     t_c = time.perf_counter()
     r16 = max(rel_diff(a.backlog[:16], b.backlog[:16]),
@@ -1045,8 +1065,9 @@ def compare_cohort(label, cf, pt, sys_, T, cfg, cuda, against="plain", kernel=No
           and a.backlog.shape == (T,) and a.completed_mass > 0,
           f"{label}: result not finite, of the wrong shape, or nothing completed")
     kernel_ms = "ran above" if kernel is not None else f"{(t_b - t_a) * 1e3 / T:.3f} ms/slot"
-    print(f"{label} {cfg.scheduler} T={T}: card {kernel_ms}, {against} "
-          f"{(t_c - t_b) * 1e3 / T:.3f} ms/slot; first 16 slots rel diff {r16:.3e}, means "
+    other_ms = "ran above" if other is not None else f"{(t_c - t_b) * 1e3 / T:.3f} ms/slot"
+    print(f"{label} {cfg.scheduler} T={T}: card {kernel_ms}, {against} {other_ms}; "
+          f"first 16 slots rel diff {r16:.3e}, means "
           f"{means:.3e}; avg_backlog {a.avg_backlog!r}/{b.avg_backlog!r} "
           f"avg_response {a.avg_response!r}/{b.avg_response!r}")
     check(r16 <= 1e-4 and means <= 0.02, f"{label} {cfg.scheduler}: card vs {against}")
@@ -1532,28 +1553,31 @@ def timed_engine_class():
     return TimedEngine
 
 
-def serve(cfg, model, cuda, engine_cls):
+def serve(cfg, model, cuda, engine_cls, recorders=False):
     """The served run: 32 requests, Poisson(1.5) per slot from numpy seed 0,
     prompts of {32, ..., 512} tokens and 16 new tokens each, routed by
     ``PotusDispatcher`` on the card over 4 ``ServingEngine`` replicas through
-    a flash straggler on replica 0; until every request is done. Returns
-    (requests, slots, fleet)."""
+    a flash straggler on replica 0; until every request is done. With
+    ``recorders`` the dispatcher and the fleet each get a ``FlightRecorder``
+    (J4). Returns (requests, slots, fleet, dispatcher)."""
     from repro_torch.core import events as pev
+    from repro_torch.obs import FlightRecorder
     from repro_torch.serving import dispatcher as pd
     from repro_torch.serving import fleet as pf
     from repro_torch.serving.engine import Request
 
     R = len(SERVE_RATES)
+    horizon = 400
+    rec = (lambda: FlightRecorder(capacity=horizon)) if recorders else (lambda: None)
     fleet = pf.ReplicaFleet([engine_cls(cfg, model, max_batch=SERVE_BATCH,
                                         max_len=SERVE_MAX_LEN, service_rate=r)
-                             for r in SERVE_RATES])
+                             for r in SERVE_RATES], recorder=rec())
     disp = pd.PotusDispatcher(
         n_frontends=1, replica_hosts=np.arange(1, R + 1), frontend_hosts=np.array([0]),
         host_costs=(np.ones((R + 1, R + 1)) - np.eye(R + 1)).astype(np.float32),
         replica_rates=np.array(SERVE_RATES),
         cfg=pd.DispatcherConfig(V=1.0, gamma=16.0, tokens_per_request=float(SERVE_MAX_NEW)),
-        device=cuda)
-    horizon = 400
+        recorder=rec(), device=cuda)
     trace = pev.flash_straggler(disp.topo, start=SERVE_STRAGGLE[0],
                                 duration=SERVE_STRAGGLE[1] - SERVE_STRAGGLE[0], factor=0.25,
                                 instance=disp.F).compile(disp.topo, horizon)
@@ -1577,7 +1601,7 @@ def serve(cfg, model, cuda, engine_cls):
                     fleet.dispatch(r, req)
         fleet.step(t, mu_row=trace.mu_t[t][disp.F:], alive_row=trace.alive_t[t][disp.F:])
         t += 1
-    return reqs, t, fleet
+    return reqs, t, fleet, disp
 
 
 def teacher_forced(cfg, model, cuda, n_steps=8):
@@ -1619,8 +1643,10 @@ def teacher_forced(cfg, model, cuda, n_steps=8):
 
 def serving_path(card, cuda):
     """Phase G: kernels 5 and 6 alone, then the served run of qwen2.5-32b at
-    full width (8 layers, bf16) behind the dispatcher, its checks and its
-    numbers. Returns the two kernels' entries of the kernels line."""
+    full width (``SERVE_LAYERS`` layers, bf16) behind the dispatcher, its
+    checks and its numbers; its second run with a ``FlightRecorder`` on the
+    dispatcher and on the fleet (J4). Returns the two kernels' entries of
+    the kernels line."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1643,7 +1669,8 @@ def serving_path(card, cuda):
 
     # the kernel route against the plain route, teacher-forced (also the warm-up)
     rel, diff, scale = teacher_forced(cfg, model, cuda)
-    print(f"teacher-forced kernel vs plain route, 8 layers bf16, 4 prompts x 8 decode steps: "
+    print(f"teacher-forced kernel vs plain route, {SERVE_LAYERS} layers bf16, 4 prompts x 8 "
+          f"decode steps: "
           f"max |dlogit| {diff:.4e} of max |logit| {scale:.4e} = {rel:.4e} (limit 5e-2) [{card}]")
     check(rel <= 5e-2, "teacher-forced bf16: kernel route vs plain beyond 5e-2 of max |logit|")
 
@@ -1652,7 +1679,7 @@ def serving_path(card, cuda):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    reqs, slots, fleet = serve(cfg, model, cuda, timed_engine_class())
+    reqs, slots, fleet, _ = serve(cfg, model, cuda, timed_engine_class())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n, routes = read_counts(), kernel_routes()
@@ -1688,10 +1715,21 @@ def serving_path(card, cuda):
     check(tokens == SERVE_REQUESTS * SERVE_MAX_NEW, "served run: tokens served")
     first = {r.rid: list(r.generated) for r in reqs}
 
-    reqs2, slots2, _ = serve(cfg, model, cuda, ServingEngine)
+    reqs2, slots2, fleet2, disp2 = serve(cfg, model, cuda, ServingEngine, recorders=True)
     same = slots2 == slots and {r.rid: list(r.generated) for r in reqs2} == first
-    print(f"  two runs give identical tokens: {same} [{card}]")
+    print(f"  two runs give identical tokens: {same} (the second with flight recorders) "
+          f"[{card}]")
     check(same, "served run: two runs differ")
+    rows_d, rows_f = disp2.recorder.rows(), fleet2.recorder.rows()
+    h_col = [r["h"] for r in rows_d]
+    print(f"  J4 flight recorders: dispatcher {len(rows_d)} rows for {slots2} routed slots, "
+          f"h column = h_history: {h_col == disp2.h_history}; fleet {len(rows_f)} rows, last "
+          f"{rows_f[-1]} [{card}]")
+    check(len(rows_d) == slots2 and [r["slot"] for r in rows_d] == list(range(slots2)),
+          "J4: one dispatcher row per routed slot")
+    check(h_col == disp2.h_history, "J4: the dispatcher rows' h differs from h_history")
+    check(len(rows_f) == slots2 and rows_f[-1]["tokens_served"] == fleet2.tokens_served,
+          "J4: one fleet row per slot")
     profile_run(lambda: serve(cfg, model, cuda, ServingEngine), top=10, suffix=f" [{card}]",
                 also=ATTENTION_KERNELS)
     del model
@@ -2090,8 +2128,7 @@ def handover_gap(cfg, model, prompts, toks, logits, cuda):
 def hybrid_served(card, cuda):
     """H3: zamba2-1.2b at full width and depth. In bf16: two prompts of 512
     tokens served by a ``ServingEngine`` (prefill each, then 16 decode
-    rounds), counted and timed, then served for 3 rounds under the profiler
-    (device items by name); the same generation by the entry points,
+    rounds), counted and timed; the same generation by the entry points,
     whose tokens must equal the engine's; once more with every launch of
     the three kernels held against its plain version on the path's own
     arguments (``HeldRoute``); and every Mamba2 block and shared-attention
@@ -2107,7 +2144,7 @@ def hybrid_served(card, cuda):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.models import model_zoo as pz
-    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.engine import Request
 
     cfg = get_config(HYBRID_ARCH)
     model = pz.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
@@ -2160,15 +2197,6 @@ def hybrid_served(card, cuda):
     print(f"  warm prefill over {len(pre)} runs: median {np.median(pre):.4f} ms per prompt token "
           f"(min {pre.min():.4f}, max {pre.max():.4f}); host ms per token to issue it: median "
           f"{np.median(issued):.4f} (min {issued.min():.4f}, max {issued.max():.4f}) [{card}]")
-
-    def serve_again():  # 3 decode rounds: tracing ~1000 calls a round costs seconds
-        again = ServingEngine(cfg, model, max_batch=2, max_len=HYBRID_MAX_LEN,
-                              service_rate=float(HYBRID_STEPS))
-        for i, p in enumerate(prompts):
-            again.submit(Request(i, p, max_new=4))
-        again.step()
-
-    profile_run(serve_again, top=8, suffix=f" [{card}]", also=ATTENTION_KERNELS)
 
     toks, logits = hybrid_generate(cfg, model, prompts, cuda)
     same = served == toks.tolist()
@@ -2518,6 +2546,260 @@ def sweep_path(card, cuda, fleet=None):
             "loop_wall_s": med["loop"], "busy_share": busy_ms / prof_ms if busy_ms else None}
 
 
+# ---------------------------------------------------------------------------
+# phase J: observability — metric streams, span tracing, the obs dump
+# ---------------------------------------------------------------------------
+
+OBS_T = 40  # J1's horizon on the dyadic system
+
+
+def frames_equal(a, b) -> bool:
+    """Two ``MetricsFrame``s hold the same streams bitwise, but for the
+    dispatch entropy (a log), within rel 1e-6."""
+    if list(a.streams) != list(b.streams):
+        return False
+    for name, x in a.streams.items():
+        y = b.streams[name]
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        if name == "dispatch":
+            if not (np.array_equal(x[:, 0], y[:, 0]) and rel_diff(x[:, 1], y[:, 1]) <= 1e-6):
+                return False
+        elif not np.array_equal(x, y):
+            return False
+    return True
+
+
+def same_scan(a, b) -> bool:
+    """Two scan-engine results with the same per-slot series and final
+    state, bitwise."""
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in SERIES) and all(
+        np.array_equal(getattr(a.final_state, f.name), getattr(b.final_state, f.name))
+        for f in dataclasses.fields(a.final_state))
+
+
+def streams_finite(frame) -> bool:
+    return all(np.isfinite(x).all() for x in frame.streams.values())
+
+
+def obs_launches(engine, scheduler, T):
+    """The kernel launches of a metrics-on run: the streams change no route
+    but the compact ``cohort-fused`` one (no slot kernel)."""
+    if scheduler == "potus-loop":
+        return dict(ZERO_COUNTS, potus_price=T,
+                    **({"cohort_drain": T} if engine == "cohort-fused" else {}))
+    if engine == "jax" and scheduler == "potus":
+        return dict(ZERO_COUNTS, potus_schedule=T)
+    return dict(ZERO_COUNTS)
+
+
+def obs_dyadic(pt, cf, cuda):
+    """J1: on the dyadic system (every sum exact), each engine x scheduler
+    with every stream its engine serves, and a k-failure on
+    ``cohort-fused``: the card's streams equal the port's on the CPU
+    (entropy within rel 1e-6), metrics on leave the trajectories bitwise as
+    off, the launches are the metrics-off routes' (``potus_slot=0`` on the
+    compact ``cohort-fused`` route), and a compact ``cohort-fused`` run with
+    metrics equals the plain route and the kernel route bitwise."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs import ENGINE_STREAMS
+
+    W = 2
+    topo, net, placement, arr = dyadic_system(pt, OBS_T + 13, W)
+    # the instances phase E's dyadic k-failure takes (rng seed 1): every split stays dyadic
+    kfail = pt.k_failures(topo, 2, start=10, duration=12,
+                          rng=np.random.default_rng(1)).compile(topo, OBS_T)
+    cases = [(e, s, None) for e in ("jax", "cohort-fused")
+             for s in ("potus", "shuffle", "jsq", "potus-loop")]
+    cases.append(("cohort-fused", "potus", kfail))
+    kw = {"jax": {}, "cohort-fused": dict(age_cap=32, warmup=10, drain_margin=10)}
+    for engine, sched, ev in cases:
+        label = f"J1 {engine} {sched}" + (" k-failure" if ev is not None else "")
+        spec = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr, T=OBS_T,
+                             engine=engine, scheduler=sched, V=2.0, beta=0.5, window=W,
+                             events=ev, metrics=tuple(sorted(ENGINE_STREAMS[engine])),
+                             device="cuda", **kw[engine])
+        reset_counts()
+        on = pt.simulate(spec)
+        n = read_counts()
+        off = pt.simulate(dataclasses.replace(spec, metrics=None))
+        cpu = pt.simulate(dataclasses.replace(spec, device="cpu"))
+        same = same_scan if engine == "jax" else same_result
+        ent = rel_diff(on.metrics.streams["dispatch"][:, 1], cpu.metrics.streams["dispatch"][:, 1])
+        extra = ""
+        check(n == obs_launches(engine, sched, OBS_T), f"{label}: launches {n}")
+        check(frames_equal(on.metrics, cpu.metrics), f"{label}: the card's streams differ from "
+              "the CPU's")
+        check(same(on, off) and same(on, cpu), f"{label}: metrics on changed the trajectory, or "
+              "the card's differs from the CPU's")
+        check(off.metrics is None and on.metrics.n_slots == OBS_T and streams_finite(on.metrics),
+              f"{label}: frame")
+        if engine == "cohort-fused" and sched != "potus-loop" and ev is None:
+            plain = cf._run_cohort_fused_impl(topo, net, placement, arr, None, OBS_T,
+                                              spec.config(), device=cuda, ops=kops.plain,
+                                              **kw[engine])
+            check(same_result(on, plain), f"{label}: the metrics-on run differs from the plain "
+                  "route")
+            extra = ", = plain route, = kernel route"
+        print(f"{label}: {len(on.metrics.streams)} streams, launches " + (" ".join(
+            f"{k}={v}" for k, v in n.items() if v) or "none") + f" (potus_slot={n['potus_slot']}); "
+              f"card = CPU bitwise (entropy rel {ent:.2e}); metrics on = off bitwise" + extra)
+
+
+def obs_fleet(pt, cf, card, cuda, fleet):
+    """J2: the I=16384 fleet, T=128, with metrics on: path 2 (kernel 2 once
+    a slot, the trajectory bitwise as off, the backlog stream = the result's
+    backlog) and the compact ``cohort-fused`` run with every fused stream
+    (no slot kernel; = the plain route bitwise, the kernel route within
+    compare_cohort's tolerances), each timed in turns with its metrics-off
+    path, the streams finite, the peak device memory."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs import ENGINE_STREAMS
+
+    topo, net, placement, arr = fleet
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def turns(label, spec_off, spec_on):
+        """Runs metrics on, off, off, on, each timed; returns the first on
+        run (launches counted) and the first off run."""
+        walls, runs = {"off": [], "on": []}, {}
+        for k, which in enumerate(("on", "off", "off", "on")):
+            if k == 0:
+                reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pt.simulate(spec_on if which == "on" else spec_off)
+            torch.cuda.synchronize()
+            walls[which].append((time.perf_counter() - t0) * 1e3 / FLEET_T)
+            runs.setdefault(which, res)
+            if k == 0:
+                runs["n"] = read_counts()
+        print(f"  {label} wall ms/slot in turns (on, off, off, on): on " + ", ".join(
+            f"{w:.4f}" for w in walls["on"]) + "; off " + ", ".join(
+            f"{w:.4f}" for w in walls["off"]) + f"; medians off {np.median(walls['off']):.4f}, "
+              f"on {np.median(walls['on']):.4f} [{card}]")
+        return runs["on"], runs["off"], runs["n"]
+
+    # -- path 2 with metrics on
+    spec2 = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr, T=FLEET_T,
+                          engine="jax", scheduler="potus", V=FLEET_V, window=FLEET_W,
+                          device="cuda")
+    on, off, n = turns("path 2", spec2, dataclasses.replace(spec2, metrics=True))
+    print(f"J2 path 2 (engine=jax potus I={FLEET_I} T={FLEET_T}) metrics on: launches " + " ".join(
+        f"{k}={v}" for k, v in n.items()) + f"; {len(on.metrics.streams)} streams; "
+          f"= metrics off bitwise: {same_scan(on, off)}; backlog stream = backlog: "
+          f"{np.array_equal(on.metrics.streams['backlog'][:, 0], on.backlog)} [{card}]")
+    check(n == dict(ZERO_COUNTS, potus_schedule=FLEET_T), f"J2 path 2 launches {n}")
+    check(same_scan(on, off), "J2 path 2: metrics on changed the trajectory")
+    check(np.array_equal(on.metrics.streams["backlog"][:, 0], on.backlog),
+          "J2 path 2: the backlog stream is not the result's backlog")
+    check(streams_finite(on.metrics), "J2 path 2: a stream is not finite")
+    del on, off
+    torch.cuda.empty_cache()
+
+    # -- cohort-fused potus with every fused stream: the compact step, not the slot kernel
+    spec1 = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr, T=FLEET_T,
+                          scheduler="potus", V=FLEET_V, window=FLEET_W, age_cap=FLEET_AGE_CAP,
+                          device="cuda")
+    on, off, n = turns("cohort-fused potus (off = path 1, the slot kernel)", spec1,
+                       dataclasses.replace(spec1,
+                                           metrics=tuple(sorted(ENGINE_STREAMS["cohort-fused"]))))
+    cfg = spec1.config()
+    plain = cf._run_cohort_fused_impl(topo, net, placement, arr, None, FLEET_T, cfg,
+                                      age_cap=FLEET_AGE_CAP, device=cuda, ops=kops.plain)
+    print(f"J2 cohort-fused potus I={FLEET_I} T={FLEET_T} metrics on: route compact_slot_step "
+          f"(the slot kernel computes no streams), launches " + " ".join(
+              f"{k}={v}" for k, v in n.items()) + f"; {len(on.metrics.streams)} streams; "
+          f"= plain route bitwise: {same_result(on, plain)} [{card}]")
+    check(n == ZERO_COUNTS, f"J2 cohort-fused metrics on launched a kernel: {n}")
+    check(same_result(on, plain), "J2 cohort-fused: metrics on differs from the plain route")
+    check(np.array_equal(on.metrics.streams["backlog"][:, 0], on.backlog)
+          and streams_finite(on.metrics), "J2 cohort-fused: streams")
+    compare_cohort("J2 metrics on vs kernel route", cf, pt, fleet, FLEET_T, cfg, cuda,
+                   against="kernel", kernel=on, other=off, age_cap=FLEET_AGE_CAP)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  J2 peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
+
+
+def obs_dump(pt, card, cuda):
+    """J3: ``benchmarks/torch_figures.py``'s metrics dump on the card at the
+    QUICK sizes with tracing on, read back by ``tools/obs_report.py
+    --recovery`` in a process of its own (stdlib only): its peak-backlog and
+    recovery slots are the ones the result's backlog gives (rounded to the
+    dump's 6 decimals); the Chrome trace holds the chunk spans; and a
+    ``torch.profiler`` trace of traced runs lists the span names."""
+    import torch
+
+    import benchmarks.torch_figures as tf
+    from repro_torch.obs import disable_tracing, enable_tracing
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res, obs_file, trace_file, t0, dur, wall = tf.dump_obs(
+            cuda, obs_path=str(Path(tmp) / "OBS_disruption_torch.json"),
+            trace_path=str(Path(tmp) / "TRACE_disruption_torch.json"))
+        frame = res.metrics
+        check(len(frame.streams) == len(tf.OBS_STREAMS) and streams_finite(frame)
+              and np.array_equal(frame.streams["backlog"][:, 0], res.backlog),
+              "J3: the dump's streams")
+        report = subprocess.run([sys.executable, str(ROOT / "tools" / "obs_report.py"), obs_file,
+                                 "--recovery"], capture_output=True, text=True, check=True,
+                                timeout=60).stdout
+        story = dict(line.split() for line in report.split("recovery story")[1].splitlines()[1:]
+                     if line.strip())
+        want = tf.recovery_story(np.asarray(res.backlog, np.float64).round(6))
+        spans = [e["name"] for e in json.loads(Path(trace_file).read_text())["traceEvents"]]
+    got = (int(story["peak_backlog_slot"]), int(story["recovery_slot"]))
+    print(f"J3 obs dump: {frame.n_slots} slots x {len(frame.streams)} streams, run {wall:.3f} s; "
+          f"tools/obs_report.py --recovery: peak_backlog_slot {got[0]}, recovery_slot {got[1]} "
+          f"(from the result's backlog: {want[0]}, {want[1]}; the failure at slot {t0} for "
+          f"{dur}; the bench's recovery_slots "
+          f"{tf.recovery_slots(res.backlog, t0, t0 + dur)}); Chrome trace: {len(spans)} spans "
+          f"{sorted(set(spans))} [{card}]")
+    check(got == want, "J3: obs_report's recovery story differs from the result's backlog")
+    check("potus/cohort-fused/chunk" in spans, "J3: no chunk span in the Chrome trace")
+
+    topo, net, placement, arr = dyadic_system(pt, OBS_T + 13, 2)
+    tracer = enable_tracing()
+    tracer.clear()
+    try:
+        # the spans are host ranges: a trace of the host's activity lists them
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for engine in ("jax", "cohort-fused"):
+                pt.simulate(pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr,
+                                          T=OBS_T, engine=engine, window=2, chunk=8,
+                                          metrics=True, device="cuda"))
+            torch.cuda.synchronize()
+    finally:
+        disable_tracing()
+    keys = {e.key for e in prof.key_averages()}
+    names = {"potus/jax/problem-build", "potus/jax/chunk", "potus/cohort-fused/chunk"}
+    print(f"  torch.profiler trace of two traced runs lists the spans {sorted(names & keys)}; "
+          f"the tracer holds {len(tracer)} spans")
+    check(names <= keys, f"J3: the profiler trace lacks spans {sorted(names - keys)}")
+
+
+def obs_path(card, cuda, fleet=None):
+    """Phase J, observability: J1 (:func:`obs_dyadic`), J2 (:func:`obs_fleet`)
+    and J3 (:func:`obs_dump`); J4 runs in phase G. Builds the fleet when
+    called alone."""
+    import repro_torch.core as pt
+    from repro_torch.core import cohort_fused as cf
+
+    t0 = time.perf_counter()
+    obs_dyadic(pt, cf, cuda)
+    print(f"  J1 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    obs_fleet(pt, cf, card, cuda, fleet if fleet is not None
+              else fleet_system(pt, FLEET_I, FLEET_T))
+    print(f"  J2 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    obs_dump(pt, card, cuda)
+    print(f"  J3 {time.perf_counter() - t0:.1f} s")
+
+
 def slot_kernel(card, cuda):
     """Section 2: the slot kernel against its plain version on the card: the
     dyadic system bitwise (potus, shuffle, jsq; K=1 and 8), the I=16384
@@ -2735,7 +3017,12 @@ def run_phases(pt, cf, card, cuda) -> int:
     slot.row["batched"] = sweep_path(card, cuda, slot.fleet)
     print(f"  phase I {time.perf_counter() - t_phase:.1f} s [{card}]")
 
-    # -- 9. the kernels line, 10. the last line ---------------------------------
+    # -- 9. phase J: observability (kernels 2, 3, 4 with metrics on; J4 ran in phase G) ----
+    t_phase = time.perf_counter()
+    obs_path(card, cuda, slot.fleet)
+    print(f"  phase J {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    # -- 10. the kernels line, 11. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

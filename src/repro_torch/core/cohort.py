@@ -1,14 +1,16 @@
 """Result record of the cohort engines (paper §5.1 response-time metric).
 
 The port's counterpart of ``repro.core.cohort``: only :class:`CohortResult`
-so far. The Python event-loop engine (``engine="cohort"``) is not ported.
+so far. The Python event-loop engine (``engine="cohort"``) is not ported yet
+(ROADMAP.md, section 1, module item 4).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import numpy as np
+
+from ..obs.metrics import MetricsFrame
 
 __all__ = ["CohortResult"]
 
@@ -29,5 +31,5 @@ class CohortResult:
     # total tuple mass served at terminal bolts over the whole run (warmup
     # and phantoms included) — the conservation ledger
     completed_mass: float = 0.0
-    # per-slot metric streams; always None until the metrics option is ported
-    metrics: Any = None
+    # selected per-slot metric streams (DESIGN.md §14); None without metrics=
+    metrics: MetricsFrame | None = None

@@ -2,7 +2,7 @@
 slot (DESIGN.md §8).
 
 The port's counterpart of ``repro.core.cohort_fused``, without the instance
-mesh and the metric streams: one scenario (``simulate``) or a sweep's grid
+mesh: one scenario (``simulate``) or a sweep's grid
 (:func:`run_fused_sweep`), whose partitions run N scenarios each. Every FIFO
 is an age-by-source-slot mass matrix (see the reference module and
 DESIGN.md §8). State, each with a leading scenario axis N:
@@ -14,19 +14,27 @@ DESIGN.md §8). State, each with a leading scenario axis N:
 * ``transit`` (I, Atot)    — mass landing in input queues next slot.
 
 The reference's vmapped ``lax.scan`` over slots is a Python loop, on one of
-three routes (DESIGN.md §12), as in the reference:
+three routes (DESIGN.md §12), as in the reference. :meth:`_Fleet.chunk_runner`
+picks the route from the run's spec before anything runs:
 
 * a compact scheduler (``potus``, ``shuffle``, ``jsq``) with no disruption
-  trace: slot-kernel launches (:func:`_kernel_launches`,
-  ``kernels.ops.potus_slot_step``), one call for all N scenarios;
-* a compact scheduler with a disruption trace (``events=``, DESIGN.md §9):
-  ``compact.compact_slot_step`` slot by slot, with the caps fold, each
-  scenario in turn. The slot kernel has no caps fold (nor has the
-  reference's), so on CUDA this route is the plain tensor code on the card
-  and launches no slot kernel;
+  trace and no metric streams: slot-kernel launches
+  (:func:`_kernel_launches`, ``kernels.ops.potus_slot_step``), one call for
+  all N scenarios;
+* a compact scheduler with a disruption trace (``events=``, DESIGN.md §9)
+  or with metric streams (``metrics=``, DESIGN.md §14):
+  ``compact.compact_slot_step`` slot by slot, each scenario in turn. The
+  slot kernel has no caps fold and computes no streams (nor has the
+  reference's: "metrics never ride the kernel path"), so on CUDA this route
+  is the plain tensor code on the card and launches no slot kernel;
 * ``potus-loop``, the dense reference scheduler: :func:`_fused_step` slot by
   slot, each scenario in turn, on the full (I, I) problem, with the drain
-  and split in ``kernels.ops.cohort_drain_split``.
+  and split in ``kernels.ops.cohort_drain_split`` (streams or not).
+
+With ``metrics=`` every slot also yields the selected streams' rows; they
+stay on the device with the chunk's metrics and become each result's
+``metrics`` frame. Each chunk runs under the span
+``potus/cohort-fused/chunk`` (``repro_torch.obs.trace``, off by default).
 
 The device decides each kernel's route: on CUDA the hand-written kernel, on
 the CPU its plain version. Arrival streams and event traces stay on the
@@ -46,13 +54,16 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops as kops
+from ..obs.metrics import build_frame
+from ..obs.trace import span as obs_span
 from .cohort import CohortResult
-from .compact import (COMPACT_SCHEDULERS, _EPS, StepConsts, _check_columns, _drain_sources, _observe,
-                      _serve_and_shift, _to_dense, compact_slot_step, drain_ages, kernel_layout)
+from .compact import (COMPACT_SCHEDULERS, _EPS, StepConsts, _check_columns, _drain_sources,
+                      _observe, _serve_and_shift, _to_dense, compact_slot_step, drain_ages,
+                      kernel_layout, slot_streams)
 from .network import NetworkCosts
 from .potus import _schedule_with, _u_pair, caps_for_slot, make_problem
-from .simulator import (_POTUS_METHODS, SimConfig, host_trace, materialize_arrivals,
-                        pad_arrivals, stacked_host_traces)
+from .simulator import (_POTUS_METHODS, SimConfig, _StreamRows, host_trace,
+                        materialize_arrivals, pad_arrivals, stacked_host_traces)
 from .topology import Topology
 
 __all__ = ["drain_ages", "AgeCapSaturationWarning", "run_fused_sweep"]
@@ -183,7 +194,7 @@ def _kernel_launches(consts, state, actual, pred, nxt, scheduler, age_cap,
 def _each_scenario(runs, shared: bool, ev_shared: bool):
     """A partition's chunk runner from one runner per scenario (``runs``, in
     grid order): each scenario's chunk in turn, on its slice of the batched
-    state, arrivals and events; the results stacked."""
+    state, arrivals and events; the results (metrics and streams) stacked."""
     def run_chunk(states, actual, pred, nxt, ev):
         outs = []
         for n, run in enumerate(runs):
@@ -191,23 +202,27 @@ def _each_scenario(runs, shared: bool, ev_shared: bool):
             ev_n = ev if ev is None or ev_shared else tuple(e[n] for e in ev)
             outs.append(run(tuple(x[n] for x in states), *xs, ev_n))
         return (tuple(torch.stack([o[0][q] for o in outs]) for q in range(7)),
-                tuple(torch.stack([o[1][q] for o in outs]) for q in range(4)))
+                tuple(torch.stack([o[1][q] for o in outs]) for q in range(len(outs[0][1]))))
     return run_chunk
 
 
 def _slot_loop(step, state, actual, pred, nxt, ev):
     """Drive one chunk one ``step(state, xs)`` per slot; ``ev`` is the chunk's
-    ``(mu_t, gamma_t, alive_t)`` rows or None. The per-slot metrics stay on
-    the device until the chunk ends."""
+    ``(mu_t, gamma_t, alive_t)`` rows or None. The per-slot metrics, and the
+    metric streams' rows a step appends after them, stay on the device until
+    the chunk ends; each stream comes back as one (T, width) tensor after the
+    four metrics."""
     T = actual.shape[0]
     mets = torch.empty((4, T), dtype=actual.dtype, device=actual.device)
+    rows = _StreamRows(T)
     for k in range(T):
         xs = (actual[k], pred[k], nxt[k], k)
         if ev is not None:
             xs = xs + (tuple(e[k] for e in ev),)
         state, m = step(state, xs)
-        mets[:, k] = torch.stack(m)
-    return state, (mets[0], mets[1], mets[2].sum(), mets[3].sum())
+        mets[:, k] = torch.stack(m[:4])
+        rows.put(k, m[4:])
+    return state, (mets[0], mets[1], mets[2].sum(), mets[3].sum(), *rows.split())
 
 
 def _drain_split_inputs(c: StepConsts, X, src_ext, shipped):
@@ -223,7 +238,8 @@ def _drain_split_inputs(c: StepConsts, X, src_ext, shipped):
 
 
 def _fused_step(c: StepConsts, prob, sched, edges: tuple, u_pair, V: float, beta: float,
-                age_cap: int, state, xs, *, drain_split=kops.cohort_drain_split):
+                age_cap: int, state, xs, *, drain_split=kops.cohort_drain_split,
+                metrics_spec=None):
     """One slot of the cohort dynamics on the dense (I, I) problem — the
     route of ``potus-loop``, the reference scheduler (mirrors the reference's
     ``_fused_step`` stage for stage; ``compact_slot_step`` shares stages 1,
@@ -236,7 +252,8 @@ def _fused_step(c: StepConsts, prob, sched, edges: tuple, u_pair, V: float, beta
     scheduler then prices dead instances out and bolts serve at the slot's
     ``mu`` (DESIGN.md §9). ``drain_split`` is ``kernels.ops``'s drain and
     split, the device-routed wrapper or its plain version. Returns
-    ``(state, (backlog, cost, capped_served, term_served))``.
+    ``(state, (backlog, cost, capped_served, term_served))``, followed by one
+    row per selected stream of ``metrics_spec`` (DESIGN.md §14).
     """
     act_t, pred_t, new_pred, t, *ev = xs
     caps = caps_for_slot(*ev[0]) if ev else None
@@ -246,7 +263,7 @@ def _fused_step(c: StepConsts, prob, sched, edges: tuple, u_pair, V: float, beta
     t = _check_columns(t, q_in_tag.shape[-1], state[5])
 
     # -- 1. reconcile window pos-0 with actual arrivals, 2. observe, schedule --
-    q_rem, q_in_arr, q_out_arr, must_send = _observe(c, state, act_t, pred_t)
+    q_rem, q_in_arr, q_out_arr, must_send, recon = _observe(c, state, act_t, pred_t)
     X = sched(prob, c.U, q_in_arr, q_out_arr, must_send, V, beta, caps=caps)
     backlog = q_in_arr.sum() + c.beta * q_out_arr.sum()
     cost = (X * u_pair).sum()
@@ -263,7 +280,11 @@ def _fused_step(c: StepConsts, prob, sched, edges: tuple, u_pair, V: float, beta
     # -- 4. serve, 5. admit and shift ------------------------------------------
     state, capped_served, term_served = _serve_and_shift(
         c, (q_rem, admit, q_in_tag, q_out_tag, *state[4:]), land, mu_eff, new_pred, t, age_cap)
-    return state, (backlog, cost, capped_served, term_served)
+    out = (backlog, cost, capped_served, term_served)
+    if metrics_spec is not None:
+        out = out + slot_streams(c, metrics_spec, backlog, q_in_arr, recon, state[1], land,
+                                 capped_served, term_served)
+    return state, out
 
 
 def _step_consts(prob: _CompactProb, comp_onehot, U, mu, inv_service, sel_cmp, stream_cmp,
@@ -442,11 +463,16 @@ class _Fleet:
         return self._dense
 
     def chunk_runner(self, scheduler: str, Vs: list, betas: list, has_events: bool,
-                     shared: bool, ev_shared: bool, age_cap: int, slots_per_launch: int, ops):
+                     shared: bool, ev_shared: bool, age_cap: int, slots_per_launch: int, ops,
+                     metrics=None):
         """The partition's ``run_chunk(states, act, pred, nxt, ev)`` on its
-        route: one slot-kernel call a launch for all scenarios, or each
-        scenario in turn on the events or dense route."""
-        if scheduler in COMPACT_SCHEDULERS and not has_events:
+        route, decided here from the spec: a compact scheduler with no events
+        and no metric streams (``metrics is None``) takes one slot-kernel
+        call a launch for all scenarios; otherwise each scenario runs in
+        turn, slot by slot, on ``compact_slot_step`` (a compact scheduler)
+        or the dense step (``potus-loop``). This is the reference's rule
+        (DESIGN.md §14): the slot kernel computes no streams."""
+        if scheduler in COMPACT_SCHEDULERS and not has_events and metrics is None:
             consts = self.consts(Vs, betas)  # V and beta (N,)
 
             def run_chunk(states, act, pred, nxt, ev):
@@ -457,14 +483,16 @@ class _Fleet:
         for V, beta in zip(Vs, betas):
             consts = self.consts(V, beta)
             if scheduler in COMPACT_SCHEDULERS:
-                # the caps fold is not in the slot kernel: the compact step, slot by slot
-                step = partial(compact_slot_step, consts, scheduler=scheduler, age_cap=age_cap)
+                # neither the caps fold nor the streams are in the slot kernel: the
+                # compact step, slot by slot
+                step = partial(compact_slot_step, consts, scheduler=scheduler, age_cap=age_cap,
+                               metrics_spec=metrics)
             else:
                 dense, u_pair = self.dense()
                 step = partial(_fused_step, consts, dense,
                                partial(_schedule_with, ops, method=_POTUS_METHODS[scheduler]),
                                self.cpt.edges, u_pair, float(V), float(beta), age_cap,
-                               drain_split=ops.cohort_drain_split)
+                               drain_split=ops.cohort_drain_split, metrics_spec=metrics)
             runs.append(partial(_slot_loop, step))
         return _each_scenario(runs, shared, ev_shared)
 
@@ -486,8 +514,10 @@ def _run_chunked_cohort(run_chunk, age_cap: int, n_components: int, act: np.ndar
     by chunk-local source slot — is added into full-horizon host arrays at
     offset ``t0 - age_cap``; columns before source slot 0 are provably zero
     and are sliced off. Returns numpy ``(resp_mass, resp_time, backlog, cost,
-    capped, served)``, each with a leading scenario axis; resp_* are
-    (N, C, T + W + 1).
+    capped, served, streams)``, each with a leading scenario axis; resp_* are
+    (N, C, T + W + 1) and ``streams`` is a list of (N, T, width) metric-stream
+    slabs, one per stream a chunk's run yields after its four metrics (empty
+    without metric streams), concatenated over the chunks.
     """
     N, I, Sc, W1 = q0.shape
     Atot = age_cap + W1
@@ -505,6 +535,7 @@ def _run_chunked_cohort(run_chunk, age_cap: int, n_components: int, act: np.ndar
     costs: list[np.ndarray] = []
     capped_tot = np.zeros(N, np.float64)
     served_tot = np.zeros(N, np.float64)
+    stream_chunks: list[list[np.ndarray]] = []
 
     def to_dev(x):
         return torch.as_tensor(np.ascontiguousarray(x), **f32)
@@ -516,12 +547,17 @@ def _run_chunked_cohort(run_chunk, age_cap: int, n_components: int, act: np.ndar
     tc = T if chunk is None else int(chunk)
     for t0 in range(0, T, tc) or [0]:
         t1 = min(t0 + tc, T)
-        acc = torch.zeros((N, n_components, t1 - t0 + Atot), **f32)
-        states = carry + (acc, torch.zeros_like(acc))
-        ev = None if ev_host is None else tuple(to_dev(cut(e, ev_shared, t0, t1))
-                                                for e in ev_host)
-        states, (h, cost, capped, served) = run_chunk(
-            states, *(to_dev(cut(x, shared, t0, t1)) for x in (act, pred, nxt)), ev)
+        with obs_span("potus/cohort-fused/chunk", t0=t0, t1=t1, sharded=False):
+            acc = torch.zeros((N, n_components, t1 - t0 + Atot), **f32)
+            states = carry + (acc, torch.zeros_like(acc))
+            ev = None if ev_host is None else tuple(to_dev(cut(e, ev_shared, t0, t1))
+                                                    for e in ev_host)
+            states, (h, cost, capped, served, *streams) = run_chunk(
+                states, *(to_dev(cut(x, shared, t0, t1)) for x in (act, pred, nxt)), ev)
+        if not stream_chunks:
+            stream_chunks = [[] for _ in streams]
+        for acc_k, slab in zip(stream_chunks, streams):
+            acc_k.append(slab.cpu().numpy())
         carry = tuple(states[:5])
         rm, rt = states[5].cpu().numpy(), states[6].cpu().numpy()
         g0 = t0 - age_cap  # global source slot of the slab's first column
@@ -533,7 +569,8 @@ def _run_chunked_cohort(run_chunk, age_cap: int, n_components: int, act: np.ndar
         capped_tot += capped.cpu().numpy().astype(np.float64)
         served_tot += served.cpu().numpy().astype(np.float64)
     return (resp_mass, resp_time, np.concatenate(backlogs, axis=1),
-            np.concatenate(costs, axis=1), capped_tot, served_tot)
+            np.concatenate(costs, axis=1), capped_tot, served_tot,
+            [np.concatenate(chunks, axis=1) for chunks in stream_chunks])
 
 
 def _check_opts(age_cap: int, chunk, slots_per_launch: int) -> None:
@@ -545,17 +582,24 @@ def _check_opts(age_cap: int, chunk, slots_per_launch: int) -> None:
         raise ValueError(f"slots_per_launch must be >= 1, got {slots_per_launch}")
 
 
-def _results(out, weights_s, reach, labels, age_cap, T, W, warmup, drain_margin):
+def _results(out, weights_s, reach, labels, age_cap, T, W, warmup, drain_margin,
+             metrics=None):
     """One :class:`CohortResult` per scenario of a partition's run ``out``
-    (``weights_s``: one arrival-weights matrix, or one per scenario)."""
-    resp_mass, resp_time, backlog, cost, capped, served = out
+    (``weights_s``: one arrival-weights matrix, or one per scenario), with
+    its ``metrics`` frame when ``metrics`` (a ``MetricsSpec``) is set. The
+    ``payload`` stream is 0: no collective runs off an instance mesh."""
+    resp_mass, resp_time, backlog, cost, capped, served, streams = out
     results = []
     for s, label in enumerate(labels):
         sat = float(capped[s]) / max(float(served[s]), 1e-9)
         _maybe_warn_saturation(sat, age_cap, label=label)
-        results.append(_aggregate(
+        result = _aggregate(
             resp_mass[s], resp_time[s], weights_s[s if len(weights_s) > 1 else 0], reach,
-            backlog[s], cost[s], sat, float(served[s]), T, W, warmup, drain_margin))
+            backlog[s], cost[s], sat, float(served[s]), T, W, warmup, drain_margin)
+        if metrics is not None:
+            result = dataclasses.replace(result, metrics=build_frame(
+                metrics, [slab[s] for slab in streams], n_slots=T, payload_floats=0.0))
+        results.append(result)
     return results
 
 
@@ -574,6 +618,7 @@ def _run_cohort_fused_impl(
     service=None,  # (I,) | scalar — per-tuple service time in mu units (DESIGN.md §10)
     chunk: int | None = None,  # streaming: device slots per chunk (DESIGN.md §11)
     slots_per_launch: int = 1,  # slots per kernel launch (DESIGN.md §12)
+    metrics=None,  # MetricsSpec | None — metric streams (DESIGN.md §14)
     device="cuda",  # the card unless the caller asks for the CPU
     ops=kops,  # the kernels' route; kernels.ops.plain compares routes on the card
 ) -> CohortResult:
@@ -587,7 +632,7 @@ def _run_cohort_fused_impl(
     Disruption runs need the cap to also cover the outage length (stranded
     mass keeps aging while its instance is down). ``slots_per_launch``
     concerns only the slot-kernel route (a compact scheduler without
-    ``events``). The run takes ``device="cuda"`` unless the caller asks for
+    ``events`` or ``metrics``). The run takes ``device="cuda"`` unless the caller asks for
     the CPU, and raises where CUDA is asked for and absent.
     """
     _check_opts(age_cap, chunk, slots_per_launch)
@@ -598,13 +643,13 @@ def _run_cohort_fused_impl(
     act, pred, nxt, q_rem0 = _prep_streams(actual, predicted, T, W, fleet.cpt, fleet.mask)
     ev_host = host_trace(events, T)
     run_chunk = fleet.chunk_runner(cfg.scheduler, [cfg.V], [cfg.beta], ev_host is not None,
-                                   True, True, age_cap, slots_per_launch, ops)
+                                   True, True, age_cap, slots_per_launch, ops, metrics)
     out = _run_chunked_cohort(run_chunk, age_cap, topo.n_components, act, pred, nxt,
                               q_rem0[None], ev_host, True, T, chunk, device)
     weights = np.einsum("sic,ic->cs", act, fleet.mask)
     return _results(out, [weights], _reachability(topo),
                     [f"scheduler={cfg.scheduler} V={cfg.V} W={W}"], age_cap, T, W, warmup,
-                    drain_margin)[0]
+                    drain_margin, metrics)[0]
 
 
 def run_fused_sweep(
@@ -621,6 +666,7 @@ def run_fused_sweep(
     service=None,  # (I,) | scalar — per-tuple service time in mu units (DESIGN.md §10)
     chunk: int | None = None,  # streaming: device slots per chunk (DESIGN.md §11)
     slots_per_launch: int = 1,  # slots per kernel launch (DESIGN.md §12)
+    metrics=None,  # MetricsSpec | None — per-scenario metric streams (DESIGN.md §14)
     device="cuda",  # the card unless the caller asks for the CPU
     ops=kops,  # the kernels' route; kernels.ops.plain compares routes on the card
 ) -> tuple[list[CohortResult], int]:
@@ -628,8 +674,9 @@ def run_fused_sweep(
     fused engine: scenarios partition by (scheduler, window, use_pallas,
     whether they carry a disruption trace) as in the reference, and each
     partition runs as one batch of N scenarios — on the slot-kernel route
-    one kernel call a launch for all of them, on the events and dense routes
-    each scenario in turn. Returns (results in grid order, n_batches).
+    one kernel call a launch for all of them, on the events, metrics and
+    dense routes each scenario in turn. With ``metrics`` every result carries
+    its frame. Returns (results in grid order, n_batches).
     ``spec.sharded`` raises: the instance mesh is not ported yet."""
     _check_opts(age_cap, chunk, slots_per_launch)
     if spec.sharded:
@@ -673,12 +720,12 @@ def run_fused_sweep(
                 [scn.events for scn in group], [events_map[scn.events] for scn in group], T)
         Vs, betas = [scn.V for scn in group], [scn.beta for scn in group]
         run_chunk = fleet.chunk_runner(scheduler, Vs, betas, has_events, shared, ev_shared,
-                                       age_cap, slots_per_launch, ops)
+                                       age_cap, slots_per_launch, ops, metrics)
         out = _run_chunked_cohort(run_chunk, age_cap, topo.n_components, act, pred, nxt, q0,
                                   ev_host, ev_shared, T, chunk, device)
         labels = [f"scheduler={scheduler} V={scn.V} W={W} arrival={scn.arrival} "
                   f"events={scn.events}" for scn in group]
         for scn, res in zip(group, _results(out, weights_s, reach, labels, age_cap, T, W,
-                                            warmup, drain_margin)):
+                                            warmup, drain_margin, metrics)):
             results[scn.index] = res
     return results, len(groups)

@@ -1,8 +1,8 @@
 """One-dispatch slot math for the fused cohort engine, in PyTorch
 (DESIGN.md §12).
 
-The port's counterpart of ``repro.core.compact`` with ``axis=None`` and no
-metric streams. Each scheduler's per-slot decision is kept in the
+The port's counterpart of ``repro.core.compact`` with ``axis=None``. Each
+scheduler's per-slot decision is kept in the
 successor-component-compact form
 
     CompactDecision(shipped, point, j_point, even_per, cost)
@@ -25,6 +25,10 @@ prefix sums round alike, which they always do on the dyadic tier. The
 reference's other kernel-safe substitutions (one-hot contractions for
 gathers and scatters) exist only because Pallas on the TPU cannot lower a
 gather; PyTorch can, and the results are equal.
+
+With ``metrics_spec`` (DESIGN.md §14) the step also returns the selected
+metric streams' rows (:func:`slot_streams`); the slot kernel has no streams,
+so a run with metrics takes this step, as the reference's does.
 """
 from __future__ import annotations
 
@@ -33,11 +37,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs.metrics import compute_scan_streams, scan_stream_names
 from .potus import _fill_components
 
 __all__ = [
     "COMPACT_SCHEDULERS", "CompactProblem", "CompactDecision", "StepConsts",
-    "compact_decide", "compact_slot_step", "drain_ages", "kernel_layout",
+    "compact_decide", "compact_slot_step", "drain_ages", "kernel_layout", "slot_streams",
 ]
 
 _EPS = 1e-12  # same negligible-mass threshold as the engines' FIFOs
@@ -278,7 +283,9 @@ def _to_dense(c: StepConsts, x_cmp: torch.Tensor) -> torch.Tensor:
 def _observe(c: StepConsts, state, act_t, pred_t):
     """Stage 1, the window's pos-0 reconciled with slot ``t``'s actual
     arrivals, and the queue observation of stage 2. Returns ``(q_rem, q_in
-    (I,), q_out (I, C), must_send (I, C))``."""
+    (I,), q_out (I, C), must_send (I, C), recon)``; ``recon`` is the
+    reconciliation's ``(r, pred_m, tp, tn)`` (I, S), which the metric streams
+    read."""
     q_rem, admit, q_in_tag, q_out_tag = state[:4]
     spout_f = c.spout_f
     pred_m = _to_cmp(c, pred_t) * c.stream_cmp
@@ -290,7 +297,7 @@ def _observe(c: StepConsts, state, act_t, pred_t):
     q_in_arr = q_in_tag.sum(-1)
     q_out_cmp = torch.where(spout_f[:, None] > 0, q_rem.sum(-1), q_out_tag.sum(-1))
     must_send = _to_dense(c, (q_rem[:, :, 0] + admit) * spout_f[:, None])
-    return q_rem, q_in_arr, _to_dense(c, q_out_cmp), must_send
+    return q_rem, q_in_arr, _to_dense(c, q_out_cmp), must_send, (r, pred_m, tp, tn)
 
 
 def _drain_sources(c: StepConsts, q_rem, admit, q_out_tag, shipped_cmp, age_cap: int):
@@ -356,8 +363,31 @@ def _check_columns(t: int, Atot: int, resp_mass) -> int:
     return t
 
 
+def slot_streams(c: StepConsts, metrics_spec, backlog, q_in_arr, recon, admit, land,
+                 capped_served, term_served) -> tuple[torch.Tensor, ...]:
+    """The §14 metric streams of one cohort slot (DESIGN.md §14), shared by
+    the compact step and the dense route's step, as the reference computes
+    them: ``landed`` is this slot's landing (I,) before the age shift, the
+    price ``V * u_mean[container] + q_in``, ``held`` the admission backlog
+    carried after stage 5 (``admit``), ``dropped`` the mispredicted mass the
+    reconciliation ``recon = (r, pred_m, tp, tn)`` retired."""
+    r, pred_m, tp, tn = recon
+    fp = pred_m - tp
+    landed = land.sum(-1)
+    ctx = {
+        "h": backlog, "q_in": q_in_arr,
+        "price": c.V * c.U.mean(dim=0)[c.inst_cont.long()] + q_in_arr,
+        "landed": landed, "transit_total": landed.sum(),
+        "comp_backlog": q_in_arr @ c.comp_onehot,
+        "held": admit.sum(), "dropped": (r * fp).sum(),
+        "tp": tp.sum(), "fp": fp.sum(), "tn": tn.sum(),
+        "capped": capped_served, "served": term_served,
+    }
+    return compute_scan_streams(scan_stream_names(metrics_spec), ctx)
+
+
 def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
-                      kernel_safe: bool = False):
+                      kernel_safe: bool = False, metrics_spec=None):
     """One slot of the cohort dynamics (stages 1-5 of DESIGN.md §8) with the
     compact one-dispatch decision — no (I, I) tensor anywhere.
 
@@ -369,7 +399,8 @@ def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
     the caps fold then happens here in compact form — alive counts per
     component, the effective gamma, no mandatory dispatch from dead rows —
     as ``potus.apply_caps`` does on the dense problem. Returns ``(state,
-    (backlog, cost, capped_served, term_served))``.
+    (backlog, cost, capped_served, term_served))``, followed by one row per
+    selected stream of ``metrics_spec`` (a ``MetricsSpec``; DESIGN.md §14).
     """
     act_t, pred_t, new_pred, t, *ev = xs
     q_rem, admit, q_in_tag, q_out_tag = state[:4]
@@ -381,7 +412,7 @@ def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
     comp = c.inst_comp.long()
 
     # -- 1. reconcile window pos-0 with actual arrivals, 2. observe, schedule --
-    q_rem, q_in_arr, q_out_arr, must_send = _observe(c, state, act_t, pred_t)
+    q_rem, q_in_arr, q_out_arr, must_send, recon = _observe(c, state, act_t, pred_t)
     if ev:
         mu_row, gamma_row, alive_row = ev[0]
         mu_eff = mu_row * c.inv_service
@@ -427,4 +458,8 @@ def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
     # -- 4. serve, 5. admit and shift ------------------------------------------
     state, capped_served, term_served = _serve_and_shift(
         c, (q_rem, admit, q_in_tag, q_out_tag, *state[4:]), land, mu_eff, new_pred, t, age_cap)
-    return state, (backlog, dec.cost, capped_served, term_served)
+    out = (backlog, dec.cost, capped_served, term_served)
+    if metrics_spec is not None:
+        out = out + slot_streams(c, metrics_spec, backlog, q_in_arr, recon, state[1], land,
+                                 capped_served, term_served)
+    return state, out

@@ -5,7 +5,8 @@ The port's counterpart of ``repro.core.engine``. :class:`EngineSpec` has the
 reference's fields plus ``device``; :func:`simulate` validates the spec
 against the same engine×option matrix (:data:`OPTION_SUPPORT`) and runs it.
 Two engines are ported: ``engine="cohort-fused"`` (all four schedulers,
-``events=`` included) and ``engine="jax"`` (the plain scan engine). Every engine, option or scheduler
+``events=`` and ``metrics=`` included) and ``engine="jax"`` (the plain scan
+engine, ``metrics=`` included). Every engine, option or scheduler
 that the reference supports but the port does not yet raises
 :class:`UnsupportedEngineOption` with the reason "not ported yet"; nothing
 runs something else in its place.
@@ -19,9 +20,11 @@ import dataclasses
 from typing import Any
 
 from ..device import resolve_device
+from ..obs.metrics import MetricsSpec, stream_engines, unsupported_streams
 
 __all__ = ["EngineSpec", "UnsupportedEngineOption", "simulate", "ENGINES",
-           "PORTED_ENGINES", "OPTION_SUPPORT", "check_engine_option", "resolve_device"]
+           "PORTED_ENGINES", "OPTION_SUPPORT", "check_engine_option", "check_metrics_spec",
+           "resolve_device"]
 
 #: engines of the reference facade
 ENGINES = ("jax", "sharded", "cohort", "cohort-fused")
@@ -43,11 +46,13 @@ OPTION_SUPPORT = {
     "age_cap": ("cohort-fused",),
     "slots_per_launch": ("cohort-fused",),
     "sharded": ("sharded", "cohort-fused"),
+    # which *streams* an engine serves is per-stream data
+    # (obs.ENGINE_STREAMS), checked by check_metrics_spec (DESIGN.md §14)
     "metrics": ("jax", "sharded", "cohort", "cohort-fused"),
 }
 
 #: per ported engine, the options the reference supports there that the port does not yet
-NOT_PORTED_OPTIONS = {"jax": ("metrics",), "cohort-fused": ("metrics", "sharded")}
+NOT_PORTED_OPTIONS = {"jax": (), "cohort-fused": ("sharded",)}
 
 #: the reference's schedulers, all ported on both ported engines
 SCHEDULERS = ("potus", "potus-loop", "shuffle", "jsq")
@@ -91,6 +96,21 @@ def check_engine_option(engine: str, option: str) -> None:
         raise UnsupportedEngineOption(engine, option, supported)
 
 
+def check_metrics_spec(engine: str, metrics):
+    """Coerce ``EngineSpec(metrics=...)`` to a ``MetricsSpec`` (or None) and
+    reject streams the engine cannot compute, with the same normalized error
+    shape as a whole unsupported option (shared with ``run_sweep``)."""
+    spec = MetricsSpec.coerce(metrics)
+    if spec is None:
+        return None
+    bad = unsupported_streams(engine, spec)
+    if bad:
+        raise UnsupportedEngineOption(
+            engine, f"metrics[{bad[0]}]", supported=stream_engines(bad[0]),
+            reason=f"stream {bad[0]!r} needs engine state {engine!r} lacks")
+    return spec
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
     """One run, fully specified — the argument to :func:`simulate`.
@@ -99,8 +119,10 @@ class EngineSpec:
     left at their defaults are "unset": setting a value on an engine that
     lacks the option raises :class:`UnsupportedEngineOption`. ``use_pallas``
     is kept so that a spec written for the reference validates the same way,
-    but it selects nothing here: the device decides, and on CUDA the slot
-    step always runs the hand-written kernel, on the CPU its plain version.
+    but it selects nothing here: the device decides, and on CUDA a compact
+    scheduler's slot runs the hand-written kernel, on the CPU its plain
+    version — except under ``events=`` or ``metrics=``, where the slot runs
+    ``compact_slot_step`` as in the reference (DESIGN.md §14).
     """
 
     topo: Any  # Topology
@@ -124,7 +146,7 @@ class EngineSpec:
     age_cap: int = 64
     slots_per_launch: int = 1  # slots per kernel launch (DESIGN.md §12)
     sharded: bool = False  # instance mesh (not ported yet)
-    metrics: Any = None  # metric streams (not ported yet)
+    metrics: Any = None  # MetricsSpec | stream names | True (DESIGN.md §14)
     device: str = "cuda"  # "cuda" or "cpu"
 
     def config(self):
@@ -163,18 +185,19 @@ def simulate(spec: EngineSpec):
     ``engine="jax"``, :class:`~repro_torch.core.cohort.CohortResult` for
     ``engine="cohort-fused"``."""
     spec.validate()
+    metrics = check_metrics_spec(spec.engine, spec.metrics)
     device = resolve_device(spec.device)
     if spec.engine == "jax":
         from .simulator import _run_sim_impl
 
         return _run_sim_impl(spec.topo, spec.net, spec.placement, spec.arrivals, spec.T,
                              spec.config(), mu=spec.mu, events=spec.events, chunk=spec.chunk,
-                             device=device)
+                             metrics=metrics, device=device)
     from .cohort_fused import _run_cohort_fused_impl
 
     return _run_cohort_fused_impl(
         spec.topo, spec.net, spec.placement, spec.arrivals, spec.predicted,
         spec.T, spec.config(), warmup=spec.warmup, drain_margin=spec.drain_margin,
         age_cap=spec.age_cap, events=spec.events, service=spec.service, chunk=spec.chunk,
-        slots_per_launch=spec.slots_per_launch, device=device,
+        slots_per_launch=spec.slots_per_launch, metrics=metrics, device=device,
     )

@@ -13,6 +13,13 @@ on the host and go to the device one chunk of slots at a time (``chunk=``;
 the monolithic run is one chunk). The per-slot metrics of a chunk stay on
 the device in one (slots, 5) tensor and come to the host once per chunk.
 
+Observability (DESIGN.md §14): ``metrics=`` (a ``MetricsSpec``) appends the
+selected streams' rows to each slot's outputs (:func:`sim_step`); they stay
+on the device with the chunk's metrics and become ``SimResult.metrics``, a
+``MetricsFrame``. The spans ``potus/jax/problem-build`` and
+``potus/jax/chunk`` (``repro_torch.obs.trace``, off by default) mark the
+set-up and each chunk.
+
 Also here: :class:`SimConfig`, :func:`pad_arrivals` and
 :func:`materialize_arrivals`, which the fused cohort engine shares.
 """
@@ -25,6 +32,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..obs.metrics import MetricsFrame, MetricsSpec, build_frame, compute_scan_streams, scan_stream_names
+from ..obs.trace import span as obs_span
+from .compact import _rows_add
 from .events import EventTrace
 from .network import NetworkCosts
 from .potus import (SchedProblem, SlotCaps, _schedule_with, _u_pair, caps_for_slot,
@@ -109,6 +119,7 @@ class SimResult:
     q_out_total: np.ndarray  # (T,)
     served_total: np.ndarray  # (T,)
     final_state: SimState  # numpy leaves, copied to the host
+    metrics: MetricsFrame | None = None  # selected obs streams (DESIGN.md §14)
 
     @property
     def avg_backlog(self) -> float:
@@ -150,12 +161,16 @@ def sim_step(
     state: SimState,
     new_arr: torch.Tensor,  # (I, C) — λ(t + W + 1) entering the window
     caps: SlotCaps | None = None,  # one slot of a disruption trace (DESIGN.md §9)
+    metrics_spec: MetricsSpec | None = None,  # extra per-slot streams (DESIGN.md §14)
 ) -> tuple[SimState, tuple[torch.Tensor, ...]]:
     """One slot of the paper-§3 dynamics: observe, schedule, update. Returns
     the new state and the slot's ``(h, cost, q_in total, q_out total,
     served total)`` as 0-d tensors on the state's device. With ``caps`` the
     scheduler prices dead instances out, service runs at the slot's
-    effective ``mu``, and unshippable mandatory arrivals are held."""
+    effective ``mu``, and unshippable mandatory arrivals are held.
+
+    ``metrics_spec`` appends one ``(width,)`` row per selected obs stream to
+    the outputs; with ``None`` the step is exactly the one without streams."""
     q_out = effective_qout(prob, state)
     must_send = state.q_rem[:, :, 0]
     X = sched(prob, U, state.q_in, q_out, must_send, V, beta, caps=caps)
@@ -165,7 +180,19 @@ def sim_step(
     hold = None if caps is None else hold_mask_for(prob, caps)
     new_state, info = slot_update(prob, state, X, new_arr, mu_eff, selectivity_rows,
                                   hold_mask=hold)
-    return new_state, (h, cost, state.q_in.sum(), q_out.sum(), info["served"].sum())
+    metrics = (h, cost, state.q_in.sum(), q_out.sum(), info["served"].sum())
+    if metrics_spec is not None:
+        comp = torch.zeros(prob.n_components, dtype=torch.float32, device=h.device)
+        ctx = {
+            "h": h,
+            "q_in": state.q_in,
+            "price": V * U.mean(dim=0)[prob.inst_container.long()] + state.q_in,
+            "landed": X.sum(dim=0),
+            "transit_total": new_state.transit.sum(),
+            "comp_backlog": _rows_add(comp, prob.inst_comp.long(), state.q_in),
+        }
+        metrics = metrics + compute_scan_streams(scan_stream_names(metrics_spec), ctx)
+    return new_state, metrics
 
 
 def _run_sim_impl(
@@ -178,7 +205,7 @@ def _run_sim_impl(
     mu: np.ndarray | None = None,
     events: EventTrace | None = None,  # disruption trace (core.events, DESIGN.md §9)
     chunk: int | None = None,  # streaming: device slots per chunk (DESIGN.md §11)
-    metrics=None,
+    metrics: MetricsSpec | None = None,  # selected obs streams (DESIGN.md §14)
     *,
     device="cuda",
     ops=None,  # POTUS's kernel route; kernels.ops.plain compares routes on the card
@@ -188,8 +215,6 @@ def _run_sim_impl(
 
     if cfg.sharded:
         raise UnsupportedEngineOption("sharded", "engine", reason="not ported yet")
-    if metrics is not None:
-        raise UnsupportedEngineOption("jax", "metrics", reason="not ported yet")
     _check_mu_override(mu, events)
     if chunk is not None and chunk <= 0:
         raise ValueError(f"chunk must be a positive slot count, got {chunk}")
@@ -197,10 +222,11 @@ def _run_sim_impl(
     sched = (_get_scheduler(cfg.scheduler) if ops is None or cfg.scheduler not in _POTUS_METHODS
              else partial(_schedule_with, ops, method=_POTUS_METHODS[cfg.scheduler]))
     W = cfg.window
-    arrivals = pad_arrivals(materialize_arrivals(arrivals, topo, T + W + 1), T + W + 1)
     f32 = dict(dtype=torch.float32, device=device)
-    prob = make_problem(topo, net, inst_container, device)
-    state = init_state(topo, W, arrivals[: W + 1], device)
+    with obs_span("potus/jax/problem-build", T=T, engine="jax"):
+        arrivals = pad_arrivals(materialize_arrivals(arrivals, topo, T + W + 1), T + W + 1)
+        prob = make_problem(topo, net, inst_container, device)
+        state = init_state(topo, W, arrivals[: W + 1], device)
     # Keep the full-horizon streams on the host; only one chunk of slots is
     # ever resident on the device.
     window_stream = np.asarray(arrivals[W + 1: T + W + 1], np.float32)
@@ -212,20 +238,28 @@ def _run_sim_impl(
     V, beta = float(cfg.V), float(cfg.beta)
 
     tc = max(T if chunk is None else int(chunk), 1)
-    pieces = []
+    pieces, stream_pieces = [], []
     for t0 in range(0, T, tc):
         t1 = min(t0 + tc, T)
-        new_arr = torch.as_tensor(window_stream[t0:t1], **f32)
-        ev = None if ev_host is None else tuple(torch.as_tensor(e[t0:t1], **f32)
-                                                for e in ev_host)
-        per_slot = torch.empty((t1 - t0, 5), **f32)
-        for k in range(t1 - t0):
-            caps = None if ev is None else caps_for_slot(ev[0][k], ev[1][k], ev[2][k])
-            state, met = sim_step(prob, sched, U, u_pair, mu_t, sel_rows, V, beta, state,
-                                  new_arr[k], caps=caps)
-            per_slot[k] = torch.stack(met)
-        pieces.append(per_slot.cpu().numpy())
+        with obs_span("potus/jax/chunk", t0=t0, t1=t1):
+            new_arr = torch.as_tensor(window_stream[t0:t1], **f32)
+            ev = None if ev_host is None else tuple(torch.as_tensor(e[t0:t1], **f32)
+                                                    for e in ev_host)
+            per_slot = torch.empty((t1 - t0, 5), **f32)
+            rows = _StreamRows(t1 - t0)
+            for k in range(t1 - t0):
+                caps = None if ev is None else caps_for_slot(ev[0][k], ev[1][k], ev[2][k])
+                state, met = sim_step(prob, sched, U, u_pair, mu_t, sel_rows, V, beta, state,
+                                      new_arr[k], caps=caps, metrics_spec=metrics)
+                per_slot[k] = torch.stack(met[:5])
+                rows.put(k, met[5:])
+            pieces.append(per_slot.cpu().numpy())
+            stream_pieces.append([r.cpu().numpy() for r in rows.split()])
     per_slot = np.concatenate(pieces) if pieces else np.zeros((0, 5), np.float32)
+    frame = None
+    if metrics is not None:
+        frame = build_frame(metrics, [np.concatenate(a) for a in zip(*stream_pieces)],
+                            n_slots=T, payload_floats=0.0)
     return SimResult(
         backlog=per_slot[:, 0].copy(),
         comm_cost=per_slot[:, 1].copy(),
@@ -234,4 +268,29 @@ def _run_sim_impl(
         served_total=per_slot[:, 4].copy(),
         final_state=SimState(*(getattr(state, f.name).cpu().numpy()
                                for f in dataclasses.fields(SimState))),
+        metrics=frame,
     )
+
+
+class _StreamRows:
+    """A chunk's per-slot stream rows, kept on the device in one (slots,
+    total width) tensor (one copy a slot) and split per stream at the
+    chunk's end. Holds nothing when the slots carry no streams."""
+
+    def __init__(self, n_slots: int):
+        self.n_slots = n_slots
+        self.widths: list[int] = []
+        self.buf: torch.Tensor | None = None
+
+    def put(self, k: int, rows) -> None:
+        if not rows:
+            return
+        if self.buf is None:
+            self.widths = [int(r.shape[0]) for r in rows]
+            self.buf = torch.empty((self.n_slots, sum(self.widths)), dtype=rows[0].dtype,
+                                   device=rows[0].device)
+        self.buf[k] = torch.cat(rows)
+
+    def split(self) -> tuple[torch.Tensor, ...]:
+        """One (slots, width) device tensor per stream, in spec order."""
+        return () if self.buf is None else self.buf.split(self.widths, dim=1)

@@ -19,8 +19,11 @@ batch of N scenarios (:func:`~repro_torch.core.cohort_fused.run_fused_sweep`),
 whose undisturbed compact partitions take one slot-kernel call a launch for
 all N; ``engine="jax"`` runs each partition's scenarios in grid order
 through the scan engine (the port's scan step has no scenario axis yet).
-``engine="cohort"``, ``sharded`` and ``engine_opts["metrics"]`` are not
-ported yet and raise :class:`~repro_torch.core.engine.UnsupportedEngineOption`.
+``engine_opts["metrics"]`` gives every scenario its metric streams' frame
+on both engines (DESIGN.md §14); a compact ``cohort-fused`` partition with
+metrics runs its scenarios in turn on the compact step, as its events
+partitions do. ``engine="cohort"`` and ``sharded`` are not ported yet and
+raise :class:`~repro_torch.core.engine.UnsupportedEngineOption`.
 A sweep takes ``device="cuda"`` unless the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -31,7 +34,8 @@ from typing import Any
 
 import numpy as np
 
-from .engine import OPTION_SUPPORT, UnsupportedEngineOption, check_engine_option
+from .engine import (OPTION_SUPPORT, UnsupportedEngineOption, check_engine_option,
+                     check_metrics_spec)
 from .events import EventTrace, FleetScenario
 from .network import NetworkCosts
 from .simulator import SimConfig, _check_mu_override, _run_sim_impl, materialize_arrivals
@@ -202,7 +206,7 @@ def run_sweep(
     mu: np.ndarray | None = None,
     engine: str = "jax",  # jax | cohort-fused (cohort: not ported yet)
     engine_opts: dict | None = None,  # warmup/drain_margin/age_cap/service/slots_per_launch
-    #   (cohort-fused) and "chunk" (both engines; DESIGN.md §11)
+    #   (cohort-fused), "chunk" (both engines; DESIGN.md §11) and "metrics" (both; §14)
     events=None,  # dict[str, FleetScenario | EventTrace | None] for spec.events
     device="cuda",  # the card unless the caller asks for the CPU
 ) -> SweepResult:
@@ -213,7 +217,9 @@ def run_sweep(
     (:func:`~repro_torch.core.cohort_fused.run_fused_sweep`);
     ``engine="jax"`` runs each partition's scenarios in grid order through
     the scan engine. Named disruption traces (``spec.events`` / the
-    ``events`` map) form one more scenario axis on both. Each scenario's
+    ``events`` map) form one more scenario axis on both.
+    ``engine_opts={"metrics": ...}`` selects metric streams for every
+    scenario, checked per engine as ``simulate`` checks them. Each scenario's
     result equals its own ``simulate``.
     """
     scenarios = spec.scenarios()
@@ -227,10 +233,9 @@ def run_sweep(
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "cohort":
         raise _not_ported("cohort", "engine", 4)
-    if opts.pop("metrics", None) is not None:
-        raise _not_ported(engine, "metrics", 3)
     if spec.sharded:
         raise _not_ported(engine, "sharded", 5)
+    metrics = check_metrics_spec(engine, opts.pop("metrics", None))
 
     if engine == "cohort-fused":
         if mu is not None:
@@ -238,7 +243,8 @@ def run_sweep(
         from .cohort_fused import run_fused_sweep
 
         results, n_batches = run_fused_sweep(topo, net, inst_container, arr_map, T, spec,
-                                             events_map=ev_map, device=device, **opts)
+                                             events_map=ev_map, metrics=metrics, device=device,
+                                             **opts)
         return SweepResult(spec, scenarios, results, n_batches=n_batches)
 
     for opt in sorted(set(opts) - {"chunk"}):
@@ -261,5 +267,5 @@ def run_sweep(
         for scn in group:
             results[scn.index] = _run_sim_impl(
                 topo, net, inst_container, arr_map[scn.arrival][0], T, scn.config(), mu=mu,
-                events=ev_map[scn.events], chunk=chunk, device=device)
+                events=ev_map[scn.events], chunk=chunk, metrics=metrics, device=device)
     return SweepResult(spec, scenarios, results, n_batches=len(groups))

@@ -22,6 +22,12 @@ engine's spout, run on the host. Disruption traces enter through
 ``route(events_row=...)``: one ``(mu, gamma, alive)`` slot of an
 ``EventTrace`` compiled on ``self.topo`` becomes a ``SlotCaps``.
 
+Observability (DESIGN.md §14): ``recorder=`` (an ``obs.FlightRecorder``)
+takes one row per ``route()`` — slot, h, shipped, pending, window,
+comm_cost_total — and the scheduler call runs under the span
+``potus/serving/scheduler-call`` (``repro_torch.obs.trace``, off by
+default).
+
 ``DispatcherConfig(sharded=True)`` (the reference's instance-sharded route)
 is not ported yet and raises.
 """
@@ -37,6 +43,7 @@ from ..core.potus import caps_for_slot, make_problem
 from ..core.simulator import _get_scheduler
 from ..core.topology import Component, build_topology
 from ..device import resolve_device
+from ..obs.trace import span as obs_span
 
 __all__ = ["DispatcherConfig", "PotusDispatcher", "integral_assign"]
 
@@ -92,6 +99,7 @@ class PotusDispatcher:
         host_costs: np.ndarray,  # (n_hosts, n_hosts) per-request transfer cost
         replica_rates: np.ndarray,  # (R,) service capacity, in Q_in units/slot
         cfg: DispatcherConfig = DispatcherConfig(),
+        recorder=None,  # obs.FlightRecorder — per-slot routing rows (DESIGN.md §14)
         device="cuda",
     ):
         if cfg.sharded:
@@ -136,6 +144,7 @@ class PotusDispatcher:
         self.h_last = 0.0  # drift backlog h(t) = sum Q_in + beta * sum Q_out
         self.h_history: list[float] = []
         self._u_pair = self.net.U[np.ix_(placement, placement)]
+        self.recorder = recorder
 
     def observe_prediction(self, predicted: np.ndarray) -> None:
         """predicted: (F, window+1) request counts for slots t..t+W."""
@@ -175,7 +184,7 @@ class PotusDispatcher:
         caps = None
         if events_row is not None:
             caps = caps_for_slot(*(self._tensor(a) for a in events_row))
-        with torch.profiler.record_function(SCHED_SPAN):
+        with obs_span(SCHED_SPAN, sharded=False):
             X = self._sched(self.prob, self._U, self._tensor(q_in), self._tensor(q_out),
                             self._tensor(must), float(self.cfg.V), float(self.cfg.beta),
                             caps=caps).cpu().numpy()
@@ -198,4 +207,13 @@ class PotusDispatcher:
         self.pending += self.window[:, 0]
         self.window[:, :-1] = self.window[:, 1:]
         self.window[:, -1] = 0.0
+        if self.recorder is not None:
+            self.recorder.record(
+                slot=len(self.h_history) - 1,
+                h=self.h_last,
+                shipped=float(assign.sum()),
+                pending=float(self.pending.sum()),
+                window=float(self.window.sum()),
+                comm_cost_total=self.comm_cost_total,
+            )
         return assign

@@ -123,11 +123,12 @@ class ReplicaFleet:
     the in-graph engines observe before landing their ``transit`` buffer.
     """
 
-    def __init__(self, replicas: list):
+    def __init__(self, replicas: list, recorder=None):
         self.replicas = list(replicas)
         R = len(self.replicas)
         self._inflight: list[list] = [[] for _ in range(R)]  # lands at next step()
         self._dispatched: list[list] = [[] for _ in range(R)]  # this slot's routing
+        self.recorder = recorder  # obs.FlightRecorder — per-slot fleet rows (DESIGN.md §14)
 
     @classmethod
     def from_model(cls, cfg, model, service_rates, max_batch: int = 4,
@@ -186,4 +187,14 @@ class ReplicaFleet:
             if alive_row is not None:
                 rate *= float(alive_row[r])
             done.extend(eng.step(rate=rate, t=t))  # both replica kinds take the slot
+        if self.recorder is not None:
+            backlogs = self.backlog_tokens
+            self.recorder.record(
+                slot=t,
+                backlog_tokens=float(backlogs.sum()),
+                backlog_max=float(backlogs.max()) if len(backlogs) else 0.0,
+                inflight=sum(len(q) for q in self._inflight),
+                completed=len(done),
+                tokens_served=self.tokens_served,
+            )
         return done

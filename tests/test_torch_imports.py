@@ -1,5 +1,5 @@
-"""The port stands alone: importing ``repro_torch`` and every submodule, and
-``chip_smoke``, loads no ``jax*`` module and nothing of the reference
+"""The port stands alone: importing ``repro_torch`` and every submodule
+(``repro_torch.obs`` among them), and ``chip_smoke``, loads no ``jax*`` module and nothing of the reference
 package ``repro``. Runs in a fresh interpreter so this process's imports
 cannot mask a leak."""
 import subprocess
@@ -20,7 +20,10 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
 print(len(names), "modules;", "leaked:", bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+obs = all(n in names for n in ("repro_torch.obs", "repro_torch.obs.metrics",
+                                "repro_torch.obs.recorder", "repro_torch.obs.trace"))
+print("obs walked:", obs)
+sys.exit(1 if bad or len(names) < 15 or not obs else 0)
 """
 
 
@@ -30,4 +33,4 @@ def test_port_imports_neither_jax_nor_reference():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "leaked: []" in proc.stdout
+    assert "leaked: []" in proc.stdout and "obs walked: True" in proc.stdout

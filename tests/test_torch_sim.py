@@ -21,7 +21,8 @@ device="cpu"))``, against the reference ``simulate(EngineSpec(engine="jax"))``.
 * A run from a reference mid-run state (``convert``) takes the same step.
 * Facade guards: ``engine="jax"`` accepts ``potus-loop``, ``events`` and
   ``mu``, and ``potus-loop`` also runs on ``engine="cohort-fused"``;
-  ``metrics=`` raises "not ported yet"; CUDA by default.
+  a stream the scan engine lacks (``metrics=("saturation",)``) raises and
+  names ``cohort-fused``; CUDA by default.
 """
 import dataclasses
 
@@ -202,8 +203,9 @@ def _spec(**kw):
 
 
 def test_facade_guards():
-    with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
-        pt.simulate(_spec(device="cpu", metrics=True))
+    # metric streams are ported; one the scan engine lacks names the engine that has it
+    with pytest.raises(pt.UnsupportedEngineOption, match="saturation.*'cohort-fused'"):
+        pt.simulate(_spec(device="cpu", metrics=("saturation",)))
     with pytest.raises(pt.UnsupportedEngineOption, match="'age_cap'"):
         pt.simulate(_spec(device="cpu", age_cap=32))
     topo = _spec().topo
