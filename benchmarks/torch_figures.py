@@ -224,14 +224,14 @@ def _sweep_speedup_row(sys_: System, arr, spec: SweepSpec, device) -> Row:
 FIG6AB_VS = [1, 5, 10, 20] if QUICK else [1, 2, 5, 10, 15, 20, 30]
 
 
-def fig6ab_sweep(device="cuda"):
+def fig6ab_sweep(device="cuda", vs=None):
     """Fig. 6ab's (V x predictor) grid, W=1, on the fused engine: one
-    partition with stacked streams. Returns (system, arrivals, predictions,
-    sweep, wall s)."""
+    partition with stacked streams (``vs``, the V columns, defaults to
+    ``FIG6AB_VS``). Returns (system, arrivals, predictions, sweep, wall s)."""
     sys_ = paper_system("fat-tree")
     arr = arrivals_for(sys_, "trace", T_COHORT)
     preds = predictor_scenarios(arr, seed=5)
-    spec = SweepSpec(V=tuple(float(v) for v in FIG6AB_VS), window=1,
+    spec = SweepSpec(V=tuple(float(v) for v in (vs or FIG6AB_VS)), window=1,
                      arrival=tuple(preds.keys()))
     sw, wall = _sweep(sys_, {name: (arr, pred) for name, pred in preds.items()}, T_COHORT,
                       spec, device, engine="cohort-fused",
@@ -239,13 +239,13 @@ def fig6ab_sweep(device="cuda"):
     return sys_, arr, preds, sw, wall
 
 
-def fig6ab_rows(arr, preds, sw, wall: float) -> list[Row]:
+def fig6ab_rows(arr, preds, sw, wall: float, vs=None) -> list[Row]:
     us = wall / (len(sw) * T_COHORT) * 1e6
     rows = []
     for name, pred in preds.items():
         err = 0.0 if pred is None else mse(pred[:T_COHORT], arr[:T_COHORT])
         d = ";".join(f"V{v}:cost={r.avg_cost:.1f}:resp={r.avg_response:.2f}"
-                     for v, (_, r) in zip(FIG6AB_VS, sw.select(arrival=name)))
+                     for v, (_, r) in zip(vs or FIG6AB_VS, sw.select(arrival=name)))
         rows.append(Row(f"fig6ab/{name}", us, f"mse={err:.2f};{d}"))
     return rows
 

@@ -52,7 +52,8 @@ I=16384 serving fleet, counting the kernel launches of each:
   bitwise its own ``simulate``; the dyadic sweep against the CPU and every
   batched call against the batched plain version; the paper profile's
   Fig. 6ab and Fig. 5 grids (``benchmarks/torch_figures.py``) against the
-  CPU, whose runs go in a process of their own started first;
+  CPU (of Fig. 6ab, the outer V columns: 14 of its 28 scenarios), whose
+  runs follow the card's;
 * phase J, observability (``metrics=``, span tracing, the obs dump; no
   kernel of its own): J1 the metric streams of both ported engines on the
   dyadic system — the card's equal the CPU's, metrics on leave every
@@ -64,7 +65,18 @@ I=16384 serving fleet, counting the kernel launches of each:
   metrics-off paths in turns; J3 ``benchmarks/torch_figures.py``'s
   metrics dump through the k-failure transient, read back by
   ``tools/obs_report.py --recovery``, its Chrome trace, and a
-  ``torch.profiler`` trace listing the span names.
+  ``torch.profiler`` trace listing the span names;
+* phase K, the host-loop oracles — ``simulate(EngineSpec(engine="cohort"))``
+  (the Python event loop) and ``run_event_sim``, whose scheduler runs once a
+  slot on the card: the schedule kernel (``potus``) or the price kernel
+  (``potus-loop``), X copied back whole. K1 the dyadic system: the card
+  equals the CPU bitwise for the four schedulers (mis-predicted, under a
+  k-failure, with every cohort stream), the fluid event simulator equals
+  the scan engine bitwise, one launch a slot; K2 the paper profile, the
+  event loop against ``cohort-fused`` at the reference's floors; K3
+  ``benchmarks/torch_systems.py``'s ``cohort_scale`` on the fleet at I=1024
+  and 16384 (the loop on a truncated horizon, extrapolated), each loop run
+  profiled; K4 its event-gap rows, the card's events equal to the CPU's.
 
 It checks the results and prints:
 
@@ -91,8 +103,12 @@ It checks the results and prints:
 * for phase J, the wall ms/slot of path 2 and of the compact
   ``cohort-fused`` run with metrics on and off, in turns, the launches and
   route of each, the peak device memory and the recovery story of the dump;
+* for phase K, the event loop's and the fused engine's wall ms a slot at
+  I=1024 and 16384, and per loop run the device ms a slot of kernel 2, of
+  the copy of X back and of the staged queues out, and the busy share;
 * one JSON line ``{"kernels": [...]}`` (seven kernels; the slot kernel's
-  row carries its batched entry under ``"batched"``), then, last,
+  row carries its batched entry under ``"batched"``, rows 2 and 3 their
+  launches on phase K's host loops under ``"cohort_launches"``), then, last,
   ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full f32: TF32 is switched off for cuBLAS
@@ -102,6 +118,7 @@ with code 2 and prints no result. It imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -2260,11 +2277,16 @@ def ssm_path(card, cuda):
 # phase F and phase I: scenario sweeps (core/sweep.py, run_fused_sweep)
 # ---------------------------------------------------------------------------
 
+#: the V columns of I3's Fig. 6ab grid that the CPU runs (the grid's first and last)
+I3_CPU_VS = (1, 20)
+
+
 def cpu_run(name):
     """The port's run on the CPU that phase F or I3 holds the card against:
-    ``transient`` (phase F's W=2 scenarios), ``fig6ab`` or ``fig5`` (I3);
-    returns (sweep, wall s). It runs after the card's run it is held
-    against, so no timed phase runs beside it."""
+    ``transient`` (phase F's W=2 scenarios), ``fig6ab`` (I3: the V columns
+    ``I3_CPU_VS`` of the grid, all its predictors) or ``fig5`` (I3); returns
+    (sweep, wall s). It runs after the card's run it is held against, so no
+    timed phase runs beside it."""
     import torch
 
     import benchmarks.torch_figures as tf
@@ -2275,8 +2297,8 @@ def cpu_run(name):
         if name == "transient":
             grid = tf.transient_grid("cpu", T=300, windows=(2,))
             return grid[6], grid[7]
-        if name == "fig6ab":
-            return tf.fig6ab_sweep("cpu")[3:]
+        if name == "fig6ab":  # the grid's outer V columns: 14 of its 28 scenarios
+            return tf.fig6ab_sweep("cpu", vs=I3_CPU_VS)[3:]
         return tf.fig5_sweep("fat-tree", "cpu")[3:]
     finally:
         torch.set_num_threads(threads)
@@ -2509,19 +2531,22 @@ def sweep_path(card, cuda, fleet=None):
     _, p_arr, preds, sw6, wall6 = tf.fig6ab_sweep(cuda)
     sw6c, wall6c = cpu_run("fig6ab")
     check(sw6.n_batches == 1 and len(sw6) == len(tf.FIG6AB_VS) * len(preds), "I3: Fig. 6ab grid")
+    check(len(sw6c) == len(I3_CPU_VS) * len(preds), "I3: the CPU's Fig. 6ab columns")
     worst = {}
-    for (scn, a), (_, b) in zip(sw6, sw6c):
+    for scn, b in sw6c:
+        a = sw6.result(V=scn.V, arrival=scn.arrival)
         for f in ("avg_backlog", "avg_cost", "avg_response"):
             worst[f] = max(worst.get(f, 0.0), rel_diff(getattr(a, f), getattr(b, f)))
     print(f"I3: Fig. 6ab grid, one partition of N={len(sw6)} with stacked streams, T="
-          f"{tf.T_COHORT}, age_cap {tf.AGE_CAP['fig6ab']}: card {wall6:.3f} s, CPU {wall6c:.3f} "
-          f"s (one thread); worst card vs CPU rel diff of the means " + ", ".join(
+          f"{tf.T_COHORT}, age_cap {tf.AGE_CAP['fig6ab']}: card {wall6:.3f} s; its {len(sw6c)} "
+          f"scenarios at V {I3_CPU_VS} against the CPU's (one partition, {wall6c:.3f} s, one "
+          f"thread): worst card vs CPU rel diff of the means " + ", ".join(
               f"{f} {v:.3e}" for f, v in worst.items()) + f" [{card}]")
     check(worst["avg_response"] <= 0.10 and worst["avg_backlog"] <= 0.10
           and worst["avg_cost"] <= 0.02, "I3 Fig. 6ab: beyond the chaos floor")
     for row in tf.fig6ab_rows(p_arr, preds, sw6, wall6):
         print(f"  card {row.csv()}")
-    for row in tf.fig6ab_rows(p_arr, preds, sw6c, wall6c):
+    for row in tf.fig6ab_rows(p_arr, preds, sw6c, wall6c, vs=I3_CPU_VS):
         print(f"  CPU  {row.csv()}")
     sys5, arr5, _, sw5, wall5 = tf.fig5_sweep("fat-tree", cuda)
     sw5c, wall5c = cpu_run("fig5")
@@ -2800,6 +2825,271 @@ def obs_path(card, cuda, fleet=None):
     print(f"  J3 {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase K: the host-loop oracles — engine="cohort" and run_event_sim
+# ---------------------------------------------------------------------------
+
+ORACLE_T = 40  # K1's horizon on the dyadic system
+ORACLE_SCHEDULERS = ("potus", "potus-loop", "shuffle", "jsq")
+# K3's event-loop horizons on the fleet, extrapolated to FLEET_T as
+# benchmarks/systems_bench.py:186-188 does (the loop's per-slot cost is T-independent)
+ORACLE_PY_T = {1024: 8, 16384: 1}
+ORACLE_GAP_T = 200  # K4's horizon: the event-gap rows of benchmarks/workload.py:118-140
+
+
+def oracle_launches(scheduler, T):
+    """One launch of kernel 2 (``potus``) or kernel 3 (``potus-loop``) a
+    slot on the host loops; Shuffle and JSQ launch no kernel."""
+    kernel = {"potus": "potus_schedule", "potus-loop": "potus_price"}.get(scheduler)
+    return dict(ZERO_COUNTS, **({kernel: T} if kernel else {}))
+
+
+def same_oracle(a, b) -> bool:
+    """Two event-loop results equal bitwise: the series, the response
+    statistics, the cohort counts and the metric frame, every stream."""
+    same = same_result(a, b) and a.n_cohorts == b.n_cohorts and (
+        a.completed_frac == b.completed_frac)
+    if a.metrics is None or b.metrics is None:
+        return same and a.metrics is b.metrics
+    return same and list(a.metrics.streams) == list(b.metrics.streams) and all(
+        np.array_equal(x, b.metrics.streams[k]) for k, x in a.metrics.streams.items())
+
+
+def same_events(a, b) -> bool:
+    """Two ``run_event_sim`` results equal bitwise (its per-slot series carry
+    the scan engine's names)."""
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in SERIES) and (
+        a.n_events == b.n_events and a.completed_mass == b.completed_mass)
+
+
+def counted(fn):
+    """``fn()`` and the kernel launches it made."""
+    reset_counts()
+    out = fn()
+    return out, read_counts()
+
+
+def oracle_dyadic(pt, cuda):
+    """K1: the dyadic system (every sum exact), T=40. ``engine="cohort"``
+    for the four schedulers at W 0 and 2, with a mis-predicted stream and
+    under a k-failure, every run with every cohort stream; ``run_event_sim``
+    for the four at W 0 and 2, fluid and aligned, and with tuple service and
+    jitter. The card's runs equal the CPU's bitwise, the fluid event
+    simulator equals the scan engine on the card bitwise, and each run
+    launches kernel 2 or 3 once a slot. Returns the launches of kernels 2
+    and 3 on these paths."""
+    from repro_torch.obs import ENGINE_STREAMS
+
+    T, W2 = ORACLE_T, 2
+    topo, net, placement, arr = dyadic_system(pt, T + 13, W2)
+    rng = np.random.default_rng(9)
+    pred = (arr * 2.0 ** rng.integers(-1, 2, size=arr.shape)).astype(np.float32)
+    # the instances of J1's dyadic k-failure (rng seed 1): every split stays dyadic
+    kfail = pt.k_failures(topo, 2, start=10, duration=12,
+                          rng=np.random.default_rng(1)).compile(topo, T)
+    streams = tuple(sorted(ENGINE_STREAMS["cohort"]))
+    total = dict(potus_schedule=0, potus_price=0)
+
+    def launched(label, sched, n):
+        check(n == oracle_launches(sched, T), f"{label}: launches {n}")
+        for k in total:
+            total[k] += n[k]
+
+    for sched in ORACLE_SCHEDULERS:
+        cases = [(0, None, None, "W=0"), (W2, None, None, "W=2"),
+                 (W2, pred, None, "W=2 mis-predicted"), (W2, None, kfail, "W=2 k-failure")]
+        for W, p, ev, what in cases:
+            spec = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr, T=T,
+                                 engine="cohort", scheduler=sched, V=2.0, beta=0.5, window=W,
+                                 predicted=p, events=ev, warmup=8, drain_margin=12,
+                                 metrics=streams, device="cuda")
+            label = f"K1 cohort {sched} {what}"
+            card_res, n = counted(lambda: pt.simulate(spec))
+            launched(label, sched, n)
+            cpu_res = pt.simulate(dataclasses.replace(spec, device="cpu"))
+            check(same_oracle(card_res, cpu_res), f"{label}: the card's run differs from the "
+                  "CPU's")
+            check(card_res.completed_mass > 0 and np.isfinite(card_res.avg_response)
+                  and card_res.metrics.n_slots == T and streams_finite(card_res.metrics),
+                  f"{label}: result")
+        want = oracle_launches(sched, T)
+        line = [f"K1 cohort {sched}: W 0 and 2, mis-predicted, k-failure, {len(streams)} "
+                f"streams: card = CPU bitwise (series, responses, n_cohorts, frame); launches a "
+                f"run potus_schedule={want['potus_schedule']} potus_price={want['potus_price']}"]
+        for W in (0, W2):
+            cfg = pt.SimConfig(V=2.0, beta=0.5, window=W, scheduler=sched)
+            label = f"K1 run_event_sim {sched} W={W}"
+            fluid, n = counted(lambda: pt.run_event_sim(topo, net, placement, arr, T, cfg,
+                                                        device="cuda"))
+            launched(label, sched, n)
+            scan = pt.simulate(pt.EngineSpec(topo=topo, net=net, placement=placement,
+                                             arrivals=arr, T=T, engine="jax", scheduler=sched,
+                                             V=2.0, beta=0.5, window=W, device="cuda"))
+            check(all(np.array_equal(getattr(fluid, f), np.asarray(getattr(scan, f), np.float64))
+                      for f in SERIES), f"{label}: fluid and aligned differs from the scan "
+                  "engine")
+            check(same_events(fluid, pt.run_event_sim(topo, net, placement, arr, T, cfg,
+                                                      device="cpu")),
+                  f"{label}: the card's fluid run differs from the CPU's")
+            kw = dict(integral=True, jitter=0.5, seed=7)
+            tuples, n = counted(lambda: pt.run_event_sim(topo, net, placement, 2 * arr, T, cfg,
+                                                         device="cuda", **kw))
+            launched(label, sched, n)
+            check(same_events(tuples, pt.run_event_sim(topo, net, placement, 2 * arr, T, cfg,
+                                                       device="cpu", **kw)),
+                  f"{label}: the card's tuple-service run differs from the CPU's")
+            check(tuples.n_events > 0 and tuples.completed_mass > 0, f"{label}: no events")
+            line.append(f"run_event_sim W={W}: fluid = scan engine bitwise, card = CPU bitwise "
+                        f"(fluid; tuple service with jitter 0.5: {tuples.n_events} events)")
+        print("; ".join(line))
+    return total
+
+
+def oracle_paper(pt, card):
+    """K2: the paper profile (I=83), T=300: ``engine="cohort"`` on the card
+    held against the port's ``cohort-fused`` on the card — Shuffle within
+    ``tests/test_cohort_fused.py:206-221``'s tolerances, POTUS within its
+    chaos floor (``:229-242``: 10% on the means, 25% on p95, 2% on cost),
+    ``n_cohorts`` equal."""
+    T = 300
+    topo, net, placement, arr = paper_system(pt, T)
+    for sched, W in (("shuffle", 0), ("shuffle", 2), ("potus", 0), ("potus", 2)):
+        spec = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr, T=T,
+                             engine="cohort", scheduler=sched, V=1.0, window=W, device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        py = pt.simulate(spec)
+        loop_ms = (time.perf_counter() - t0) * 1e3 / T
+        n = read_counts()
+        fu = pt.simulate(dataclasses.replace(spec, engine="cohort-fused"))
+        label = f"K2 paper {sched} W={W}"
+        check(n == oracle_launches(sched, T), f"{label}: launches {n}")
+        check(fu.n_cohorts == py.n_cohorts, f"{label}: n_cohorts {fu.n_cohorts} vs {py.n_cohorts}")
+        rels = {f: rel_diff(getattr(fu, f), getattr(py, f))
+                for f in ("avg_response", "p95_response", "avg_backlog", "avg_cost")}
+        if sched == "shuffle":
+            ok = (np.allclose(fu.backlog, py.backlog, rtol=1e-5, atol=1e-3)
+                  and np.allclose(fu.comm_cost, py.comm_cost, rtol=1e-5, atol=1e-3)
+                  and rels["avg_response"] <= 1e-3 and rels["p95_response"] <= 1e-3
+                  and rels["avg_backlog"] <= 1e-5 and rels["avg_cost"] <= 1e-5)
+        else:
+            ok = (rels["avg_response"] <= 0.10 and rels["p95_response"] <= 0.25
+                  and rels["avg_backlog"] <= 0.10 and rels["avg_cost"] <= 0.02)
+        print(f"{label}: cohort-fused vs the event loop rel diff " + ", ".join(
+            f"{f} {v:.3e}" for f, v in rels.items()) + f"; n_cohorts {py.n_cohorts}; avg_response "
+              f"{py.avg_response!r}/{fu.avg_response!r}; the loop {loop_ms:.3f} ms/slot [{card}]")
+        check(ok, f"{label}: beyond the reference's bounds")
+
+
+class LoopProfile:
+    """K3's observer: each timed event-loop run of ``cohort_scale_rows`` in a
+    ``torch.profiler`` trace, read as device ms a slot of kernel 2 and 3, of
+    the copies of X back (``Memcpy DtoH``) and of the staged queues out
+    (``Memcpy HtoD``), the busy share, and the launches."""
+
+    def __init__(self):
+        self.rows = {}
+
+    @contextlib.contextmanager
+    def __call__(self, I, scheduler, T_py):
+        import torch
+
+        torch.cuda.synchronize()
+        reset_counts()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = device_times(prof)
+
+        def ms(key):
+            return sum(r[2] for r in rows if key in r[0]) / T_py
+
+        self.rows[(I, scheduler)] = dict(
+            T_py=T_py, wall_ms=wall_ms / T_py, busy_ms=sum(r[2] for r in rows) / T_py,
+            potus_schedule=ms("potus_schedule_kernel"), potus_price=ms("potus_price_kernel"),
+            d2h=ms("Memcpy DtoH"), h2d=ms("Memcpy HtoD"), launches=read_counts(),
+            top=rows[:4])
+
+
+def oracle_scale(card):
+    """K3: ``benchmarks/torch_systems.py``'s ``cohort_scale`` on the fleet at
+    I=1024 and 16384, T=128, potus and shuffle: the event loop's wall ms a
+    slot (on ORACLE_PY_T slots, extrapolated) beside the fused engine's,
+    and from the loop's profile the device ms a slot of kernel 2, of the
+    copy of X back and the busy share. Returns kernel 2's launches."""
+    import benchmarks.torch_systems as ts
+
+    prof = LoopProfile()
+    rows = ts.cohort_scale_rows("cuda", sizes=tuple(ORACLE_PY_T), T=FLEET_T,
+                                python_T=lambda I, T: ORACLE_PY_T[I], observe=prof)
+    for row in rows:
+        print(f"  K3 {row.csv()} [{card}]")
+    launches = 0
+    for (I, sched), r in prof.rows.items():
+        check(r["launches"] == oracle_launches(sched, r["T_py"]),
+              f"K3 {sched} I={I}: launches {r['launches']}")
+        launches += r["launches"]["potus_schedule"]
+        xbytes = 4 * I * I
+        print(f"K3 cohort {sched} I={I}, {r['T_py']} slot(s) profiled: wall {r['wall_ms']:.3f} "
+              f"ms/slot, device busy {r['busy_ms']:.4f} ms/slot (share "
+              f"{r['busy_ms'] / r['wall_ms']:.4f}); kernel 2 {r['potus_schedule']:.4f} ms/slot; "
+              f"X back (Memcpy DtoH, {xbytes} bytes) {r['d2h']:.4f} ms/slot ("
+              f"{xbytes / max(r['d2h'], 1e-9) / 1e6:.1f} GB/s); queues out (Memcpy HtoD) "
+              f"{r['h2d']:.4f} ms/slot [{card}]")
+        if r["busy_ms"] == 0:
+            print("    the profiler saw no device time: device ms not measured")
+        for name, count, ms in r["top"]:
+            print(f"    {ms:10.3f} ms  x{count:<6d} {name[:90]}")
+    return launches
+
+
+def oracle_gap(pt, card):
+    """K4: ``benchmarks/torch_systems.py``'s event-gap rows (Poisson, MMPP,
+    Pareto; ``integral=True, jitter=0.5, seed=7``) at T=200 on the card, and
+    the same event runs on the CPU: equal bitwise (no kernel: Shuffle)."""
+    import benchmarks.torch_systems as ts
+
+    rows = ts.eventgap_rows("cuda", T=ORACLE_GAP_T)
+    topo, net, placement = ts.compact_system()
+    cfg = pt.SimConfig(window=2, scheduler="shuffle")
+    for (kind, params), row in zip(ts.GAP_TRAFFIC, rows):
+        arr = np.round(pt.ArrivalSpec(kind=kind, seed=5, rate_per_stream=2.0,
+                                      params=params).generate(topo, ORACLE_GAP_T + 3))
+        kw = dict(integral=True, jitter=0.5, seed=7)
+        card_ev = pt.run_event_sim(topo, net, placement, arr, ORACLE_GAP_T, cfg, device="cuda",
+                                   **kw)
+        cpu_ev = pt.run_event_sim(topo, net, placement, arr, ORACLE_GAP_T, cfg, device="cpu",
+                                  **kw)
+        check(same_events(card_ev, cpu_ev), f"K4 {kind}: the card's events differ from the CPU's")
+        check(f"events={card_ev.n_events}" in row.derived, f"K4 {kind}: row {row.derived}")
+        print(f"K4 {row.csv()} (card = CPU bitwise) [{card}]")
+
+
+def oracle_path(card, cuda):
+    """Phase K, the host-loop oracles on the card: K1 (:func:`oracle_dyadic`),
+    K2 (:func:`oracle_paper`), K3 (:func:`oracle_scale`), K4
+    (:func:`oracle_gap`). Returns the launches of kernels 2 and 3 on these
+    paths, for the kernels line."""
+    import repro_torch.core as pt
+
+    t0 = time.perf_counter()
+    launches = oracle_dyadic(pt, cuda)
+    print(f"  K1 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    oracle_paper(pt, card)
+    print(f"  K2 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["potus_schedule"] += oracle_scale(card)
+    print(f"  K3 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    oracle_gap(pt, card)
+    print(f"  K4 {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def slot_kernel(card, cuda):
     """Section 2: the slot kernel against its plain version on the card: the
     dyadic system bitwise (potus, shuffle, jsq; K=1 and 8), the I=16384
@@ -2943,8 +3233,9 @@ def main_path(fleet, card):
 def card_setup():
     """TF32 off for cuBLAS and cuDNN; prints and returns the card's name and
     power limit (``nvidia-smi``) and the device. A section called alone
-    (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``) starts
-    with this and :func:`build_kernels`."""
+    (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``,
+    ``sweep_path``, ``obs_path``, ``oracle_path``) starts with this and
+    :func:`build_kernels`."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3022,7 +3313,14 @@ def run_phases(pt, cf, card, cuda) -> int:
     obs_path(card, cuda, slot.fleet)
     print(f"  phase J {time.perf_counter() - t_phase:.1f} s [{card}]")
 
-    # -- 10. the kernels line, 11. the last line ---------------------------------
+    # -- 10. phase K: the host-loop oracles (kernels 2 and 3 once a slot) ---------------
+    t_phase = time.perf_counter()
+    oracle = oracle_path(card, cuda)
+    print(f"  phase K {time.perf_counter() - t_phase:.1f} s [{card}]")
+    for row in scan_kernels:
+        row["cohort_launches"] = oracle[row["name"]]
+
+    # -- 11. the kernels line, 12. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """Core of the PyTorch port: problem builders, disruption traces, the
 schedulers, the plain scan engine, the compact slot step, the fused cohort
-engine, the ``simulate(EngineSpec)`` facade and scenario sweeps
+engine, the host-loop oracles (the cohort event loop and
+``run_event_sim``), the ``simulate(EngineSpec)`` facade and scenario sweeps
 (``run_sweep``)."""
 from .baselines import jsq_schedule, shuffle_schedule
 from .cohort import CohortResult
@@ -14,6 +15,7 @@ from .engine import (
     UnsupportedEngineOption,
     simulate,
 )
+from .eventsim import EventSimResult, run_event_sim
 from .events import (
     EventTrace,
     FleetEvent,
@@ -43,7 +45,8 @@ from .workload import (
 
 __all__ = [
     "AgeCapSaturationWarning", "ArrivalSpec", "COMPACT_SCHEDULERS", "CohortResult",
-    "Component", "ENGINES", "EngineSpec", "EventTrace", "FleetEvent", "FleetScenario",
+    "Component", "ENGINES", "EngineSpec", "EventSimResult", "EventTrace", "FleetEvent",
+    "FleetScenario",
     "GENERATORS", "NetworkCosts", "OPTION_SUPPORT", "PORTED_ENGINES", "Scenario",
     "SchedProblem", "SimConfig", "SimResult", "SimState", "SlotCaps", "StepConsts",
     "SweepResult", "SweepSpec", "Topology",
@@ -53,7 +56,7 @@ __all__ = [
     "init_state", "init_state_batch", "jellyfish", "jsq_schedule", "k_failures", "linear_app", "make_problem",
     "materialize_arrivals", "pad_arrivals", "poisson_arrivals", "potus_prices",
     "potus_schedule", "random_apps", "random_chaos", "random_placement", "rolling_restart",
-    "run_sweep",
+    "run_event_sim", "run_sweep",
     "shuffle_schedule", "sim_step", "simulate", "slot_update", "spout_rate_matrix",
     "t_heron_placement", "trace_synthetic",
 ]

@@ -4,9 +4,11 @@
 The port's counterpart of ``repro.core.engine``. :class:`EngineSpec` has the
 reference's fields plus ``device``; :func:`simulate` validates the spec
 against the same engine×option matrix (:data:`OPTION_SUPPORT`) and runs it.
-Two engines are ported: ``engine="cohort-fused"`` (all four schedulers,
-``events=`` and ``metrics=`` included) and ``engine="jax"`` (the plain scan
-engine, ``metrics=`` included). Every engine, option or scheduler
+Three engines are ported: ``engine="cohort-fused"`` (all four schedulers,
+``events=`` and ``metrics=`` included), ``engine="jax"`` (the plain scan
+engine, ``metrics=`` included) and ``engine="cohort"`` (the Python event
+loop, the semantic oracle of the cohort engines, with ``events=``,
+``predicted=`` and ``metrics=``). Every engine, option or scheduler
 that the reference supports but the port does not yet raises
 :class:`UnsupportedEngineOption` with the reason "not ported yet"; nothing
 runs something else in its place.
@@ -30,7 +32,7 @@ __all__ = ["EngineSpec", "UnsupportedEngineOption", "simulate", "ENGINES",
 ENGINES = ("jax", "sharded", "cohort", "cohort-fused")
 
 #: engines the port runs today
-PORTED_ENGINES = ("jax", "cohort-fused")
+PORTED_ENGINES = ("jax", "cohort", "cohort-fused")
 
 #: which engines support which :class:`EngineSpec` option (an option absent
 #: here is universal) — the reference's matrix, so a spec written for the
@@ -52,9 +54,9 @@ OPTION_SUPPORT = {
 }
 
 #: per ported engine, the options the reference supports there that the port does not yet
-NOT_PORTED_OPTIONS = {"jax": (), "cohort-fused": ("sharded",)}
+NOT_PORTED_OPTIONS = {"jax": (), "cohort": (), "cohort-fused": ("sharded",)}
 
-#: the reference's schedulers, all ported on both ported engines
+#: the reference's schedulers, all ported on every ported engine
 SCHEDULERS = ("potus", "potus-loop", "shuffle", "jsq")
 
 #: proximity order used to name the "nearest" supporting engine
@@ -183,7 +185,7 @@ def simulate(spec: EngineSpec):
     """Run one fully specified simulation on ``spec.device`` and return the
     engine's result: :class:`~repro_torch.core.simulator.SimResult` for
     ``engine="jax"``, :class:`~repro_torch.core.cohort.CohortResult` for
-    ``engine="cohort-fused"``."""
+    the cohort engines."""
     spec.validate()
     metrics = check_metrics_spec(spec.engine, spec.metrics)
     device = resolve_device(spec.device)
@@ -193,6 +195,14 @@ def simulate(spec: EngineSpec):
         return _run_sim_impl(spec.topo, spec.net, spec.placement, spec.arrivals, spec.T,
                              spec.config(), mu=spec.mu, events=spec.events, chunk=spec.chunk,
                              metrics=metrics, device=device)
+    if spec.engine == "cohort":
+        from .cohort import _run_cohort_sim_impl
+
+        return _run_cohort_sim_impl(
+            spec.topo, spec.net, spec.placement, spec.arrivals, spec.predicted,
+            spec.T, spec.config(), warmup=spec.warmup, drain_margin=spec.drain_margin,
+            events=spec.events, metrics=metrics, device=device,
+        )
     from .cohort_fused import _run_cohort_fused_impl
 
     return _run_cohort_fused_impl(

@@ -18,12 +18,14 @@ The engines behind it: ``engine="cohort-fused"`` runs each partition as one
 batch of N scenarios (:func:`~repro_torch.core.cohort_fused.run_fused_sweep`),
 whose undisturbed compact partitions take one slot-kernel call a launch for
 all N; ``engine="jax"`` runs each partition's scenarios in grid order
-through the scan engine (the port's scan step has no scenario axis yet).
-``engine_opts["metrics"]`` gives every scenario its metric streams' frame
-on both engines (DESIGN.md §14); a compact ``cohort-fused`` partition with
-metrics runs its scenarios in turn on the compact step, as its events
-partitions do. ``engine="cohort"`` and ``sharded`` are not ported yet and
-raise :class:`~repro_torch.core.engine.UnsupportedEngineOption`.
+through the scan engine (the port's scan step has no scenario axis yet);
+``engine="cohort"``, the Python event loop, runs every scenario in turn, one
+partition each, as the reference does. ``engine_opts["metrics"]`` gives
+every scenario its metric streams' frame on every engine (DESIGN.md §14); a
+compact ``cohort-fused`` partition with metrics runs its scenarios in turn
+on the compact step, as its events partitions do. ``sharded`` is not ported
+yet and raises :class:`~repro_torch.core.engine.UnsupportedEngineOption`
+(on ``engine="cohort"`` the reference's own refusal).
 A sweep takes ``device="cuda"`` unless the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -204,9 +206,10 @@ def run_sweep(
     T: int,
     spec: SweepSpec,
     mu: np.ndarray | None = None,
-    engine: str = "jax",  # jax | cohort-fused (cohort: not ported yet)
-    engine_opts: dict | None = None,  # warmup/drain_margin/age_cap/service/slots_per_launch
-    #   (cohort-fused), "chunk" (both engines; DESIGN.md §11) and "metrics" (both; §14)
+    engine: str = "jax",  # jax | cohort | cohort-fused
+    engine_opts: dict | None = None,  # warmup/drain_margin (cohort engines),
+    #   age_cap/service/slots_per_launch (cohort-fused), "chunk" (jax and cohort-fused;
+    #   DESIGN.md §11) and "metrics" (every engine; §14)
     events=None,  # dict[str, FleetScenario | EventTrace | None] for spec.events
     device="cuda",  # the card unless the caller asks for the CPU
 ) -> SweepResult:
@@ -216,8 +219,9 @@ def run_sweep(
     ``engine="cohort-fused"`` runs each partition as one batch
     (:func:`~repro_torch.core.cohort_fused.run_fused_sweep`);
     ``engine="jax"`` runs each partition's scenarios in grid order through
-    the scan engine. Named disruption traces (``spec.events`` / the
-    ``events`` map) form one more scenario axis on both.
+    the scan engine; ``engine="cohort"`` runs every scenario in turn through
+    the event loop. Named disruption traces (``spec.events`` / the
+    ``events`` map) form one more scenario axis on every engine.
     ``engine_opts={"metrics": ...}`` selects metric streams for every
     scenario, checked per engine as ``simulate`` checks them. Each scenario's
     result equals its own ``simulate``.
@@ -231,11 +235,16 @@ def run_sweep(
         raise ValueError(f"engine_opts['chunk'] must be a positive slot count, got {chunk!r}")
     if engine not in ("jax", "cohort", "cohort-fused"):
         raise ValueError(f"unknown engine {engine!r}")
+    metrics = check_metrics_spec(engine, opts.pop("metrics", None))
     if engine == "cohort":
-        raise _not_ported("cohort", "engine", 4)
+        if mu is not None:
+            raise UnsupportedEngineOption(engine, "mu")
+        if spec.sharded:
+            raise UnsupportedEngineOption(engine, "sharded")
+        return _cohort_sweep(topo, net, inst_container, arr_map, ev_map, T, spec, scenarios,
+                             metrics, opts, device)
     if spec.sharded:
         raise _not_ported(engine, "sharded", 5)
-    metrics = check_metrics_spec(engine, opts.pop("metrics", None))
 
     if engine == "cohort-fused":
         if mu is not None:
@@ -269,3 +278,28 @@ def run_sweep(
                 topo, net, inst_container, arr_map[scn.arrival][0], T, scn.config(), mu=mu,
                 events=ev_map[scn.events], chunk=chunk, metrics=metrics, device=device)
     return SweepResult(spec, scenarios, results, n_batches=len(groups))
+
+
+def _cohort_sweep(topo, net, inst_container, arr_map, ev_map, T, spec, scenarios, metrics,
+                  opts, device) -> SweepResult:
+    """``engine="cohort"``: every scenario in turn through the event loop,
+    one partition each, with the reference's checks of the fused engine's
+    options (``service``, ``chunk``, ``slots_per_launch``); ``age_cap`` and
+    ``slots_per_launch`` are dropped (the loop tracks ages exactly)."""
+    from .cohort import _run_cohort_sim_impl
+
+    if opts.get("service") is not None:
+        check_engine_option("cohort", "service")
+    if opts.get("chunk") is not None:
+        check_engine_option("cohort", "chunk")
+    if opts.get("slots_per_launch", 1) != 1:
+        check_engine_option("cohort", "slots_per_launch")
+    for opt in ("service", "chunk", "age_cap", "slots_per_launch"):
+        opts.pop(opt, None)
+    results = []
+    for scn in scenarios:
+        actual, predicted = arr_map[scn.arrival]
+        results.append(_run_cohort_sim_impl(topo, net, inst_container, actual, predicted, T,
+                                            scn.config(), events=ev_map[scn.events],
+                                            metrics=metrics, device=device, **opts))
+    return SweepResult(spec, scenarios, results, n_batches=len(scenarios))

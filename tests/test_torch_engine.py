@@ -153,13 +153,16 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 @pytest.mark.parametrize("engine", ["jax", "sharded", "cohort"])
 def test_unported_engines_raise(engine):
-    # engine="jax" is ported whole, its metric streams included; with metrics
-    # the engines not ported yet still raise
-    if engine == "jax":
-        assert pt.simulate(_spec(engine=engine, device="cpu", metrics=True)).metrics.n_slots > 0
+    # engine="jax" and engine="cohort" (the event loop) are ported whole, their
+    # metric streams included; with metrics the engine not ported yet still raises
+    if engine == "sharded":
+        with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
+            pt.simulate(_spec(engine=engine, device="cpu", metrics=True))
         return
-    with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
-        pt.simulate(_spec(engine=engine, device="cpu", metrics=True))
+    res = pt.simulate(_spec(engine=engine, device="cpu", metrics=True))
+    assert res.metrics.n_slots == 20 and np.isfinite(res.backlog).all()
+    assert tuple(res.metrics.streams) == pt.engine.check_metrics_spec(engine, True).streams
+    np.testing.assert_array_equal(res.metrics.streams["backlog"][:, 0], res.backlog)
 
 
 # metrics are ported; with an option not ported yet they still raise

@@ -1,7 +1,9 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
-(``repro_torch.obs`` among them), and ``chip_smoke``, loads no ``jax*`` module and nothing of the reference
-package ``repro``. Runs in a fresh interpreter so this process's imports
-cannot mask a leak."""
+(``repro_torch.obs`` and the host-loop oracles ``repro_torch.core.cohort``
+and ``repro_torch.core.eventsim`` among them), ``chip_smoke`` and the port's
+benchmark ``benchmarks.torch_systems`` loads no ``jax*`` module and nothing
+of the reference package ``repro``. Runs in a fresh interpreter so this
+process's imports cannot mask a leak."""
 import subprocess
 import sys
 from pathlib import Path
@@ -17,11 +19,13 @@ for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(info.name)
     names.append(info.name)
 import chip_smoke
+import benchmarks.torch_systems
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
 print(len(names), "modules;", "leaked:", bad)
 obs = all(n in names for n in ("repro_torch.obs", "repro_torch.obs.metrics",
-                                "repro_torch.obs.recorder", "repro_torch.obs.trace"))
+                                "repro_torch.obs.recorder", "repro_torch.obs.trace",
+                                "repro_torch.core.cohort", "repro_torch.core.eventsim"))
 print("obs walked:", obs)
 sys.exit(1 if bad or len(names) < 15 or not obs else 0)
 """

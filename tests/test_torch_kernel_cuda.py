@@ -25,7 +25,12 @@ one-scenario call bitwise, at 69 and 290 buckets. The drain kernel matches its p
 version at ragged I (300, 1025: a cut column strip and chunk, no 16-byte
 loads at 1025) and at I=16384 with the dense route's sparsity, gives zeros
 for an all-zero ratio and a NaN row for an out-of-range component, and
-repeats bitwise. Run on the machine with the card:
+repeats bitwise. The host-loop oracles (``engine="cohort"`` and
+``run_event_sim``) on the card equal their runs on the CPU bitwise on the
+dyadic system — mis-predicted, under a k-failure and with every cohort
+stream; fluid and aligned, and with tuple service and jitter — and launch
+the schedule kernel (``potus``) or the price kernel (``potus-loop``) once a
+slot. Run on the machine with the card:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
@@ -482,3 +487,54 @@ def test_ssd_intra_chunk_kernel_refuses_what_it_does_not_take(cuda_device):
                                  Bc)
     with pytest.raises(ValueError):
         kss.ssd_intra_chunk_call(xc.cpu(), dt.cpu(), dt.cpu(), Bc.cpu(), Bc.cpu())
+
+
+@pytest.mark.parametrize("case", ["W=0", "mis-predicted", "k-failure"])
+@pytest.mark.parametrize("scheduler", ["potus", "potus-loop", "shuffle", "jsq"])
+def test_cohort_event_loop_card_equals_cpu(cuda_device, scheduler, case):
+    import dataclasses
+
+    import repro_torch.core as pt
+    from repro_torch.obs import ENGINE_STREAMS
+
+    T = chip_smoke.ORACLE_T
+    topo, net, placement, arr = chip_smoke.dyadic_system(pt, T + 13, 2)
+    pred = (arr * 2.0 ** np.random.default_rng(9).integers(-1, 2, size=arr.shape)).astype(
+        np.float32)
+    events = pt.k_failures(topo, 2, start=10, duration=12,
+                           rng=np.random.default_rng(1)).compile(topo, T)
+    spec = pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr, T=T,
+                         engine="cohort", scheduler=scheduler, V=2.0, beta=0.5,
+                         window=0 if case == "W=0" else 2,
+                         predicted=pred if case == "mis-predicted" else None,
+                         events=events if case == "k-failure" else None, warmup=8,
+                         drain_margin=12, metrics=tuple(sorted(ENGINE_STREAMS["cohort"])),
+                         device="cuda")
+    card, n = chip_smoke.counted(lambda: pt.simulate(spec))
+    assert n == chip_smoke.oracle_launches(scheduler, T)
+    assert chip_smoke.same_oracle(card, pt.simulate(dataclasses.replace(spec, device="cpu")))
+    assert card.completed_mass > 0 and card.metrics.n_slots == T
+
+
+@pytest.mark.parametrize("integral,jitter", [(False, 0.0), (True, 0.5)])
+@pytest.mark.parametrize("scheduler", ["potus", "potus-loop", "shuffle", "jsq"])
+def test_event_sim_card_equals_cpu(cuda_device, scheduler, integral, jitter):
+    import repro_torch.core as pt
+
+    T = chip_smoke.ORACLE_T
+    topo, net, placement, arr = chip_smoke.dyadic_system(pt, T + 13, 2)
+    arr = 2 * arr  # whole tuples for integral service
+    cfg = pt.SimConfig(V=2.0, beta=0.5, window=2, scheduler=scheduler)
+    kw = dict(integral=integral, jitter=jitter, seed=7)
+    card, n = chip_smoke.counted(lambda: pt.run_event_sim(topo, net, placement, arr, T, cfg,
+                                                          device="cuda", **kw))
+    assert n == chip_smoke.oracle_launches(scheduler, T)
+    assert chip_smoke.same_events(card, pt.run_event_sim(topo, net, placement, arr, T, cfg,
+                                                         device="cpu", **kw))
+    if not integral:  # fluid and aligned: the scan engine's series, bitwise
+        scan = pt.simulate(pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr,
+                                         T=T, engine="jax", scheduler=scheduler, V=2.0,
+                                         beta=0.5, window=2, device="cuda"))
+        for name in chip_smoke.SERIES:
+            np.testing.assert_array_equal(getattr(card, name),
+                                          np.asarray(getattr(scan, name), np.float64))

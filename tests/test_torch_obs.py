@@ -12,7 +12,8 @@ against the reference's ``repro.obs``.
 * the streams equal the reference's ``simulate(metrics=...)`` on the
   dyadic system of ``tests/test_obs_metrics.py`` (every sum exact), and
   ``run_sweep``'s per-scenario frames the reference's sweep frames;
-* the unsupported streams and the engines not ported yet raise.
+* the unsupported streams and the engine not ported yet raise; the cohort
+  event loop's host streams equal the reference's.
 """
 import dataclasses
 
@@ -346,12 +347,18 @@ def test_saturation_on_jax_names_cohort_fused(arrivals):
 
 @pytest.mark.parametrize("engine", ["cohort", "sharded"])
 def test_unported_engines_with_metrics_raise(arrivals, engine):
+    topo, net, placement = _system(pt)
+    if engine == "cohort":
+        # the event loop is ported: its host streams equal the reference's,
+        # and a sweep's frames equal each scenario's own simulate
+        port = _port(arrivals, engine, metrics=True)
+        assert_frames_equal(port.metrics, _ref(arrivals, engine, metrics=True).metrics)
+        sw = pt.run_sweep(topo, net, placement, arrivals, T, pt.SweepSpec(V=2.0, window=W),
+                          engine=engine, engine_opts={"metrics": True}, device="cpu")
+        assert_frames_equal(sw.result(V=2.0).metrics, port.metrics)
+        return
     with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
         _port(arrivals, engine, metrics=True)
-    topo, net, placement = _system(pt)
-    kw = (dict(engine="cohort") if engine == "cohort"
-          else dict(engine="jax", spec=pt.SweepSpec(sharded=True)))
-    spec = kw.pop("spec", pt.SweepSpec())
     with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
-        pt.run_sweep(topo, net, placement, arrivals, T, spec,
-                     engine_opts={"metrics": True}, device="cpu", **kw)
+        pt.run_sweep(topo, net, placement, arrivals, T, pt.SweepSpec(sharded=True),
+                     engine="jax", engine_opts={"metrics": True}, device="cpu")

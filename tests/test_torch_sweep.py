@@ -15,7 +15,8 @@ reference's ``repro.core.sweep.run_sweep`` on the same numpy inputs.
   long-run means are held at the chaos floor of
   ``tests/test_cohort_fused.py::TestPotusPaperSystem``.
 * ``init_state_batch``, ``stacked_host_traces`` and the batched plain slot
-  step; the three options not ported yet; the rows of
+  step; ``sharded``, not ported yet, and ``engine="cohort"``, which runs
+  each scenario in turn; the rows of
   ``benchmarks/torch_figures.py`` and its imports.
 """
 import ast
@@ -149,17 +150,29 @@ def test_missing_names_and_ambiguous_result_raise():
 def test_not_ported_yet_raises(what):
     topo, net, placement = _dyadic(pt)
     arr = _pow2_arrivals(topo, T + 16, seed=3)
-    kw = dict(engine="cohort-fused", device="cpu")
-    spec = pt.SweepSpec()
-    if what == "cohort":
-        kw["engine"], item = "cohort", 4
-    elif what == "metrics":
-        # metric streams are ported; on the cohort engine they still raise
-        kw["engine"], kw["engine_opts"], item = "cohort", {"metrics": ("backlog",)}, 4
-    else:
-        spec, item = pt.SweepSpec(sharded=True), 5
-    with pytest.raises(pt.UnsupportedEngineOption, match=f"not ported yet.*module item {item}"):
-        pt.run_sweep(topo, net, placement, arr, 8, spec, **kw)
+    if what == "sharded":  # module item 5 is not ported yet
+        with pytest.raises(pt.UnsupportedEngineOption,
+                           match="not ported yet.*module item 5"):
+            pt.run_sweep(topo, net, placement, arr, 8, pt.SweepSpec(sharded=True),
+                         engine="cohort-fused", device="cpu")
+        return
+    # the event loop (module item 4) is ported: its sweep runs every scenario
+    # in turn, one partition each, with metric streams on request
+    opts = {"metrics": ("backlog",)} if what == "metrics" else {}
+    spec = pt.SweepSpec(V=(1.0, 2.0), window=(0, 1))
+    sw = pt.run_sweep(topo, net, placement, arr, 8, spec, engine="cohort", engine_opts=opts,
+                      device="cpu")
+    assert len(sw) == sw.n_batches == 4
+    for scn, res in sw:
+        one = pt.simulate(pt.EngineSpec(topo=topo, net=net, placement=placement, arrivals=arr,
+                                        T=8, engine="cohort", V=scn.V, window=scn.window,
+                                        device="cpu", **opts))
+        np.testing.assert_array_equal(res.backlog, one.backlog)
+        np.testing.assert_array_equal(res.comm_cost, one.comm_cost)
+        if what == "metrics":
+            np.testing.assert_array_equal(res.metrics.streams["backlog"][:, 0], res.backlog)
+        else:
+            assert res.metrics is None
 
 
 def test_reference_option_checks_hold():
