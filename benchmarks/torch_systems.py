@@ -1,17 +1,18 @@
-"""The host-loop oracles' benchmarks on the PyTorch port.
+"""The host-loop oracles' and the MoE router's benchmarks on the PyTorch port.
 
 The port's counterparts of ``benchmarks/systems_bench.py::cohort_scale``
 (the fused cohort engine against the Python event loop on the serving fleet,
-and its Fig. 6ab-shaped grid row) and of the slot-versus-event gap rows of
-``benchmarks/workload.py``, run through ``repro_torch`` on the card (or on
-the CPU with ``--device cpu``). The fleets, seeds and sizes are the
-reference's; the rows are the same ``name,us_per_call,derived`` CSV. Run from
-the repository root:
+and its Fig. 6ab-shaped grid row), of its ``moe_router_bench`` and of the
+slot-versus-event gap rows of ``benchmarks/workload.py``, run through
+``repro_torch`` on the card (or on the CPU with ``--device cpu``). The
+fleets, seeds and sizes are the reference's; the rows are the same
+``name,us_per_call,derived`` CSV. Run from the repository root:
 
     PYTHONPATH=src python -m benchmarks.torch_systems [section ...] [--device cpu]
         [--json PATH]
 
-Sections: cohort_scale, cohort_grid, eventgap (all when none is named).
+Sections: cohort_scale, cohort_grid, eventgap, moe_router (all when none is
+named).
 
 * ``cohort_scale`` — I = 64, 1024 and 16384, T=128, ``shuffle`` and
   ``potus``: the event loop (``engine="cohort"``; its scheduler once a slot
@@ -24,12 +25,20 @@ Sections: cohort_scale, cohort_grid, eventgap (all when none is named).
 * ``eventgap`` — ``workload.py``'s compact dyadic system with Poisson, MMPP
   and Pareto traffic: the mean |backlog| gap between the scan engine and
   ``run_event_sim(integral=True, jitter=0.5, seed=7)``.
+* ``moe_router`` — one MoE layer of ``granite_moe_1b.reduced()`` with 16
+  experts, top-2, capacity factor 1.25, d_model 128, on 256 skewed tokens
+  (192 near copies of one token, 64 random ones; numpy seed 0, the
+  reference's draws), 10 steps with ``router="topk"`` and with
+  ``router="potus"`` (the virtual queues threaded): the expert load's
+  max/mean and the dropped fraction, averaged over steps 3-9. The weights
+  come from a seeded ``torch.Generator`` (the reference draws them with
+  ``jax.random``).
 
 ``REPRO_BENCH_SMOKE=1`` takes the smoke sizes. ``--json PATH`` also writes
 ``repro-bench/v2`` rows with the engine names ``torch-python``,
-``torch-fused`` and ``torch-eventsim``, so their ``tools/bench_diff.py``
-keys never meet the reference's rows. The module imports only
-``repro_torch``, numpy and the standard library (and
+``torch-fused``, ``torch-eventsim`` and ``torch-moe``, so their
+``tools/bench_diff.py`` keys never meet the reference's rows. The module
+imports only ``repro_torch``, torch, numpy and the standard library (and
 ``benchmarks.torch_figures``, which imports the same).
 """
 from __future__ import annotations
@@ -41,13 +50,18 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from benchmarks.torch_figures import BENCH_JSON_SCHEMA, SMOKE, Row, bench_row
+from repro_torch.configs import get_config
 from repro_torch.core import (ArrivalSpec, Component, EngineSpec, SimConfig, SweepSpec,
                               build_topology, container_costs, diamond_app, fat_tree,
                               feasible_rates, linear_app, poisson_arrivals, run_event_sim,
                               run_sweep, simulate, spout_rate_matrix, t_heron_placement)
 from repro_torch.core.prediction import all_true_negative
+from repro_torch.device import resolve_device
+from repro_torch.models import model_zoo
+from repro_torch.models.moe import MoE, init_router_state, moe_ffn
 
 #: repro-bench/v2 rows of the sections run in this process
 BENCH_ROWS: list[dict] = []
@@ -207,10 +221,66 @@ def eventgap_rows(device="cuda", T: int = GAP_T) -> list[Row]:
     return rows
 
 
+MOE_STEPS = 10
+
+
+def moe_router_inputs(device="cuda", seed: int = 0):
+    """``systems_bench.py::moe_router_bench``'s layer and tokens: (cfg, an
+    :class:`MoE` drawn from ``torch.Generator`` seed ``seed``, x (1, 256, D)
+    float32 from numpy seed 0)."""
+    device = resolve_device(device)
+    cfg = get_config("granite_moe_1b").reduced().with_(
+        n_experts=16, top_k=2, capacity_factor=1.25, d_model=128)
+    with torch.device("meta"):
+        moe = MoE(cfg, dtype=torch.float32)
+    moe = model_zoo.fill_(moe.to_empty(device=device).requires_grad_(False),
+                          torch.Generator(device=device).manual_seed(seed))
+    rng = np.random.default_rng(0)
+    # skewed tokens -> hot experts
+    base = rng.standard_normal((1, 1, cfg.d_model)).astype(np.float32)
+    x = np.concatenate([
+        np.repeat(base, 192, axis=1) + 0.05 * rng.standard_normal((1, 192, cfg.d_model)),
+        rng.standard_normal((1, 64, cfg.d_model)).astype(np.float32),
+    ], axis=1).astype(np.float32)
+    return cfg, moe, torch.as_tensor(x, device=device)
+
+
+@torch.no_grad()
+def moe_router_rows(device="cuda", inputs=None) -> list[Row]:
+    """The POTUS router against plain top-k on the skewed tokens: per router,
+    ``MOE_STEPS`` calls of ``moe_ffn`` (POTUS threading its state), the
+    load's max/mean and the dropped fraction averaged over steps 3 on, and
+    the wall us per call. ``inputs`` replaces :func:`moe_router_inputs`."""
+    cfg, moe, x = inputs if inputs is not None else moe_router_inputs(device)
+    rows = []
+    for router in ("topk", "potus"):
+        c = cfg.with_(router=router)
+        rs = init_router_state(c, x.device)
+        imb, drop = [], []
+        t0 = time.perf_counter()
+        for _ in range(MOE_STEPS):
+            _, aux = moe_ffn(moe, x, c, rs)
+            if router == "potus":
+                rs = aux["router_state"]
+            load = aux["load"].cpu().numpy()
+            imb.append(load.max() / max(load.mean(), 1e-9))
+            drop.append(float(aux["dropped_frac"]))
+        dt = time.perf_counter() - t0
+        rows.append(Row(f"moe_router/{router}", dt / MOE_STEPS * 1e6,
+                        f"max_over_mean_load={np.mean(imb[3:]):.2f};"
+                        f"dropped={np.mean(drop[3:]):.3f}"))
+        BENCH_ROWS.append(bench_row("moe_router", "torch-moe", router, x.shape[1], MOE_STEPS,
+                                    dt, scenario="skewed", n_experts=cfg.n_experts,
+                                    max_over_mean_load=round(float(np.mean(imb[3:])), 4),
+                                    dropped=round(float(np.mean(drop[3:])), 4)))
+    return rows
+
+
 SECTIONS = {
     "cohort_scale": cohort_scale_rows,
     "cohort_grid": cohort_grid_rows,
     "eventgap": eventgap_rows,
+    "moe_router": moe_router_rows,
 }
 
 

@@ -25,7 +25,7 @@ I=16384 serving fleet, counting the kernel launches of each:
 * phase G, the serving path — ``PotusDispatcher`` on the card (the
   schedule kernel once per slot) over a ``ReplicaFleet`` of 4
   ``ServingEngine`` replicas sharing one qwen2.5-32b decoder at full width
-  (4 of 64 layers, bf16, weights from a seeded ``torch.Generator``): the
+  (2 of 64 layers, bf16, weights from a seeded ``torch.Generator``): the
   flash attention kernel (``flash_attention``, per prefill and layer) and
   the decode attention kernel (``decode_attention``, per decode round and
   layer); both kernels alone at qwen2.5-32b and zamba2-1.2b widths beside
@@ -76,7 +76,18 @@ I=16384 serving fleet, counting the kernel launches of each:
   event loop against ``cohort-fused`` at the reference's floors; K3
   ``benchmarks/torch_systems.py``'s ``cohort_scale`` on the fleet at I=1024
   and 16384 (the loop on a truncated horizon, extrapolated), each loop run
-  profiled; K4 its event-gap rows, the card's events equal to the CPU's.
+  profiled; K4 its event-gap rows, the card's events equal to the CPU's;
+* phase L, the mixture-of-experts decoder (``models/moe.py``; no kernel of
+  its own): L1 ``moe_ffn`` alone at granite-moe-1b widths in f32, on the
+  card against the port on the CPU (selections, keep masks, loads and
+  router states exact), for top-k and for POTUS with its state carried;
+  L2 granite-moe-1b at full width and depth in bf16 served behind the
+  dispatcher as phase G serves (kernel 5 per prefill and layer, kernel 6
+  per decode round and layer, kernel 2 per slot); L3 the kernel route
+  against the plain route, each attention and MoE block from the same
+  input in bf16, 2 layers end to end in f32, the full-depth bf16 gap
+  recorded; L4 the POTUS router against top-k on a skewed batch at full
+  width.
 
 It checks the results and prints:
 
@@ -106,10 +117,14 @@ It checks the results and prints:
 * for phase K, the event loop's and the fused engine's wall ms a slot at
   I=1024 and 16384, and per loop run the device ms a slot of kernel 2, of
   the copy of X back and of the staged queues out, and the busy share;
+* for phase L, ``moe_ffn``'s device ms and device items per call at N=4
+  and N=512 with its top device items, the served run's numbers as phase
+  G's, and each router's expert load max/mean and dropped fraction;
 * one JSON line ``{"kernels": [...]}`` (seven kernels; the slot kernel's
   row carries its batched entry under ``"batched"``, rows 2 and 3 their
-  launches on phase K's host loops under ``"cohort_launches"``), then, last,
-  ``{"ok": true, "device": {...}}``.
+  launches on phase K's host loops under ``"cohort_launches"``, rows 5 and
+  6 their launches on phase L's served run under ``"moe_launches"``), then,
+  last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full f32: TF32 is switched off for cuBLAS
 and cuDNN before anything runs. Any failed check raises, so the exit code
@@ -146,9 +161,9 @@ ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor cores, bf16
 # tensor cores (dense)
 PEAK_BYTES_S, PEAK_F32_S, PEAK_BF16_S = 3.35e12, 67e12, 989e12
-# phase G, the served run: qwen2.5-32b at full width, depth cut to 4 of 64 layers, bf16; a
+# phase G, the served run: qwen2.5-32b at full width, depth cut to 2 of 64 layers, bf16; a
 # fleet of 4 replicas behind the dispatcher (examples/serving_demo.py's traffic, scaled up)
-SERVE_ARCH, SERVE_LAYERS = "qwen2_5_32b", 4
+SERVE_ARCH, SERVE_LAYERS = "qwen2_5_32b", 2
 SERVE_RATES = (4.0, 2.0, 2.0, 2.0)  # decode rounds per slot; replica 0 is the fast one
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_MAX_NEW, SERVE_REQUESTS = 4, 1024, 16, 32
 SERVE_PROMPT_LENS = (32, 64, 128, 256, 512)
@@ -164,6 +179,10 @@ SSD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 SSM_T, HYBRID_PROMPT, HYBRID_STEPS, HYBRID_MAX_LEN = 2048, 512, 16, 544
 SSM_FORWARD_RUNS = 10  # timed forwards of H2
 HYBRID_PREFILL_RUNS = 5  # warm prefills of each H3 prompt, timed
+# phase L, the MoE decoder: granite-moe-1b at full width and depth in bf16, served as phase G
+# serves, with 16 requests; moe_ffn alone at its widths in f32 at N=4 (a decode round) and
+# N=512 (the longest served prompt), POTUS with its state carried over MOE_CALLS calls
+MOE_ARCH, MOE_REQUESTS, MOE_TOKENS, MOE_CALLS = "granite_moe_1b", 16, (4, 512), 4
 
 
 def check(cond: bool, what: str) -> None:
@@ -371,6 +390,27 @@ def device_ms(fn, n, parts=None):
     check(False, f"device_ms: three traces of {n} calls held no device records")
 
 
+def device_times_raw(prof):
+    """:func:`device_times` from the trace's raw device records, without
+    building the profiler's event tree (which takes minutes for a trace of
+    hundreds of thousands of launches); :func:`device_times` where the raw
+    records are not exposed."""
+    import torch
+
+    results = getattr(prof.profiler, "kineto_results", None)
+    if results is None:
+        return device_times(prof)
+    agg = {}
+    for evt in results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA or evt.is_user_annotation():
+            continue
+        ns = evt.duration_ns() if hasattr(evt, "duration_ns") else evt.duration_us() * 1e3
+        row = agg.setdefault(evt.name(), [0, 0.0])
+        row[0] += 1
+        row[1] += ns / 1e6
+    return sorted(((name, count, ms) for name, (count, ms) in agg.items()), key=lambda r: -r[2])
+
+
 def device_times(prof):
     """(name, count, device ms) per device-side event name, longest first.
     A ``record_function`` span shows on the device timeline too; it is a range
@@ -554,18 +594,25 @@ def one_call(kp, ks, pq, convert, prob, U, mid_state, cuda, card):
     return out
 
 
-def profile_run(fn, top=8, suffix="", also=()):
+def profile_run(fn, top=8, suffix="", also=(), host_ops=True):
     """Device busy share and the top device items of one profiled run, and
-    the items whose name starts with one of ``also`` wherever they rank."""
+    the items whose name starts with one of ``also`` wherever they rank.
+    ``host_ops=False`` traces the device alone (no host operator events),
+    which keeps a run of hundreds of thousands of launches quick to read."""
     import torch
 
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_times(prof)
+    t_read = time.perf_counter()
+    rows = device_times(prof) if host_ops else device_times_raw(prof)
+    if not host_ops:
+        print(f"  trace read in {time.perf_counter() - t_read:.1f} s{suffix}")
     busy_ms = sum(r[2] for r in rows)
     if busy_ms > 0:
         print(f"  device busy {busy_ms:.3f} ms of {prof_ms:.3f} ms wall: "
@@ -1570,8 +1617,8 @@ def timed_engine_class():
     return TimedEngine
 
 
-def serve(cfg, model, cuda, engine_cls, recorders=False):
-    """The served run: 32 requests, Poisson(1.5) per slot from numpy seed 0,
+def serve(cfg, model, cuda, engine_cls, recorders=False, n_requests=SERVE_REQUESTS):
+    """The served run: ``n_requests`` requests, Poisson(1.5) per slot from numpy seed 0,
     prompts of {32, ..., 512} tokens and 16 new tokens each, routed by
     ``PotusDispatcher`` on the card over 4 ``ServingEngine`` replicas through
     a flash straggler on replica 0; until every request is done. With
@@ -1600,10 +1647,10 @@ def serve(cfg, model, cuda, engine_cls, recorders=False):
                                 instance=disp.F).compile(disp.topo, horizon)
     rng = np.random.default_rng(0)
     waiting, reqs, t = [], [], 0
-    while len(reqs) < SERVE_REQUESTS or waiting or not all(r.done for r in reqs):
+    while len(reqs) < n_requests or waiting or not all(r.done for r in reqs):
         check(t < horizon, f"served run: requests still open after {horizon} slots")
         made = len(reqs) + len(waiting)
-        n_new = min(int(rng.poisson(1.5)), SERVE_REQUESTS - made)
+        n_new = min(int(rng.poisson(1.5)), n_requests - made)
         for rid in range(made, made + n_new):
             prompt = rng.integers(0, cfg.vocab_size, int(rng.choice(SERVE_PROMPT_LENS)))
             waiting.append(Request(rid, prompt, max_new=SERVE_MAX_NEW))
@@ -1619,6 +1666,57 @@ def serve(cfg, model, cuda, engine_cls, recorders=False):
         fleet.step(t, mu_row=trace.mu_t[t][disp.F:], alive_row=trace.alive_t[t][disp.F:])
         t += 1
     return reqs, t, fleet, disp
+
+
+def served_run(cfg, model, cuda, n_requests, card):
+    """The served run of :func:`serve` on timed engines, counted: its
+    launches (kernel 5 once per prefill and layer, kernel 6 once per decode
+    round and layer, kernel 2 once per slot, every launch of 5 and 6 on the
+    tensor cores, no other kernel), every request done with
+    ``SERVE_MAX_NEW`` tokens; prints tokens/s, the decode rounds' ms beside
+    their bound, the prefill ms per prompt token and the peak device memory.
+    Returns (launches, requests, slots, fleet)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs, slots, fleet, _ = serve(cfg, model, cuda, timed_engine_class(), n_requests=n_requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, routes = read_counts(), kernel_routes()
+    peak = torch.cuda.max_memory_allocated()
+    rounds = sum(e.decode_rounds for e in fleet.replicas)
+    tokens = fleet.tokens_served
+    round_ms = np.concatenate([e.round_ms for e in fleet.replicas])
+    prefill_ms = sum(sum(e.prefill_ms) for e in fleet.replicas)
+    prefill_tok = sum(sum(e.prefill_tokens) for e in fleet.replicas)
+    # a decode round's least time: every weight but the embedding table read once over HBM,
+    # and of that table the max_batch rows it gathers (the KV cache reads are left out)
+    emb = model.embed
+    round_bytes = (sum(p.numel() * p.element_size() for p in model.parameters())
+                   - emb.numel() * emb.element_size()
+                   + SERVE_BATCH * emb.shape[1] * emb.element_size())
+    round_bound_ms = round_bytes / PEAK_BYTES_S * 1e3
+    print(f"served run: {len(reqs)} requests, {tokens} tokens in {slots} slots, {rounds} decode "
+          f"rounds, wall {wall:.3f} s, {tokens / wall:.1f} tokens/s; decode round median "
+          f"{np.median(round_ms):.3f} ms (min {round_ms.min():.3f}, max {round_ms.max():.3f}), "
+          f"bound {round_bound_ms:.4f} ms ({round_bytes} weight bytes); "
+          f"prefill {prefill_ms / prefill_tok:.4f} ms per prompt token ({prefill_tok} tokens); "
+          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
+    print("  launches: " + " ".join(f"{k}={v}" for k, v in n.items()) + f"; routes {routes} "
+          f"[{card}]")
+    want = dict(ZERO_COUNTS, flash_attention=cfg.n_layers * n_requests,
+                decode_attention=cfg.n_layers * rounds, potus_schedule=slots)
+    check(n == want, f"served run launches {n}, expected {want}")
+    check(routes == all_on_tensor_cores(n),
+          f"served run: a bf16 attention launch missed the tensor cores: {routes}")
+    check(len(reqs) == n_requests and all(
+        r.done and len(r.generated) == SERVE_MAX_NEW for r in reqs),
+        f"served run: a request did not finish with {SERVE_MAX_NEW} tokens")
+    check(tokens == n_requests * SERVE_MAX_NEW, "served run: tokens served")
+    return n, reqs, slots, fleet
 
 
 def teacher_forced(cfg, model, cuda, n_steps=8):
@@ -1692,44 +1790,7 @@ def serving_path(card, cuda):
     check(rel <= 5e-2, "teacher-forced bf16: kernel route vs plain beyond 5e-2 of max |logit|")
 
     # the served run, counted and timed
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    reqs, slots, fleet, _ = serve(cfg, model, cuda, timed_engine_class())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    n, routes = read_counts(), kernel_routes()
-    peak = torch.cuda.max_memory_allocated()
-    rounds = sum(e.decode_rounds for e in fleet.replicas)
-    tokens = fleet.tokens_served
-    round_ms = np.concatenate([e.round_ms for e in fleet.replicas])
-    prefill_ms = sum(sum(e.prefill_ms) for e in fleet.replicas)
-    prefill_tok = sum(sum(e.prefill_tokens) for e in fleet.replicas)
-    # a decode round's least time: every weight but the embedding table read once over HBM,
-    # and of that table the max_batch rows it gathers (the KV cache reads are left out)
-    emb = model.embed
-    round_bytes = (sum(p.numel() * p.element_size() for p in model.parameters())
-                   - emb.numel() * emb.element_size()
-                   + SERVE_BATCH * emb.shape[1] * emb.element_size())
-    round_bound_ms = round_bytes / PEAK_BYTES_S * 1e3
-    print(f"served run: {len(reqs)} requests, {tokens} tokens in {slots} slots, {rounds} decode "
-          f"rounds, wall {wall:.3f} s, {tokens / wall:.1f} tokens/s; decode round median "
-          f"{np.median(round_ms):.3f} ms (min {round_ms.min():.3f}, max {round_ms.max():.3f}), "
-          f"bound {round_bound_ms:.4f} ms ({round_bytes} weight bytes); "
-          f"prefill {prefill_ms / prefill_tok:.4f} ms per prompt token ({prefill_tok} tokens); "
-          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
-    print("  launches: " + " ".join(f"{k}={v}" for k, v in n.items()) + f"; routes {routes} "
-          f"[{card}]")
-    want = dict(ZERO_COUNTS, flash_attention=SERVE_LAYERS * SERVE_REQUESTS,
-                decode_attention=SERVE_LAYERS * rounds, potus_schedule=slots)
-    check(n == want, f"served run launches {n}, expected {want}")
-    check(routes == all_on_tensor_cores(n),
-          f"served run: a bf16 attention launch at head_dim 128 missed the tensor cores: {routes}")
-    check(len(reqs) == SERVE_REQUESTS and all(
-        r.done and len(r.generated) == SERVE_MAX_NEW for r in reqs),
-        "served run: a request did not finish with 16 tokens")
-    check(tokens == SERVE_REQUESTS * SERVE_MAX_NEW, "served run: tokens served")
+    n, reqs, slots, _ = served_run(cfg, model, cuda, SERVE_REQUESTS, card)
     first = {r.rid: list(r.generated) for r in reqs}
 
     reqs2, slots2, fleet2, disp2 = serve(cfg, model, cuda, ServingEngine, recorders=True)
@@ -1918,7 +1979,7 @@ def layer_gaps(cfg, model, x, ops_a, ops_b):
             h = shared.ln1(x)
             (out_a, _), (out_b, _) = (shared.attn(h, positions, o) for o in (ops_a, ops_b))
             attn_worst = max(attn_worst, logit_gap(out_a, out_b)[0])
-            x, _ = shared(x, positions, ops_b)
+            x, *_ = shared(x, positions, ops_b)
     return ssm_worst, attn_worst
 
 
@@ -3089,6 +3150,310 @@ def oracle_path(card, cuda):
     print(f"  K4 {time.perf_counter() - t0:.1f} s")
     return launches
 
+# ---------------------------------------------------------------------------
+# phase L: the mixture-of-experts decoder (granite-moe-1b)
+# ---------------------------------------------------------------------------
+
+def moe_layer(cfg, seed, device):
+    """One ``MoE`` layer of ``cfg`` drawn on the CPU from
+    ``torch.Generator`` seed ``seed`` as ``model_zoo.init`` draws it, and its
+    copy on ``device``."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import model_zoo as pz
+    from repro_torch.models.moe import MoE
+
+    with torch.device("meta"):
+        moe = MoE(cfg, dtype=pz.DTYPES[cfg.param_dtype])
+    cpu = pz.fill_(moe.to_empty(device="cpu").requires_grad_(False),
+                   torch.Generator().manual_seed(seed))
+    return cpu, copy.deepcopy(cpu).to(device)
+
+
+def moe_calls(moe, cfg, xs, router_state):
+    """``moe_ffn`` on each of ``xs`` in turn, the router state carried
+    (None: no state). Returns [(y, aux)]."""
+    from repro_torch.models.moe import moe_ffn
+
+    out, rs = [], router_state
+    for x in xs:
+        y, aux = moe_ffn(moe, x, cfg, rs)
+        rs = aux["router_state"]
+        out.append((y, aux))
+    return out
+
+
+MOE_EXACT = ("top_i", "keep", "load", "router_state", "dropped_frac")
+
+
+def moe_card_vs_cpu(cfg, n_tokens, router, calls, cuda, seed=0):
+    """``moe_ffn`` on the card against the port on the CPU from the same
+    layer and tokens (numpy seed ``n_tokens``; (4, 1) for N=4, else
+    (1, N)): ``calls`` calls, POTUS with its state carried from zeros, top-k
+    without a state. The selections, keep masks, loads, router states and
+    dropped fractions must be equal, y within 1e-5 of max |y| (f32), and two
+    runs on the card bitwise equal. Returns (worst y gap of max |y|, the
+    card's layer, its last input, the starting state on the card)."""
+    import torch
+
+    from repro_torch.models.moe import init_router_state
+
+    c = cfg.with_(router=router)
+    cpu, card_moe = moe_layer(c, seed, cuda)
+    rng = np.random.default_rng(n_tokens)
+    shape = (4, 1) if n_tokens == 4 else (1, n_tokens)
+    xs = [torch.as_tensor(rng.standard_normal(shape + (c.d_model,)).astype(np.float32))
+          for _ in range(calls)]
+    rs = init_router_state(c) if router == "potus" else None
+    want = moe_calls(cpu, c, xs, rs)
+    xs_card = [x.to(cuda) for x in xs]
+    rs_card = None if rs is None else rs.to(cuda)
+    got = moe_calls(card_moe, c, xs_card, rs_card)
+    again = moe_calls(card_moe, c, xs_card, rs_card)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for step, ((yw, aw), (yg, ag), (ya, aa)) in enumerate(zip(want, got, again)):
+        for key in MOE_EXACT:
+            if aw[key] is None:
+                check(ag[key] is None, f"moe {router} N={n_tokens}: {key} on one side only")
+                continue
+            same = torch.equal(ag[key].cpu(), aw[key])
+            if not same and key == "top_i":
+                flips = (ag[key].cpu() != aw[key]).nonzero()[:4].tolist()
+                print(f"  moe {router} N={n_tokens} call {step}: selections differ at "
+                      f"(token, choice) {flips}")
+            check(same, f"moe {router} N={n_tokens} call {step}: card {key} differs from the CPU")
+        gap = float((yg.cpu() - yw).abs().max()) / max(float(yw.abs().max()), 1e-30)
+        worst = max(worst, gap)
+        bitwise = torch.equal(yg, ya) and all(
+            aa[key] is None or torch.equal(aa[key], ag[key]) for key in MOE_EXACT)
+        check(bitwise, f"moe {router} N={n_tokens} call {step}: two runs on the card differ")
+    check(worst <= 1e-5, f"moe {router} N={n_tokens}: y beyond 1e-5 of max |y| ({worst:.3e})")
+    return worst, card_moe, xs_card[-1], rs_card
+
+
+def device_items(fn, n):
+    """Device ms per call, device items (kernels, copies, fills) per call and
+    the trace's rows ``(name, count, ms)`` of ``n`` calls of ``fn``, from a
+    ``torch.profiler`` trace (taken again, up to three times, when it holds
+    no device record)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_times(prof)
+        if rows:
+            return (sum(r[2] for r in rows) / n, sum(r[1] for r in rows) / n, rows)
+    check(False, f"device_items: three traces of {n} calls held no device records")
+
+
+def moe_alone(card, cuda):
+    """L1: ``moe_ffn`` at granite-moe-1b widths (D 1024, 32 experts of F 512,
+    top-8) in f32, card against CPU, N=4 and N=512, top-k and POTUS; an
+    all-zero router (every logit tied) selects experts 0..7 on the card;
+    each shape's device ms and device items per call."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_capacity, moe_ffn
+
+    cfg = get_config(MOE_ARCH).with_(param_dtype="float32", compute_dtype="float32")
+    for n_tokens in MOE_TOKENS:
+        for router, calls in (("topk", 1), ("potus", MOE_CALLS)):
+            worst, moe, x, rs = moe_card_vs_cpu(cfg, n_tokens, router, calls, cuda)
+            print(f"L1 moe_ffn {router} N={n_tokens} f32 ({calls} call(s), cap "
+                  f"{moe_capacity(cfg, n_tokens)}): card = CPU exactly in selections, keep "
+                  f"masks, loads, router states, dropped fractions; y max gap {worst:.3e} of "
+                  f"max |y| (limit 1e-5); two runs bitwise [{card}]")
+        c = cfg.with_(router="potus")
+        ms, items, rows = device_items(lambda: moe_ffn(moe, x, c, rs), 20)
+        print(f"  device ms per call N={n_tokens}: {ms:.4f}, {items:.1f} device items per call "
+              f"[{card}]")
+        for name, count, t in rows[:6]:
+            print(f"    {t / 20:10.4f} ms per call  x{count / 20:<5.1f} {name[:80]}")
+    moe.router.zero_()
+    _, aux = moe_ffn(moe, x, cfg)
+    tied = bool((aux["top_i"] == torch.arange(cfg.top_k, device=cuda)).all())
+    print(f"  all-zero router: every token selects experts 0..{cfg.top_k - 1}: {tied} [{card}]")
+    check(tied, "moe: ties on the card do not select the lowest indices")
+
+
+def moe_block_gaps(cfg, model, tokens, ops_a, ops_b):
+    """Each layer's attention and MoE FFN run by two routes from the same
+    input (route b's residual stream): the attention's output from ln1(x),
+    then the MoE's from ln2 of each route's residual sum, the router state
+    threaded as route b's. The attention's rounding flips a few selections
+    at near-ties, and a flipped token's output moves by a whole expert's
+    share, so the MoE gap is taken over the tokens whose selected and kept
+    experts agree, and over all tokens as a record. Returns the worst
+    attention gap, the worst MoE gaps (agreeing tokens, all tokens), as
+    max |a - b| / max |b|, the token-expert selections that differ, all
+    selections and the tokens with a difference."""
+    import torch
+
+    from repro_torch.models import model_zoo as pz
+    from repro_torch.models.moe import init_router_state, moe_ffn
+
+    x = pz._embed_input(model, cfg, {"tokens": tokens})
+    positions = torch.arange(x.shape[1], device=x.device)
+    rs = init_router_state(cfg, x.device)
+    attn_worst = moe_worst = moe_all = 0.0
+    differ = total = tokens_differ = 0
+    for block in model.blocks:
+        h = block.ln1(x)
+        (out_a, _), (out_b, _) = (block.attn(h, positions, o) for o in (ops_a, ops_b))
+        attn_worst = max(attn_worst, logit_gap(out_a, out_b)[0])
+        (y_a, aux_a), (y_b, aux_b) = (moe_ffn(block.moe, block.ln2(x + o), cfg, rs)
+                                      for o in (out_a, out_b))
+        moe_all = max(moe_all, logit_gap(y_a, y_b)[0])
+        chosen, kept = [], []
+        for aux in (aux_a, aux_b):
+            top_i, keep = aux["top_i"], aux["keep"].view(aux["top_i"].shape)
+            zeros = torch.zeros(top_i.shape[0], cfg.n_experts, device=x.device)
+            chosen.append(zeros.scatter(1, top_i, 1.0))
+            kept.append(zeros.scatter(1, top_i, keep.float()))
+        agree = ((chosen[0] == chosen[1]) & (kept[0] == kept[1])).all(dim=1)
+        differ += int((chosen[0] != chosen[1]).sum()) // 2
+        total += aux_b["top_i"].numel()
+        tokens_differ += int((~agree).sum())
+        moe_worst = max(moe_worst, logit_gap(y_a[0, agree], y_b[0, agree])[0])
+        x, rs = x + out_b + y_b, aux_b["router_state"]
+    return attn_worst, moe_worst, moe_all, differ, total, tokens_differ
+
+
+def moe_router_balance(cfg, model, cuda, card):
+    """L4: one ``forward`` of a skewed batch (1, 512) — its first 256 tokens
+    one repeated id, the rest uniform (numpy seed 3) — with top-k and with
+    POTUS routing: each MoE layer's expert load max/mean and dropped
+    fraction, averaged over the layers, and the final router state."""
+    import torch
+
+    from repro_torch.models import model_zoo as pz
+
+    rng = np.random.default_rng(3)
+    toks = np.concatenate([np.full(256, int(rng.integers(cfg.vocab_size))),
+                           rng.integers(0, cfg.vocab_size, 256)])
+    batch = {"tokens": torch.as_tensor(toks, device=cuda)[None]}
+    seen = []
+
+    def recording(moe, x, c, router_state=None):
+        y, aux = moe_ffn(moe, x, c, router_state)
+        seen.append((aux["load"], aux["dropped_frac"]))
+        return y, aux
+
+    moe_ffn = pz.moe_ffn
+    pz.moe_ffn = recording
+    try:
+        for router in ("topk", "potus"):
+            seen.clear()
+            _, aux = pz.forward(model, cfg.with_(router=router), batch)
+            loads = torch.stack([s[0] for s in seen]).cpu().numpy()
+            dropped = torch.stack([s[1] for s in seen]).cpu().numpy()
+            imb = loads.max(axis=1) / np.maximum(loads.mean(axis=1), 1e-9)
+            state = aux["router_state"].cpu().numpy()
+            print(f"L4 {router}: expert load max/mean over {len(seen)} layers {imb.mean():.4f} "
+                  f"(layer min {imb.min():.4f}, max {imb.max():.4f}), dropped "
+                  f"{dropped.mean():.4f}; final router state max {state.max():.1f}, mean "
+                  f"{state.mean():.2f}, {int((state > 0).sum())} of {state.size} experts "
+                  f"backlogged [{card}]")
+            check(len(seen) == cfg.n_layers and np.isfinite(imb).all(),
+                  f"L4 {router}: one load row per layer")
+    finally:
+        pz.moe_ffn = moe_ffn
+
+
+def moe_path(card, cuda):
+    """Phase L: the MoE layer alone (L1), granite-moe-1b served at full width
+    and depth in bf16 behind the dispatcher (L2), the kernel route against
+    the plain route (L3), the POTUS router at full width (L4). Returns the
+    served run's launches (kernels 5 and 6 for the kernels line)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import model_zoo as pz
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    moe_alone(card, cuda)
+    print(f"  L1 {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    model = pz.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase L model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads, head_dim {cfg.resolved_head_dim}, {cfg.n_experts} experts of d_ff "
+          f"{cfg.d_ff}, top-{cfg.top_k}, capacity factor {cfg.capacity_factor}, vocab "
+          f"{cfg.vocab_size}, {cfg.n_layers} layers, {cfg.param_dtype}: {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB), drawn in {time.perf_counter() - t0:.2f} s [{card}]")
+    # the config's count (configs/base.py) leaves out the final norm
+    check(n_params == cfg.param_count() + cfg.d_model,
+          "phase L: the model's parameters differ from the config's count")
+
+    # L3's full-depth gap, recorded (also the warm-up)
+    t_step = time.perf_counter()
+    rel, diff, scale = teacher_forced(cfg, model, cuda)
+    print(f"L3 teacher-forced kernel vs plain route, {cfg.n_layers} layers bf16, 4 prompts x 8 "
+          f"decode steps: max |dlogit| {diff:.4e} of max |logit| {scale:.4e} = {rel:.4e} "
+          f"(recorded, not held; {time.perf_counter() - t_step:.1f} s) [{card}]")
+
+    # L2: the served run, counted and timed; a second run, profiled, gives the same tokens
+    t_step = time.perf_counter()
+    n, reqs, slots, _ = served_run(cfg, model, cuda, MOE_REQUESTS, card)
+    first = {r.rid: list(r.generated) for r in reqs}
+    second = {}
+    profile_run(lambda: second.update(run=serve(cfg, model, cuda, ServingEngine,
+                                                n_requests=MOE_REQUESTS)),
+                top=10, suffix=f" [{card}]", also=ATTENTION_KERNELS, host_ops=False)
+    reqs2, slots2, _, _ = second["run"]
+    same = slots2 == slots and {r.rid: list(r.generated) for r in reqs2} == first
+    print(f"  two runs give identical tokens: {same} (the second profiled); L2 "
+          f"{time.perf_counter() - t_step:.1f} s [{card}]")
+    check(same, "phase L served run: two runs differ")
+    t_step = time.perf_counter()
+
+    # L3: each block from the same input, bf16
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, SERVE_PROMPT_LENS[-1]),
+                             device=cuda)[None]
+    attn_gap, moe_gap, moe_all, differ, total, tokens_differ = moe_block_gaps(
+        cfg, model, tokens, kops, kops.plain)
+    print(f"L3 each of the {cfg.n_layers} blocks from the same input, bf16, "
+          f"{tokens.shape[1]} tokens: attention {attn_gap:.4e}, MoE FFN on the tokens whose "
+          f"selections agree {moe_gap:.4e} of max |out| (limit 5e-2); token-expert selections "
+          f"that differ {differ} of {total}, over {tokens_differ} token-layers; MoE FFN over "
+          f"all tokens {moe_all:.4e} (recorded, not held) [{card}]")
+    check(attn_gap <= 5e-2 and moe_gap <= 5e-2,
+          "L3: a block's kernel route beyond 5e-2 of the plain route's scale")
+
+    # L4: the POTUS router against top-k on a skewed batch
+    moe_router_balance(cfg, model, cuda, card)
+    print(f"  L3 blocks and L4 {time.perf_counter() - t_step:.1f} s [{card}]")
+    del model
+    torch.cuda.empty_cache()
+
+    # L3 at 2 layers in f32: the kernels' own error, without bf16's
+    cfg32 = cfg.with_(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    model32 = pz.init(cfg32, torch.Generator(device=cuda).manual_seed(0), cuda)
+    rel, diff, scale = teacher_forced(cfg32, model32, cuda)
+    print(f"L3 teacher-forced kernel vs plain route, 2 layers f32: max |dlogit| {diff:.4e} of "
+          f"max |logit| {scale:.4e} = {rel:.4e} (limit 1e-4) [{card}]")
+    check(rel <= 1e-4, "L3 f32: kernel route vs plain beyond 1e-4 of max |logit|")
+    del model32
+    torch.cuda.empty_cache()
+    print(f"  phase L {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return n
+
 
 def slot_kernel(card, cuda):
     """Section 2: the slot kernel against its plain version on the card: the
@@ -3234,8 +3599,8 @@ def card_setup():
     """TF32 off for cuBLAS and cuDNN; prints and returns the card's name and
     power limit (``nvidia-smi``) and the device. A section called alone
     (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``,
-    ``sweep_path``, ``obs_path``, ``oracle_path``) starts with this and
-    :func:`build_kernels`."""
+    ``sweep_path``, ``obs_path``, ``oracle_path``, ``moe_path``) starts with
+    this and :func:`build_kernels`."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3320,7 +3685,12 @@ def run_phases(pt, cf, card, cuda) -> int:
     for row in scan_kernels:
         row["cohort_launches"] = oracle[row["name"]]
 
-    # -- 11. the kernels line, 12. the last line ---------------------------------
+    # -- 11. phase L: the MoE decoder (kernels 2, 5 and 6 on its served run) -----------
+    moe = moe_path(card, cuda)
+    for row in attention_kernels:
+        row["moe_launches"] = moe[row["name"]]
+
+    # -- 12. the kernels line, 13. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

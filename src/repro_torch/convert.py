@@ -17,7 +17,7 @@ from .core.potus import SchedProblem
 from .core.queues import SimState
 
 __all__ = ["step_consts_from_numpy", "state_from_numpy", "sched_problem_from_numpy",
-           "sim_state_from_numpy", "model_params_from_numpy"]
+           "sim_state_from_numpy", "model_params_from_numpy", "moe_params_from_numpy"]
 
 _INT_FIELDS = ("succ_map", "inst_comp", "inst_cont")
 
@@ -94,15 +94,39 @@ _MAMBA_LEAVES = {"norm": ("norm.weight", False), "in_proj": ("in_proj.weight", T
 
 def _tf_block(sd, pre, stack, i, t) -> None:
     """Layer ``i`` of a stacked transformer block (``ln1``, ``attn``, ``ln2``,
-    ``mlp``) into ``sd`` under ``pre``."""
+    and ``mlp`` or ``moe``) into ``sd`` under ``pre``. The MoE leaves
+    (``router``, ``w_gate``, ``w_up``, ``w_down``) keep the reference's
+    layout; its ``shared`` expert is an MLP and is transposed like one."""
     sd[pre + "ln1.weight"] = t(stack["ln1"][i])
     sd[pre + "ln2.weight"] = t(stack["ln2"][i])
     for leaf, (mod, kind) in _ATTN_LEAVES.items():
         if leaf in stack["attn"]:
             x = t(stack["attn"][leaf][i])
             sd[f"{pre}attn.{mod}.{kind}"] = x.T.contiguous() if kind == "weight" else x
-    for leaf, x in stack["mlp"].items():
+    for leaf, x in stack.get("mlp", {}).items():
         sd[f"{pre}mlp.{leaf}.weight"] = t(x[i]).T.contiguous()
+    if "moe" in stack:
+        moe = _moe_leaves(stack["moe"], lambda x: t(x[i]))
+        sd.update({f"{pre}moe.{name}": x for name, x in moe.items()})
+
+
+def _moe_leaves(p, t) -> dict:
+    """MoE leaves (the reference's ``moe_template`` tree, each leaf taken
+    through ``t``) as the port's :class:`MoE` state_dict: router and experts
+    as they are, the shared expert's matrices transposed to ``nn.Linear``'s
+    (out, in)."""
+    sd = {leaf: t(p[leaf]) for leaf in ("router", "w_gate", "w_up", "w_down")}
+    for name, w in p.get("shared", {}).items():
+        sd[f"shared.{name}.weight"] = t(w).T.contiguous()
+    return sd
+
+
+def moe_params_from_numpy(params, *, device="cpu", dtype=torch.float32) -> dict:
+    """The port's :class:`~repro_torch.models.moe.MoE` state_dict from one
+    reference MoE layer's parameter dict (array-likes, as
+    ``init_params(key, moe_template(cfg), dtype)`` gives them), on
+    ``device`` in ``dtype``."""
+    return _moe_leaves(params, lambda x: _tensor(x, device, dtype))
 
 
 def model_params_from_numpy(cfg, params, *, device="cpu", dtype=None) -> dict:
@@ -115,7 +139,9 @@ def model_params_from_numpy(cfg, params, *, device="cpu", dtype=None) -> dict:
     layer axis, e.g. ``wq`` (L, D, Hq)) are split per layer, and every
     matrix is transposed from the reference's (in, out) to ``nn.Linear``'s
     (out, in); the Mamba2 conv weight (K, channels) is not a linear map and
-    keeps its layout."""
+    keeps its layout, and so do the MoE router and expert tensors. An MoE
+    config with ``moe_interleave > 1`` stacks scan units of ``sub{j}``
+    blocks: unit ``u``'s ``sub{j}`` becomes layer ``u * moe_interleave + j``."""
     from .models.common import DTYPES
 
     dtype = DTYPES[cfg.param_dtype] if dtype is None else dtype
@@ -124,10 +150,12 @@ def model_params_from_numpy(cfg, params, *, device="cpu", dtype=None) -> dict:
     if "lm_head" in params:
         sd["lm_head.weight"] = t(params["lm_head"]).T.contiguous()
     blocks = params["blocks"]
+    per_unit = cfg.moe_interleave if cfg.moe and cfg.moe_interleave > 1 else 1
     for i in range(cfg.n_layers):
         pre = f"blocks.{i}."
         if not cfg.ssm:
-            _tf_block(sd, pre, blocks, i, t)
+            u, j = divmod(i, per_unit)
+            _tf_block(sd, pre, blocks[f"sub{j}"] if per_unit > 1 else blocks, u, t)
             continue
         for leaf, (name, transpose) in _MAMBA_LEAVES.items():
             x = t(blocks[leaf][i])

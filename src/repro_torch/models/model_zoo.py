@@ -1,10 +1,11 @@
 """The decoders of the model zoo in PyTorch — the port's counterpart of
 ``repro.models.model_zoo`` for the dense family (and the VLM configs with
-``frontend=None``), the SSM family (Mamba2) and the hybrid family (Mamba2
-blocks with shared attention blocks, Zamba2-style).
+``frontend=None``), the mixture-of-experts family (``models.moe``), the SSM
+family (Mamba2) and the hybrid family (Mamba2 blocks with shared attention
+blocks, Zamba2-style).
 
   init(cfg, generator, device)                  -> DenseDecoder or SSMDecoder (random weights)
-  forward(model, cfg, batch)                    -> (logits (B, S, V), aux)
+  forward(model, cfg, batch, router_state)      -> (logits (B, S, V), aux)
   prefill(model, cfg, batch, max_len)           -> (logits (B, 1, V), cache)
   decode_step(model, cfg, token, pos, cache)    -> (logits (B, 1, V), cache)
   cache_spec(cfg, batch, max_len) / init_cache(cfg, batch, max_len, device)
@@ -18,12 +19,22 @@ intra-chunk kernel likewise (``models.mamba``), in ``forward`` and in
 (``kernels.ops.plain`` to compare routes on the card). The entry points run
 on the card unless the caller asks for the CPU.
 
+In an MoE config, layer ``i`` holds an MoE FFN in place of its MLP when
+``i % moe_interleave == moe_interleave - 1`` (the reference's ``sub{i}``
+scan units, flattened in layer order). One (E,) POTUS router state is
+threaded through the layers in order, each MoE layer's updated state
+feeding the next layer's prices, as the reference's scan carry does;
+``forward`` starts it from zeros unless given one and returns the last
+state with the sum of the layers' ``aux_loss``; ``prefill`` and
+``decode_step`` start each call from zeros and discard it.
+
 ``decode_step`` updates the cache in place and returns it (the reference
 returns a new one). The reference's ``_constrain_cache`` is a GSPMD sharding
-hint; the port has no device mesh, so it is left out.
+hint and ``moe_ep_shardmap`` picks its expert-parallel dispatch under a
+device mesh; the port has no mesh, so both are left out.
 
-Mixture-of-experts and encoder configs and the modality frontends raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+Encoder configs and the modality frontends raise ``NotImplementedError``
+naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -37,13 +48,14 @@ from ..device import resolve_device
 from .common import DTYPES, MLP, Attention, RMSNorm
 from .mamba import (Mamba2Block, mamba_block, mamba_cache_spec, mamba_decode_step,
                     ssd_chunked_with_state)
+from .moe import MoE, init_router_state, moe_ffn
 
-__all__ = ["DenseDecoder", "SSMDecoder", "init", "forward", "prefill", "decode_step",
-           "cache_spec", "init_cache", "check_supported", "ssd_chunked_with_state"]
+__all__ = ["DenseDecoder", "SSMDecoder", "is_moe_layer", "init", "fill_", "forward", "prefill",
+           "decode_step", "cache_spec", "init_cache", "check_supported",
+           "ssd_chunked_with_state"]
 
 # (config field, what it needs, ROADMAP.md section 1 item that ports it)
 _NOT_PORTED = (
-    ("moe", "mixture-of-experts layers (models/moe.py, moe_ep.py)", 6),
     ("is_encoder", "encoder-only models", 7),
     ("frontend", "modality frontends (pass cfg.with_(frontend=None) for the text decoder)", 7),
 )
@@ -55,45 +67,72 @@ def check_supported(cfg) -> None:
         if getattr(cfg, field):
             raise NotImplementedError(
                 f"{cfg.name}: {what} are not ported yet (ROADMAP.md, section 1, module item "
-                f"{item}); the port runs dense, SSM and hybrid decoders")
+                f"{item}); the port runs dense, MoE, SSM and hybrid decoders")
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block: ``x + attn(ln1 x)``, then ``x + mlp(ln2 x)``."""
+    """Pre-norm transformer block: ``x + attn(ln1 x)``, then ``x + ffn(ln2 x)``
+    with ``ffn`` the MLP, or with ``use_moe`` the MoE FFN (``moe``)."""
 
-    def __init__(self, cfg, dtype=None, device=None):
+    def __init__(self, cfg, use_moe: bool = False, dtype=None, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
         self.attn = Attention(cfg, **kw)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
+        self.mlp = None if use_moe else MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
+        self.moe = MoE(cfg, **kw) if use_moe else None
 
-    def forward(self, x, positions, ops=None):
+    def ffn(self, x, cfg=None, router_state=None):
+        """``x + ffn(ln2 x)``. Returns (x, router state, aux_loss): an MoE
+        block (which reads its router settings from ``cfg``) passes its
+        updated state on (the given one without a state) and its
+        load-balance loss; an MLP block the state as given and None."""
+        h_in = self.ln2(x)
+        if self.moe is None:
+            return x + self.mlp(h_in), router_state, None
+        h, aux = moe_ffn(self.moe, h_in, cfg, router_state)
+        rs = aux["router_state"] if aux["router_state"] is not None else router_state
+        return x + h, rs, aux["aux_loss"]
+
+    def forward(self, x, positions, ops=None, cfg=None, router_state=None):
+        """Self-attention over a full sequence, then :meth:`ffn`. Returns
+        (x, (k, v), router state, aux_loss)."""
         h, kv = self.attn(self.ln1(x), positions, ops)
-        x = x + h
-        return x + self.mlp(self.ln2(x)), kv
+        x, router_state, aux_loss = self.ffn(x + h, cfg, router_state)
+        return x, kv, router_state, aux_loss
 
-    def decode(self, x, k_cache, v_cache, pos, ops=None):
+    def decode(self, x, k_cache, v_cache, pos, ops=None, cfg=None, router_state=None):
+        """One token against the KV cache, then :meth:`ffn`. Returns
+        (x, router state)."""
         x = x + self.attn.decode(self.ln1(x), k_cache, v_cache, pos, ops)
-        return x + self.mlp(self.ln2(x))
+        return self.ffn(x, cfg, router_state)[:2]
 
 
 class DenseDecoder(nn.Module):
-    """Token embedding, ``cfg.n_layers`` blocks, final norm and the LM head
-    (the embedding itself when ``cfg.tie_embeddings``). Parameters are in
-    ``cfg.param_dtype``; the state_dict names mirror the reference's tree
-    (``embed``, ``blocks.{i}.attn.wq.weight``, ``final_norm.weight``, ...)."""
+    """Token embedding, ``cfg.n_layers`` blocks (MoE blocks where
+    :func:`is_moe_layer`), final norm and the LM head (the embedding itself
+    when ``cfg.tie_embeddings``). Parameters are in ``cfg.param_dtype``; the
+    state_dict names mirror the reference's tree (``embed``,
+    ``blocks.{i}.attn.wq.weight``, ``blocks.{i}.moe.w_gate``,
+    ``final_norm.weight``, ...)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         check_supported(cfg)
         kw = dict(dtype=DTYPES[cfg.param_dtype], device=device)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw))
-        self.blocks = nn.ModuleList(Block(cfg, **kw) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, is_moe_layer(cfg, i), **kw)
+                                    for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
         self.lm_head = (None if cfg.tie_embeddings
                         else nn.Linear(cfg.d_model, cfg.vocab_size, bias=False, **kw))
+
+
+def is_moe_layer(cfg, i: int) -> bool:
+    """Whether layer ``i`` holds an MoE FFN: the last block of each scan unit
+    of ``moe_interleave`` blocks in the reference."""
+    return bool(cfg.moe) and i % cfg.moe_interleave == cfg.moe_interleave - 1
 
 
 class SSMDecoder(nn.Module):
@@ -120,20 +159,33 @@ class SSMDecoder(nn.Module):
 
 def _fill_(name: str, p: torch.Tensor, generator: torch.Generator) -> None:
     """One parameter, drawn as ``repro.models.common.Leaf.materialize`` draws
-    its leaf: the embedding N(0, 1) * 0.02, the Mamba2 conv weight N(0, 1) *
-    0.5, biases (``conv_b`` and ``dt_bias`` among them) zero, the other
-    vectors (norm weights, ``A_log``, ``D``) one, every other matrix
-    N(0, 1) / sqrt(fan_in), drawn in float32 and cast."""
+    its leaf: the embedding and the MoE router N(0, 1) * 0.02, the Mamba2
+    conv weight N(0, 1) * 0.5, biases (``conv_b`` and ``dt_bias`` among them)
+    zero, the other vectors (norm weights, ``A_log``, ``D``) one, every other
+    matrix N(0, 1) / sqrt(fan_in), drawn in float32 and cast. The fan-in of
+    an ``nn.Linear`` weight (out, in) is ``shape[1]``, of an expert tensor
+    (E, in, out) kept in the reference's layout ``shape[-2]``."""
     leaf = name.rsplit(".", 1)[-1]
     if leaf.endswith("bias") or leaf == "conv_b":
         p.zero_()
     elif p.dim() == 1:
         p.fill_(1.0)
     else:
-        scale = (0.02 if name == "embed" else 0.5 if leaf == "conv_w"
-                 else 1.0 / math.sqrt(p.shape[1]))  # nn.Linear (out, in): fan_in
+        fan_in = p.shape[-2] if p.dim() == 3 else p.shape[1]
+        scale = (0.02 if name == "embed" or leaf == "router" else 0.5 if leaf == "conv_w"
+                 else 1.0 / math.sqrt(fan_in))
         draw = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=p.device)
         p.copy_(draw.mul_(scale))
+
+
+@torch.no_grad()
+def fill_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of ``module`` in place, in ``named_parameters``
+    order, as :func:`init` draws a decoder's (an :class:`MoE` alone, say).
+    Returns the module."""
+    for name, p in module.named_parameters():
+        _fill_(name, p, generator)
+    return module
 
 
 @torch.no_grad()
@@ -147,10 +199,7 @@ def init(cfg, generator: torch.Generator, device="cuda") -> nn.Module:
     device = resolve_device(device)
     with torch.device("meta"):
         model = (SSMDecoder if cfg.ssm else DenseDecoder)(cfg)
-    model = model.to_empty(device=device).requires_grad_(False)
-    for name, p in model.named_parameters():
-        _fill_(name, p, generator)
-    return model
+    return fill_(model.to_empty(device=device).requires_grad_(False), generator)
 
 
 def _hybrid_groups(cfg) -> list[tuple[int, int, bool]]:
@@ -180,23 +229,38 @@ def _unembed(model, cfg, x):
     return F.linear(x, w).to(DTYPES[cfg.compute_dtype])
 
 
+def _start_state(cfg, router_state, device):
+    """The router state a stack starts from: the given one, else zeros (E,)
+    for an MoE config and (1,) otherwise, as the reference's."""
+    if router_state is not None:
+        return router_state
+    if cfg.moe:
+        return init_router_state(cfg, device)
+    return torch.zeros((1,), dtype=torch.float32, device=device)
+
+
 @torch.no_grad()
-def forward(model, cfg, batch, *, ops=None):
-    """Full-sequence forward. Returns (logits (B, S, V), aux dict)."""
+def forward(model, cfg, batch, router_state=None, *, ops=None):
+    """Full-sequence forward. Returns (logits (B, S, V), aux dict):
+    ``moe_aux_loss``, the sum of the MoE layers' load-balance losses (0
+    without them), and ``router_state``, the state after the last layer."""
     x = _embed_input(model, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    rs = _start_state(cfg, router_state, x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.ssm:
         for gi, (s, e, attn_after) in enumerate(_hybrid_groups(cfg)):
             for block in model.blocks[s:e]:
                 x = mamba_block(block, x, cfg, ops=ops) + x
             if attn_after:
-                x, _ = model.shared_attn[gi % cfg.n_shared_attn](x, positions, ops)
+                x, *_ = model.shared_attn[gi % cfg.n_shared_attn](x, positions, ops)
     else:
         for block in model.blocks:
-            x, _ = block(x, positions, ops)
+            x, _, rs, aux = block(x, positions, ops, cfg, rs)
+            if aux is not None:
+                aux_total = aux_total + aux
     logits = _unembed(model, cfg, model.final_norm(x))
-    zero = torch.zeros((1,), dtype=torch.float32, device=x.device)
-    return logits, dict(moe_aux_loss=zero[0], router_state=zero)
+    return logits, dict(moe_aux_loss=aux_total, router_state=rs)
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +299,8 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> dict:
 @torch.no_grad()
 def prefill(model, cfg, batch, max_len: int, *, ops=None):
     """Process a prompt and build the decode cache. Returns (logits of the
-    last position (B, 1, V), cache)."""
+    last position (B, 1, V), cache). An MoE stack's router state starts from
+    zeros and is discarded, as the reference's."""
     x = _embed_input(model, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
@@ -243,8 +308,9 @@ def prefill(model, cfg, batch, max_len: int, *, ops=None):
     if cfg.ssm:
         x = _ssm_prefill(model, cfg, x, cache, positions, ops)
     else:
+        rs = _start_state(cfg, None, x.device)
         for i, block in enumerate(model.blocks):
-            x, (k, v) = block(x, positions, ops)
+            x, (k, v), rs, _ = block(x, positions, ops, cfg, rs)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
     # the norm is per position, so normalising the last one alone is the same
@@ -254,13 +320,16 @@ def prefill(model, cfg, batch, max_len: int, *, ops=None):
 @torch.no_grad()
 def decode_step(model, cfg, token, pos, cache, *, ops=None):
     """One serving step: token (B, 1) ids, pos (B,) write positions. Returns
-    (logits (B, 1, V), cache), the cache updated in place."""
+    (logits (B, 1, V), cache), the cache updated in place. An MoE stack's
+    router state starts from zeros and is discarded, as the reference's; the
+    B tokens share each expert's capacity."""
     x = _embed_input(model, cfg, {"tokens": token})
     if cfg.ssm:
         x = _ssm_decode(model, cfg, x, pos, cache, ops)
     else:
+        rs = _start_state(cfg, None, x.device)
         for i, block in enumerate(model.blocks):
-            x = block.decode(x, cache["k"][i], cache["v"][i], pos, ops)
+            x, rs = block.decode(x, cache["k"][i], cache["v"][i], pos, ops, cfg, rs)
     return _unembed(model, cfg, model.final_norm(x)), cache
 
 
@@ -277,7 +346,7 @@ def _ssm_prefill(model, cfg, x, cache, positions, ops):
             cache["conv"][li] = conv_st
             cache["ssm"][li] = ssm_st
         if attn_after:
-            x, (k, v) = model.shared_attn[gi % cfg.n_shared_attn](x, positions, ops)
+            x, (k, v), *_ = model.shared_attn[gi % cfg.n_shared_attn](x, positions, ops)
             cache["k"][attn_idx, :, :S] = k
             cache["v"][attn_idx, :, :S] = v
             attn_idx += 1
@@ -297,6 +366,6 @@ def _ssm_decode(model, cfg, x, pos, cache, ops):
             cache["ssm"][li] = ssm_st
         if attn_after:
             block = model.shared_attn[gi % cfg.n_shared_attn]
-            x = block.decode(x, cache["k"][attn_idx], cache["v"][attn_idx], pos, ops)
+            x, _ = block.decode(x, cache["k"][attn_idx], cache["v"][attn_idx], pos, ops)
             attn_idx += 1
     return x

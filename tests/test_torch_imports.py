@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
-(``repro_torch.obs`` and the host-loop oracles ``repro_torch.core.cohort``
-and ``repro_torch.core.eventsim`` among them), ``chip_smoke`` and the port's
+(``repro_torch.obs``, the host-loop oracles ``repro_torch.core.cohort``
+and ``repro_torch.core.eventsim`` and the MoE layer ``repro_torch.models.moe``
+among them), ``chip_smoke`` and the port's
 benchmark ``benchmarks.torch_systems`` loads no ``jax*`` module and nothing
 of the reference package ``repro``. Runs in a fresh interpreter so this
 process's imports cannot mask a leak."""
@@ -25,7 +26,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), "modules;", "leaked:", bad)
 obs = all(n in names for n in ("repro_torch.obs", "repro_torch.obs.metrics",
                                 "repro_torch.obs.recorder", "repro_torch.obs.trace",
-                                "repro_torch.core.cohort", "repro_torch.core.eventsim"))
+                                "repro_torch.core.cohort", "repro_torch.core.eventsim",
+                                "repro_torch.models.moe"))
 print("obs walked:", obs)
 sys.exit(1 if bad or len(names) < 15 or not obs else 0)
 """

@@ -30,7 +30,10 @@ repeats bitwise. The host-loop oracles (``engine="cohort"`` and
 dyadic system — mis-predicted, under a k-failure and with every cohort
 stream; fluid and aligned, and with tuple service and jitter — and launch
 the schedule kernel (``potus``) or the price kernel (``potus-loop``) once a
-slot. Run on the machine with the card:
+slot. The MoE layer (``models/moe.py``, no kernel of its own) on the card
+equals its run on the CPU in its selections, keep masks, loads, router
+states and dropped fractions, y within 1e-5 of max |y|, two runs bitwise.
+Run on the machine with the card:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
@@ -538,3 +541,14 @@ def test_event_sim_card_equals_cpu(cuda_device, scheduler, integral, jitter):
         for name in chip_smoke.SERIES:
             np.testing.assert_array_equal(getattr(card, name),
                                           np.asarray(getattr(scan, name), np.float64))
+
+
+@pytest.mark.parametrize("router,calls", [("topk", 1), ("potus", 4)])
+@pytest.mark.parametrize("n_tokens", [4, 64])
+def test_moe_ffn_card_equals_cpu(cuda_device, n_tokens, router, calls):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite_moe_1b").reduced().with_(n_experts=8, top_k=4,
+                                                       capacity_factor=1.0)
+    worst, *_ = chip_smoke.moe_card_vs_cpu(cfg, n_tokens, router, calls, cuda_device)
+    assert worst <= 1e-5

@@ -10,9 +10,11 @@
   ``use_pallas`` False (dense einsum attention) and True (Pallas in
   interpret mode): float32 logits within rtol = atol = 1e-4 (the
   reference's own two paths differ by ~2e-6), and the KV cache likewise;
-* the families the port does not run raise ``NotImplementedError`` naming
-  the ROADMAP.md item that ports them, and the entry points refuse a missing
-  card unless given ``device="cpu"``.
+* the families the port does not run (encoders, frontends) raise
+  ``NotImplementedError`` naming the ROADMAP.md item that ports them, the
+  MoE configs pass (``tests/test_torch_moe.py`` holds them against the
+  reference), and the entry points refuse a missing card unless given
+  ``device="cpu"``.
 """
 import dataclasses
 
@@ -185,7 +187,19 @@ def test_init_draws_the_reference_scales():
 
 @pytest.mark.parametrize("name", ["granite_moe_1b", "hubert_xlarge", "internvl2_1b"])
 def test_unported_families_raise(name):
+    """Encoder and frontend configs raise. The MoE family is ported
+    (``models/moe.py``): its case checks that both MoE configs build and
+    pass ``check_supported`` instead."""
     cfg = pconfigs.get_config(name).reduced()
+    if cfg.moe:
+        for moe_name in ("granite_moe_1b", "llama4_maverick_400b"):
+            moe_cfg = pconfigs.get_config(moe_name)
+            pz.check_supported(moe_cfg)
+            pz.check_supported(moe_cfg.reduced())
+            model = pz.init(moe_cfg.reduced(), torch.Generator().manual_seed(0), "cpu")
+            assert any(b.moe is not None for b in model.blocks)
+            assert pz.cache_spec(moe_cfg.reduced(), 1, 16)["k"][0][0] == moe_cfg.reduced().n_layers
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         pz.init(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -195,11 +209,18 @@ def test_unported_families_raise(name):
 @pytest.mark.parametrize("field,value,item", [("moe", True, 6), ("is_encoder", True, 7),
                                               ("frontend", "vision_stub", 7)])
 def test_check_supported_names_the_roadmap_item(field, value, item):
-    """MoE, encoder-only and frontend configs still raise, each naming the
-    ROADMAP.md section 1 item that ports it; SSM and hybrid configs run."""
+    """Encoder-only and frontend configs still raise, each naming the
+    ROADMAP.md section 1 item that ports it; SSM and hybrid configs run. The
+    MoE case (item 6's single-card part, now ported) checks that MoE configs
+    pass."""
     cfg = pconfigs.get_config("qwen2_5_32b").reduced().with_(**{field: value})
-    with pytest.raises(NotImplementedError, match=rf"module item {item}\)"):
+    if field == "moe":
         pz.check_supported(cfg)
+        for name in ("granite_moe_1b", "llama4_maverick_400b"):
+            pz.check_supported(pconfigs.get_config(name))
+    else:
+        with pytest.raises(NotImplementedError, match=rf"module item {item}\)"):
+            pz.check_supported(cfg)
     for name in ("mamba2_1_3b", "zamba2_1_2b"):
         pz.check_supported(pconfigs.get_config(name))
 
