@@ -81,13 +81,28 @@ I=16384 serving fleet, counting the kernel launches of each:
   its own): L1 ``moe_ffn`` alone at granite-moe-1b widths in f32, on the
   card against the port on the CPU (selections, keep masks, loads and
   router states exact), for top-k and for POTUS with its state carried;
-  L2 granite-moe-1b at full width and depth in bf16 served behind the
-  dispatcher as phase G serves (kernel 5 per prefill and layer, kernel 6
-  per decode round and layer, kernel 2 per slot); L3 the kernel route
-  against the plain route, each attention and MoE block from the same
-  input in bf16, 2 layers end to end in f32, the full-depth bf16 gap
-  recorded; L4 the POTUS router against top-k on a skewed batch at full
-  width.
+  L2 granite-moe-1b at full width in bf16, 8 of its 24 layers, served
+  behind the dispatcher as phase G serves (kernel 5 per prefill and layer,
+  kernel 6 per decode round and layer, kernel 2 per slot); L3 the kernel
+  route against the plain route at full depth, each attention and MoE
+  block from the same input in bf16, 2 layers end to end in f32, the
+  full-depth bf16 gap recorded; L4 the POTUS router against top-k on a
+  skewed batch at full width and depth;
+* phase M, training (``repro_torch.training``, ``repro_torch.data``): M1
+  the flash attention backward kernel (``flash_attention_bwd``) alone at
+  internvl2-1b's (causal, 14/2 heads of 64) and hubert-xlarge's
+  (bidirectional, 16/16 of 80) widths, B=2, S=1024, bf16 and f32, against
+  the autograd gradient of the plain version, beside SDPA's backward; M2
+  internvl2-1b at full width and depth in bf16 (weights from a seeded
+  ``torch.Generator``), ``make_train_step`` on one repeated
+  ``TokenPipeline`` batch of 2 x 1024 (256 patches + 768 tokens): kernels
+  5 (tensor cores) and 5b once per layer and step, the loss falling, the
+  kernel route against the plain route at full depth (recorded) and at 2
+  layers in f32 (held); M4 its state (weights, AdamW's moments) through an
+  ``AsyncCheckpointer``, restored on the card bitwise, and a run resumed
+  from it against the uninterrupted one; M3 hubert-xlarge (encoder, 48
+  layers, bf16, 1024 frame embeddings) likewise for two steps (kernel 5 on
+  its SIMT route).
 
 It checks the results and prints:
 
@@ -120,11 +135,20 @@ It checks the results and prints:
 * for phase L, ``moe_ffn``'s device ms and device items per call at N=4
   and N=512 with its top device items, the served run's numbers as phase
   G's, and each router's expert load max/mean and dropped fraction;
-* one JSON line ``{"kernels": [...]}`` (seven kernels; the slot kernel's
-  row carries its batched entry under ``"batched"``, rows 2 and 3 their
-  launches on phase K's host loops under ``"cohort_launches"``, rows 5 and
-  6 their launches on phase L's served run under ``"moe_launches"``), then,
-  last, ``{"ok": true, "device": {...}}``.
+* for phase M, kernel 5b's device ms per call beside SDPA's backward and
+  its bound; per trained model its steps' loss, grad norm and wall ms, the
+  launches of kernels 5 and 5b, the busy share and top device items of a
+  profiled step, the peak device memory, the route gaps, and the
+  checkpoint's bytes and seconds and whether the resumed run is bitwise;
+* one JSON line ``{"kernels": [...]}`` (eight kernels: the seven TPU
+  kernels' counterparts and the flash attention backward; the slot
+  kernel's row carries its batched entry under ``"batched"``, rows 2 and 3
+  their launches on phase K's host loops under ``"cohort_launches"``, rows
+  5 and 6 their launches on phase L's served run under ``"moe_launches"``,
+  row 5 its launches on phase M's M2 and M3 steps under
+  ``"train_launches"`` and ``"encoder_launches"``, the backward's row its
+  M3 launches under ``"encoder_launches"``), then, last,
+  ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full f32: TF32 is switched off for cuBLAS
 and cuDNN before anything runs. Any failed check raises, so the exit code
@@ -156,7 +180,7 @@ FLEET_I, FLEET_T, FLEET_W, FLEET_V, FLEET_AGE_CAP = 16384, 128, 4, 2.0, 64
 # seconds per slot), so its fleet is cut to I=1024 until the loop gets a kernel
 LOOP_I = 1024
 KERNELS = ("potus_slot", "potus_schedule", "potus_price", "cohort_drain", "flash_attention",
-           "decode_attention", "ssd_intra_chunk")
+           "decode_attention", "ssd_intra_chunk", "flash_attention_bwd")
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor cores, bf16
 # tensor cores (dense)
@@ -183,6 +207,17 @@ HYBRID_PREFILL_RUNS = 5  # warm prefills of each H3 prompt, timed
 # serves, with 16 requests; moe_ffn alone at its widths in f32 at N=4 (a decode round) and
 # N=512 (the longest served prompt), POTUS with its state carried over MOE_CALLS calls
 MOE_ARCH, MOE_REQUESTS, MOE_TOKENS, MOE_CALLS = "granite_moe_1b", 16, (4, 512), 4
+# L2 serves granite-moe-1b at 8 of its 24 layers (full width) to make room for phase M; L3's
+# full-depth gap and L4 keep all 24
+MOE_SERVE_LAYERS = 8
+# phase M, training: kernel 5b alone at the trained models' widths, (B, Hq, Hkv, D, causal);
+# internvl2-1b (24 layers, bf16) trained TRAIN_STEPS steps on one repeated TokenPipeline batch
+# of TRAIN_B x TRAIN_S (256 patches + 768 tokens), its checkpoint restored and resumed for
+# CKPT_RESUME_STEPS steps; hubert-xlarge (48 layers, bf16) ENCODER_STEPS steps on 1024 frames
+BWD_DIMS = {"internvl2-1b": (2, 14, 2, 64, True), "hubert-xlarge": (2, 16, 16, 80, False)}
+BWD_ENTRY = ("internvl2-1b", "bfloat16")  # the kernels line's case
+TRAIN_B, TRAIN_S, TRAIN_LR = 2, 1024, 1e-4
+TRAIN_STEPS, ENCODER_STEPS, CKPT_RESUME_STEPS = 4, 2, 2
 
 
 def check(cond: bool, what: str) -> None:
@@ -347,6 +382,10 @@ def bytes_and_ops(consts, state, n_slots, stacked=False):
     return 4 * floats, ops
 
 
+#: the records of its named functions a trace of :func:`device_ms` holds at least
+TRACE_RECORDS = 200
+
+
 def time_calls(fn, n):
     import torch
 
@@ -361,19 +400,35 @@ def time_calls(fn, n):
     return start.elapsed_time(stop) / n
 
 
-def device_ms(fn, n, parts=None):
+def device_ms(fn, n, parts=None, expect=None):
     """Device ms per call of ``fn``, from a ``torch.profiler`` trace of ``n``
     calls: for each device function, its mean duration per record times its
-    launches per call (records / n, rounded), summed. Unlike
-    ``time_calls``, the host's cost of launching is left out, so a call that
-    costs the host more than the card is not timed at the host's rate. The
-    trace now and then drops a record (or all of them: it is then taken
-    again, up to three times); a mean over the records kept is not shortened
-    by that. ``parts``, a dict, receives the ms per call of each name."""
+    launches per call, summed. Unlike ``time_calls``, the host's cost of
+    launching is left out, so a call that costs the host more than the card
+    is not timed at the host's rate.
+
+    On the card the profiler drops a number of each trace's device records
+    as out of its window (kineto's "Out-of-range" count, seen with
+    ``KINETO_LOG_LEVEL=1``): about the same number in a trace of 20 records
+    as in one of 500,000, and more the longer the process has run (3 after
+    a minute, 20-22 after five). A mean over the records kept is not
+    shortened by that, but a function whose records are all dropped would
+    leave the sum. So ``expect``, a dict {kernel name: launches per call}
+    (the name without ``void``, template arguments and parameters), names
+    the functions a call must show and gives their launches per call; ``n``
+    is raised until the trace holds ``TRACE_RECORDS`` records of them; and a
+    trace in which one of them has no record, or that has no device record
+    at all, is printed (:func:`trace_window`) and taken again, failing the
+    check after three. Functions not in ``expect`` count records / n
+    launches per call, rounded, at least one. ``parts``, a dict, receives
+    the ms per call of each name."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    expect = expect or {}
+    if expect:
+        n = max(n, -(-TRACE_RECORDS // sum(expect.values())))
     for _attempt in range(3):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -381,13 +436,54 @@ def device_ms(fn, n, parts=None):
                 fn()
             torch.cuda.synchronize()
         rows = device_times(prof)
-        if rows:
-            per_call = {name.split("(")[0]: ms / count * max(1, round(count / n))
+        seen = {kernel_base(name) for name, _, _ in rows}
+        if rows and seen.issuperset(expect):
+            per_call = {name.split("(")[0]: ms / count * expect.get(kernel_base(name),
+                                                                    max(1, round(count / n)))
                         for name, count, ms in rows}
             if parts is not None:
                 parts.update(per_call)
             return sum(per_call.values())
-    check(False, f"device_ms: three traces of {n} calls held no device records")
+        print(f"  device_ms: a trace of {n} calls holds no record of "
+              f"{sorted(set(expect) - seen) or 'any device function'}: "
+              f"{trace_window(prof, expect)}")
+    check(False, f"device_ms: three traces of {n} calls held no device records, or none of "
+                 f"{sorted(expect)}")
+
+
+def kernel_base(name):
+    """A device function's name without ``void``, template arguments and
+    parameters."""
+    return name.removeprefix("void ").split("<")[0].split("(")[0]
+
+
+def trace_window(prof, names):
+    """Where a trace's device records fall, for a trace that lost some: the
+    host span (first host event to last), the kernel launches in it, and,
+    for each of ``names`` (all device functions when empty), its records,
+    their first start and last end from the host span's start (ms)."""
+    import torch
+
+    host, launches, kept = [], [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            base = kernel_base(e.name())
+            if not names or base in names:
+                kept.setdefault(base, []).append((e.start_ns(), e.end_ns()))
+        else:
+            host.append((e.start_ns(), e.end_ns()))
+            if "LaunchKernel" in e.name():
+                launches.append(e.start_ns())
+    if not host:
+        return "no host events"
+    t0, t1 = min(h[0] for h in host), max(h[1] for h in host)
+    at = lambda t: f"{(t - t0) / 1e6:.3f}"  # noqa: E731
+    text = (f"host span {at(t1)} ms, {len(launches)} launches"
+            + (f" from {at(min(launches))} to {at(max(launches))} ms" if launches else ""))
+    for base, recs in kept.items():
+        text += (f"; {base}: {len(recs)} records from {at(min(r[0] for r in recs))} to "
+                 f"{at(max(r[1] for r in recs))} ms")
+    return text
 
 
 def device_times_raw(prof):
@@ -594,25 +690,22 @@ def one_call(kp, ks, pq, convert, prob, U, mid_state, cuda, card):
     return out
 
 
-def profile_run(fn, top=8, suffix="", also=(), host_ops=True):
+def profile_run(fn, top=8, suffix="", also=()):
     """Device busy share and the top device items of one profiled run, and
-    the items whose name starts with one of ``also`` wherever they rank.
-    ``host_ops=False`` traces the device alone (no host operator events),
-    which keeps a run of hundreds of thousands of launches quick to read."""
+    the items whose name starts with one of ``also`` wherever they rank. The
+    trace's raw device records are read (:func:`device_times_raw`), which
+    keeps a run of hundreds of thousands of launches quick to read."""
     import torch
 
-    activities = [torch.profiler.ProfilerActivity.CUDA]
-    if host_ops:
-        activities.append(torch.profiler.ProfilerActivity.CPU)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
     t_read = time.perf_counter()
-    rows = device_times(prof) if host_ops else device_times_raw(prof)
-    if not host_ops:
-        print(f"  trace read in {time.perf_counter() - t_read:.1f} s{suffix}")
+    rows = device_times_raw(prof)
+    print(f"  trace read in {time.perf_counter() - t_read:.1f} s{suffix}")
     busy_ms = sum(r[2] for r in rows)
     if busy_ms > 0:
         print(f"  device busy {busy_ms:.3f} ms of {prof_ms:.3f} ms wall: "
@@ -1157,7 +1250,7 @@ def counters():
     return {"potus_slot": ps.launches, "potus_schedule": ks.launches,
             "potus_price": kp.launches, "cohort_drain": kd.launches,
             "flash_attention": kfa.launches, "decode_attention": kda.launches,
-            "ssd_intra_chunk": kss.launches}
+            "ssd_intra_chunk": kss.launches, "flash_attention_bwd": kfa.launches_bwd}
 
 
 def route_counters():
@@ -1463,7 +1556,8 @@ def flash_kernel_checks(card, cuda):
         n = 20
         kernel = partial(kf.flash_attention_call, q, k, v, causal)
         sdpa = partial(library_sdpa, q, k, v, is_causal=causal)
-        ms, event_ms = device_ms(kernel, n), time_calls(kernel, n)
+        ms = device_ms(kernel, n, expect={f"flash_{kernel_route}_kernel": 1})
+        event_ms = time_calls(kernel, n)
         library_ms, library_event_ms = device_ms(sdpa, n), time_calls(sdpa, n)
         plain_ms = time_calls(lambda: kf.flash_attention_plain(q, k, v, causal), 3)
         elem = q.element_size()
@@ -3407,14 +3501,19 @@ def moe_path(card, cuda):
           f"decode steps: max |dlogit| {diff:.4e} of max |logit| {scale:.4e} = {rel:.4e} "
           f"(recorded, not held; {time.perf_counter() - t_step:.1f} s) [{card}]")
 
-    # L2: the served run, counted and timed; a second run, profiled, gives the same tokens
+    # L2: the served run at MOE_SERVE_LAYERS layers, counted and timed; a second run,
+    # profiled, gives the same tokens
     t_step = time.perf_counter()
-    n, reqs, slots, _ = served_run(cfg, model, cuda, MOE_REQUESTS, card)
+    cfg_s = cfg.with_(n_layers=MOE_SERVE_LAYERS)
+    served = pz.init(cfg_s, torch.Generator(device=cuda).manual_seed(0), cuda)
+    print(f"L2 serves {cfg.name} at {MOE_SERVE_LAYERS} of {cfg.n_layers} layers [{card}]")
+    n, reqs, slots, _ = served_run(cfg_s, served, cuda, MOE_REQUESTS, card)
     first = {r.rid: list(r.generated) for r in reqs}
     second = {}
-    profile_run(lambda: second.update(run=serve(cfg, model, cuda, ServingEngine,
+    profile_run(lambda: second.update(run=serve(cfg_s, served, cuda, ServingEngine,
                                                 n_requests=MOE_REQUESTS)),
-                top=10, suffix=f" [{card}]", also=ATTENTION_KERNELS, host_ops=False)
+                top=10, suffix=f" [{card}]", also=ATTENTION_KERNELS)
+    del served
     reqs2, slots2, _, _ = second["run"]
     same = slots2 == slots and {r.rid: list(r.generated) for r in reqs2} == first
     print(f"  two runs give identical tokens: {same} (the second profiled); L2 "
@@ -3453,6 +3552,371 @@ def moe_path(card, cuda):
     torch.cuda.empty_cache()
     print(f"  phase L {time.perf_counter() - t_phase:.1f} s [{card}]")
     return n
+
+
+# ---------------------------------------------------------------------------
+# phase M: training (repro_torch.training, repro_torch.data), kernel 5b
+# ---------------------------------------------------------------------------
+
+def bwd_bound(B, Hq, Hkv, S, D, causal, dtype):
+    """Bytes (q, dO, dQ of Hq heads and k, v, dK, dV of Hkv heads, each
+    once) and operations (five products of the forward's size, 10 B Hq D
+    S^2, halved when causal) of one backward call, and its bound."""
+    import torch
+
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = B * S * D * (3 * Hq + 4 * Hkv) * elem
+    flops = 10 * B * Hq * D * S * S // (2 if causal else 1)
+    return (nbytes, flops, *attention_bound(nbytes, flops, dtype))
+
+
+def library_sdpa_backward(q, k, v, dout, causal):
+    """One backward of ``F.scaled_dot_product_attention`` (GQA) on the same
+    tensors, its graph kept: the yardstick of kernel 5b's ``library_ms``."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = library_sdpa(*leaves, is_causal=causal)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def flash_bwd_checks(card, cuda):
+    """M1: kernel 5b alone at internvl2-1b's widths (causal, Hq 14 / Hkv 2,
+    D 64) and hubert-xlarge's (bidirectional, 16/16, D 80), B=2, S=1024, in
+    bf16 and f32: dQ, dK, dV against the autograd gradient of the plain
+    version within ``ATT_TOL`` of each gradient's scale, two runs bitwise;
+    device ms per call beside SDPA's backward and the bound. Returns the
+    kernels line's row (``BWD_ENTRY``)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as kf
+
+    worst, entry = 0.0, None
+    for widths, (B, Hq, Hkv, D, causal) in BWD_DIMS.items():
+        for name in ("bfloat16", "float32"):
+            dtype, S = getattr(torch, name), TRAIN_S
+            g = torch.Generator(device=cuda).manual_seed(D)
+            q, k, v, dout = (torch.randn((B, h, S, D), generator=g, device=cuda).to(dtype)
+                             for h in (Hq, Hkv, Hkv, Hq))
+            reset_counts()
+            got = kf.flash_attention_bwd_call(q, k, v, dout, causal)
+            again = kf.flash_attention_bwd_call(q, k, v, dout, causal)
+            want = kf.flash_attention_bwd_plain(q, k, v, dout, causal)
+            torch.cuda.synchronize()
+            check(read_counts() == dict(ZERO_COUNTS, flash_attention_bwd=2),
+                  f"M1 launches {read_counts()}")
+            label = f"M1 flash backward {widths} S={S} {name} causal={causal}"
+            gaps = [float((a.float() - w.float()).abs().max()) / float(w.float().abs().max())
+                    for a, w in zip(got, want)]
+            print(f"{label}: dq/dk/dv gap of scale {gaps[0]:.3e}/{gaps[1]:.3e}/{gaps[2]:.3e} "
+                  f"(limit {ATT_TOL[name]}) [{card}]")
+            check(max(gaps) <= ATT_TOL[name], f"{label}: kernel vs plain beyond {ATT_TOL[name]}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{label}: two kernel runs differ")
+            err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+            worst = max(worst, err)
+            del got, again, want
+            n = 10
+            kernel = partial(kf.flash_attention_bwd_call, q, k, v, dout, causal)
+            sdpa = library_sdpa_backward(q, k, v, dout, causal)
+            passes = {"flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1}
+            ms = device_ms(kernel, n, expect=passes)
+            event_ms = time_calls(kernel, n)
+            library_ms, library_event_ms = device_ms(sdpa, n), time_calls(sdpa, n)
+            plain_ms = time_calls(lambda: kf.flash_attention_bwd_plain(q, k, v, dout, causal), 3)
+            nbytes, flops, bound_ms, bound_by = bwd_bound(B, Hq, Hkv, S, D, causal, dtype)
+            print(f"  device ms per call: kernel {ms:.4f}, library (SDPA backward) "
+                  f"{library_ms:.4f}; event ms per call: kernel {event_ms:.4f}, SDPA "
+                  f"{library_event_ms:.4f}, plain {plain_ms:.4f}; bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {nbytes} bytes, {flops} flops); kernel "
+                  f"{flops / ms / 1e9:.2f} TFLOP/s, SDPA {flops / library_ms / 1e9:.2f} [{card}]")
+            if (widths, name) == BWD_ENTRY:
+                entry = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms,
+                             library_event_ms=library_event_ms)
+            del q, k, v, dout, sdpa
+            torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/common.py:230 (no TPU kernel: XLA differentiates the "
+                        "plain attention)",
+            "launches": None, "max_abs_err": worst, **entry}
+
+
+def train_batch(cfg, cuda):
+    """The repeated batch of M2/M3: ``TokenPipeline(cfg, TRAIN_B, TRAIN_S,
+    seed 0)``'s first, on the card (internvl2-1b: 256 patches + 768 tokens;
+    hubert-xlarge: 1024 frame embeddings)."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.specs import as_tensors
+
+    return as_tensors(TokenPipeline(cfg, batch=TRAIN_B, seq=TRAIN_S, seed=0).next_batch(), cfg,
+                      cuda)
+
+
+def route_gaps(cfg, model, batch, rs, witness=False):
+    """Loss and every gradient of one batch by the kernel route and by the
+    plain route (``kernels.ops.plain``: attention's gradient by autograd of
+    the plain version). Returns (loss gap of |loss|, worst gradient gap of
+    its scale, the parameter it is in). With ``witness`` (a bf16 model), the
+    plain route also runs in float32 on the same weights and inputs, and a
+    fourth item gives, for that parameter, the gap of its plain bf16
+    gradient and of its kernel bf16 gradient to the f32 one (each of the f32
+    gradient's scale), and the worst plain bf16 gap over all parameters: the
+    rounding of bf16 itself, beside which the kernel's gap is read."""
+    import copy
+
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.training import train_loop as ptl
+
+    names = [n for n, _ in model.named_parameters()]
+    out = {}
+    for route in (kops, kops.plain):
+        loss, _ = ptl.make_loss_fn(cfg, ptl.TrainConfig(), ops=route)(model, batch, rs)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[route is kops] = (float(loss.detach()), grads)
+        del loss
+    (lk, gk), (lp, gp) = out[True], out[False]
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()),
+                                                                1e-30)
+
+    gaps = [gap(a, b) for a, b in zip(gk, gp)]
+    i = int(np.argmax(gaps))
+    result = (abs(lk - lp) / abs(lp), gaps[i], names[i])
+    if not witness:
+        return result
+    del out
+    cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    batch32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+    loss, _ = ptl.make_loss_fn(cfg32, ptl.TrainConfig(), ops=kops.plain)(model32, batch32, rs)
+    g32 = torch.autograd.grad(loss, list(model32.parameters()))
+    del loss, model32
+    plain_bf16 = [gap(a, b) for a, b in zip(gp, g32)]
+    j = int(np.argmax(plain_bf16))
+    return (*result, dict(plain=plain_bf16[i], kernel=gap(gk[i], g32[i]),
+                          worst_plain=plain_bf16[j], worst_plain_at=names[j]))
+
+
+def train_run(cfg, tcfg, state, batch, n_steps, card, label, route):
+    """``n_steps`` train steps on one repeated batch, each counted and timed
+    (synchronised); checks each step's launches (kernels 5, on ``route``,
+    and 5b once per layer, no other kernel) and finite loss and grad norm.
+    Returns (losses, step ms, launches summed)."""
+    import torch
+
+    from repro_torch.training import train_loop as ptl
+
+    step = ptl.make_train_step(cfg, tcfg)
+    losses, walls, total = [], [], dict(ZERO_COUNTS)
+    for i in range(n_steps):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        n = read_counts()
+        want = dict(ZERO_COUNTS, flash_attention=cfg.n_layers, flash_attention_bwd=cfg.n_layers)
+        check(n == want, f"{label} step {i}: launches {n}, expected {want}")
+        routes = kernel_routes()["flash_attention"]
+        check(routes == {r: cfg.n_layers * (r == route) for r in ("tc", "simt")},
+              f"{label} step {i}: forward launches off the {route} route: {routes}")
+        check(np.isfinite(loss) and np.isfinite(gnorm), f"{label} step {i}: not finite")
+        print(f"{label} step {i}: loss {loss:.6f}, grad norm {gnorm:.4f}, lr "
+              f"{float(met['lr']):.3e}, {walls[-1]:.2f} ms; launches flash_attention="
+              f"{n['flash_attention']} flash_attention_bwd={n['flash_attention_bwd']} [{card}]")
+        losses.append(loss)
+        total = {k: total[k] + n[k] for k in total}
+    return losses, walls, total
+
+
+def train_model(arch, card, cuda, n_steps):
+    """M2 (internvl2-1b) or M3 (hubert-xlarge) at full width and depth in
+    bf16: the model drawn from a seeded ``torch.Generator`` with gradients
+    on, ``n_steps`` train steps on one repeated batch (the loss must fall),
+    one more step profiled (busy share, top device items), the peak device
+    memory; then the full-depth gap between the kernel and the plain route
+    (recorded) and, at 2 layers in f32, the same gap (held within 1e-4).
+    Returns (the state after the steps, the config, the train config, the
+    batch, the launches of the timed steps)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models import model_zoo as pz
+    from repro_torch.training import train_loop as ptl
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = get_config(arch)
+    tcfg = ptl.TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=100))
+    t0 = time.perf_counter()
+    state = ptl.init_train_state(cfg, tcfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = train_batch(cfg, cuda)
+    route = kf.route(torch.bfloat16, cfg.resolved_head_dim)
+    print(f"phase M model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads, head_dim {cfg.resolved_head_dim} (flash route {route}), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.n_layers} layers, {cfg.param_dtype}, "
+          f"{'encoder' if cfg.is_encoder else 'causal decoder'}, frontend {cfg.frontend}: "
+          f"{n_params} parameters; batch {TRAIN_B} x {TRAIN_S} "
+          f"({', '.join(f'{k} {tuple(v.shape)}' for k, v in batch.items())}); drawn in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    # one forward without grad, timed (kernel 5 alone, once per layer)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = pz.forward(model, cfg, batch)
+    finite = bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    check(read_counts() == dict(ZERO_COUNTS, flash_attention=cfg.n_layers) and finite
+          and logits.shape == (TRAIN_B, TRAIN_S, cfg.vocab_size),
+          f"M {cfg.name}: forward launches {read_counts()} or logits not finite")
+    print(f"  forward without grad: {fwd_ms:.2f} ms, logits {tuple(logits.shape)} finite, "
+          f"kernel 5 x{cfg.n_layers} [{card}]")
+    del logits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, total = train_run(cfg, tcfg, state, batch, n_steps, card, f"M {cfg.name}",
+                                     route)
+    peak = torch.cuda.max_memory_allocated()
+    check(losses[-1] < losses[0], f"M {cfg.name}: the loss did not fall: {losses}")
+    print(f"  {n_steps} steps: loss {losses[0]:.6f} -> {losses[-1]:.6f}; step wall ms median "
+          f"{np.median(walls):.2f} (first {walls[0]:.2f}, min {min(walls):.2f}); peak device "
+          f"memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
+    step = ptl.make_train_step(cfg, tcfg)
+    profile_run(lambda: step(state, batch), top=8, suffix=f" [{card}]",
+                also=("flash_bwd", "flash_simt", "flash_tc"))
+    # the kernel route against the plain route: the full-depth bf16 gap, recorded
+    t1 = time.perf_counter()
+    loss_gap, grad_gap, where, f32 = route_gaps(cfg, model, batch, state["router_state"],
+                                                witness=True)
+    print(f"  kernel vs plain route, {cfg.n_layers} layers bf16: loss gap {loss_gap:.3e} of "
+          f"|loss|, worst gradient gap {grad_gap:.3e} of its scale ({where}) (recorded, not "
+          f"held); against the plain route in f32 on the same weights and inputs, {where}'s "
+          f"gap is {f32['plain']:.3e} by the plain route in bf16 and {f32['kernel']:.3e} by the "
+          f"kernel route in bf16; the plain route's worst bf16 gap {f32['worst_plain']:.3e} "
+          f"({f32['worst_plain_at']}); {time.perf_counter() - t1:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    return state, cfg, tcfg, batch, total
+
+
+def two_layer_f32_gap(arch, card, cuda):
+    """The kernel route against the plain route at 2 layers in f32 (the
+    kernels' own error, without bf16's): loss and every gradient within
+    1e-4 of scale."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import train_loop as ptl
+
+    cfg = get_config(arch).with_(n_layers=2, param_dtype="float32", compute_dtype="float32")
+    state = ptl.init_train_state(cfg, ptl.TrainConfig(),
+                                 torch.Generator(device=cuda).manual_seed(0), cuda)
+    loss_gap, grad_gap, where = route_gaps(cfg, state["params"], train_batch(cfg, cuda),
+                                           state["router_state"])
+    print(f"  kernel vs plain route, {cfg.name} 2 layers f32: loss gap {loss_gap:.3e} of |loss|, "
+          f"worst gradient gap {grad_gap:.3e} of its scale ({where}) (limit 1e-4) [{card}]")
+    check(loss_gap <= 1e-4 and grad_gap <= 1e-4,
+          f"M {cfg.name} 2 layers f32: kernel route vs plain beyond 1e-4")
+    del state
+    torch.cuda.empty_cache()
+
+
+def checkpoint_resume(cfg, tcfg, state, batch, card, cuda):
+    """M4: M2's state (weights, AdamW's moments and step) through an
+    ``AsyncCheckpointer`` (the host copy on this thread, the write on its
+    own), restored on the card into a fresh state, bitwise; then
+    ``CKPT_RESUME_STEPS`` more steps from each, the resumed run against the
+    uninterrupted one: bitwise, or the gap recorded."""
+    import shutil
+
+    import torch
+
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training import train_loop as ptl
+
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        leaves = ck.flatten_state(state)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+        saver = ck.AsyncCheckpointer(ckpt_dir, keep=1)
+        t0 = time.perf_counter()
+        saver.save(int(state["opt"]["step"]), state, extra=dict(batch_seed=0))
+        t_copy = time.perf_counter() - t0
+        saver.wait()
+        t_save = time.perf_counter() - t0
+        step_k = ck.latest_step(ckpt_dir)
+        fresh = ptl.init_train_state(cfg, tcfg, torch.Generator(device=cuda).manual_seed(1), cuda)
+        t0 = time.perf_counter()
+        restored, extra = ck.restore_checkpoint(ckpt_dir, step_k, fresh)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        back = ck.flatten_state(restored)
+        same = list(back) == list(leaves) and all(
+            torch.equal(back[key].detach(), leaves[key].detach()) for key in leaves)
+        print(f"M4 checkpoint of {cfg.name} at step {step_k}: {len(leaves)} leaves, {nbytes} "
+              f"bytes; AsyncCheckpointer host copy {t_copy:.2f} s, written in {t_save:.2f} s, "
+              f"restored on the card in {t_load:.2f} s; restored bitwise: {same} [{card}]")
+        check(same and extra == dict(batch_seed=0), "M4: the restored state differs")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    step = ptl.make_train_step(cfg, tcfg)
+    for _ in range(CKPT_RESUME_STEPS):
+        state, _ = step(state, batch)
+        restored, _ = step(restored, batch)
+    torch.cuda.synchronize()
+    a, b = ck.flatten_state(state), ck.flatten_state(restored)
+    differ = [key for key in a if not torch.equal(a[key].detach(), b[key].detach())]
+    gap = max((float((a[k].detach().float() - b[k].detach().float()).abs().max())
+               for k in differ), default=0.0)
+    print(f"M4 resumed from step {step_k} against the uninterrupted run, {CKPT_RESUME_STEPS} "
+          f"steps on: bitwise {not differ} ({len(differ)} of {len(a)} leaves differ, max gap "
+          f"{gap:.3e}; first {differ[:3]}) [{card}]")
+    return not differ
+
+
+def training_path(card, cuda):
+    """Phase M: kernel 5b alone (M1); internvl2-1b trained at full width and
+    depth in bf16 (M2) and its checkpoint and resume (M4); hubert-xlarge
+    likewise (M3). Returns the kernels line's row of kernel 5b with its
+    launches on M2's steps, and kernel 5's launches on M2 and M3."""
+    import torch
+
+    t_phase = time.perf_counter()
+    row = flash_bwd_checks(card, cuda)
+    print(f"  M1 {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    t0 = time.perf_counter()
+    state, cfg, tcfg, batch, m2 = train_model("internvl2_1b", card, cuda, TRAIN_STEPS)
+    two_layer_f32_gap("internvl2_1b", card, cuda)
+    print(f"  M2 {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    resumed = checkpoint_resume(cfg, tcfg, state, batch, card, cuda)
+    del state, batch
+    torch.cuda.empty_cache()
+    print(f"  M4 {time.perf_counter() - t0:.1f} s [{card}]")
+
+    t0 = time.perf_counter()
+    state, *_, m3 = train_model("hubert_xlarge", card, cuda, ENCODER_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    two_layer_f32_gap("hubert_xlarge", card, cuda)
+    print(f"  M3 {time.perf_counter() - t0:.1f} s; phase M {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+    row["launches"] = m2["flash_attention_bwd"]
+    row["encoder_launches"] = m3["flash_attention_bwd"]
+    row["resume_bitwise"] = resumed
+    return row, {"train_launches": m2["flash_attention"],
+                 "encoder_launches": m3["flash_attention"]}
 
 
 def slot_kernel(card, cuda):
@@ -3599,8 +4063,8 @@ def card_setup():
     """TF32 off for cuBLAS and cuDNN; prints and returns the card's name and
     power limit (``nvidia-smi``) and the device. A section called alone
     (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``,
-    ``sweep_path``, ``obs_path``, ``oracle_path``, ``moe_path``) starts with
-    this and :func:`build_kernels`."""
+    ``sweep_path``, ``obs_path``, ``oracle_path``, ``moe_path``,
+    ``training_path``) starts with this and :func:`build_kernels`."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3690,9 +4154,13 @@ def run_phases(pt, cf, card, cuda) -> int:
     for row in attention_kernels:
         row["moe_launches"] = moe[row["name"]]
 
-    # -- 12. the kernels line, 13. the last line ---------------------------------
+    # -- 12. phase M: training (kernels 5 and 5b on every attention layer) ------------
+    bwd_kernel, flash_train = training_path(card, cuda)
+    attention_kernels[0].update(flash_train)
+
+    # -- 13. the kernels line, 14. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
-                                  ssd_kernel]}))
+                                  ssd_kernel, bwd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -17,7 +17,8 @@ from .core.potus import SchedProblem
 from .core.queues import SimState
 
 __all__ = ["step_consts_from_numpy", "state_from_numpy", "sched_problem_from_numpy",
-           "sim_state_from_numpy", "model_params_from_numpy", "moe_params_from_numpy"]
+           "sim_state_from_numpy", "model_params_from_numpy", "moe_params_from_numpy",
+           "opt_state_from_numpy"]
 
 _INT_FIELDS = ("succ_map", "inst_comp", "inst_cont")
 
@@ -141,12 +142,19 @@ def model_params_from_numpy(cfg, params, *, device="cpu", dtype=None) -> dict:
     (out, in); the Mamba2 conv weight (K, channels) is not a linear map and
     keeps its layout, and so do the MoE router and expert tensors. An MoE
     config with ``moe_interleave > 1`` stacks scan units of ``sub{j}``
-    blocks: unit ``u``'s ``sub{j}`` becomes layer ``u * moe_interleave + j``."""
+    blocks: unit ``u``'s ``sub{j}`` becomes layer ``u * moe_interleave + j``.
+    An encoder's tree has no ``embed``.
+
+    Any tree of the parameters' structure maps the same way: the
+    reference's gradients (``dtype=torch.float32``) onto the port's
+    parameter names, or AdamW's moments (:func:`opt_state_from_numpy`)."""
     from .models.common import DTYPES
 
     dtype = DTYPES[cfg.param_dtype] if dtype is None else dtype
     t = lambda x: _tensor(x, device, dtype)  # noqa: E731
-    sd = {"embed": t(params["embed"]), "final_norm.weight": t(params["final_norm"])}
+    sd = {"final_norm.weight": t(params["final_norm"])}
+    if "embed" in params:
+        sd["embed"] = t(params["embed"])
     if "lm_head" in params:
         sd["lm_head.weight"] = t(params["lm_head"]).T.contiguous()
     blocks = params["blocks"]
@@ -163,3 +171,14 @@ def model_params_from_numpy(cfg, params, *, device="cpu", dtype=None) -> dict:
     for j in range(cfg.n_shared_attn if cfg.attn_every else 0):
         _tf_block(sd, f"shared_attn.{j}.", params["shared_attn"], j, t)
     return sd
+
+
+def opt_state_from_numpy(cfg, opt, *, device="cpu", dtype=torch.float32) -> dict:
+    """The port's AdamW state (``training.optimizer.init_opt_state``'s
+    layout: ``m`` and ``v`` keyed by parameter name, ``step`` an int32
+    scalar) from the reference's ``{m, v, step}`` (array-likes), the moments
+    in ``dtype`` (the optimizer's ``state_dtype``), so that both sides can
+    start from one mid-run state."""
+    return dict(m=model_params_from_numpy(cfg, opt["m"], device=device, dtype=dtype),
+                v=model_params_from_numpy(cfg, opt["v"], device=device, dtype=dtype),
+                step=torch.as_tensor(np.array(opt["step"]), dtype=torch.int32, device=device))

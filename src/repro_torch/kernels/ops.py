@@ -5,6 +5,13 @@ The device of the tensors decides the route: CUDA tensors launch the
 hand-written kernel (or raise), CPU tensors take the plain PyTorch version.
 :data:`plain` binds the same names to the plain versions on any device, so
 that a run on the card can take the plain route to compare against.
+
+Gradients: on the card ``flash_attention`` is a ``torch.autograd.Function``
+whose forward is the flash attention kernel and whose backward is the
+flash attention backward kernel, so training never differentiates the plain
+version there; on the CPU autograd differentiates the plain version. The
+SSD kernel has no backward yet: ``ssd_intra_chunk`` raises on CUDA inputs
+that require grad (the plain route on the CPU stays differentiable).
 """
 from __future__ import annotations
 
@@ -15,7 +22,8 @@ import torch
 
 from .cohort_drain import cohort_drain_call, cohort_drain_split_plain
 from .decode_attention import decode_attention_call, decode_attention_plain
-from .flash_attention import flash_attention_call, flash_attention_plain
+from .flash_attention import (flash_attention_bwd_call, flash_attention_call,
+                              flash_attention_plain)
 from .potus_price import potus_price_call, potus_price_plain
 from .potus_schedule import potus_schedule_alloc_plain, potus_schedule_call
 from .potus_slot import potus_slot_call, potus_slot_step_plain
@@ -31,9 +39,27 @@ def _flash_attention_with(fn, q, k, v, causal):
     return fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal).transpose(1, 2)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Kernel-native (B, H, S, D) flash attention on the card: the forward
+    kernel, and the backward kernel for dq, dk and dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = flash_attention_call(q, k, v, causal)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd_call(q, k, v, dout, ctx.causal), None)
+
+
 def flash_attention(q, k, v, causal: bool = True):
-    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D)."""
-    fn = flash_attention_plain if q.device.type == "cpu" else flash_attention_call
+    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D); differentiable
+    on either route."""
+    fn = flash_attention_plain if q.device.type == "cpu" else _FlashAttention.apply
     return _flash_attention_with(fn, q, k, v, causal)
 
 
@@ -46,8 +72,14 @@ def decode_attention(q, k_cache, v_cache, pos):
 def ssd_intra_chunk(xc, dtc, dA_cum, Bc, Cc):
     """xc (b, nc, Q, H, P); dtc, dA_cum (b, nc, Q, H); Bc, Cc (b, nc, Q, S) ->
     (y_diag (b, nc, Q, H, P), states (b, nc, H, P, S) float32)."""
-    fn = ssd_intra_chunk_plain if xc.device.type == "cpu" else ssd_intra_chunk_call
-    return fn(xc, dtc, dA_cum, Bc, Cc)
+    if xc.device.type == "cpu":
+        return ssd_intra_chunk_plain(xc, dtc, dA_cum, Bc, Cc)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xc, dtc, dA_cum, Bc, Cc)):
+        raise NotImplementedError(
+            "ssd_intra_chunk: the SSD kernel has no backward yet, so SSM and hybrid models "
+            "do not train on the card (ROADMAP.md, section 1, module item 7: the SSD backward "
+            "kernel); train them on the CPU, or run the forward under torch.no_grad()")
+    return ssd_intra_chunk_call(xc, dtc, dA_cum, Bc, Cc)
 
 
 def potus_slot_step(consts, state, act, pred, nxt, t0, *, scheduler="potus", age_cap=64,

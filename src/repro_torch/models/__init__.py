@@ -1,3 +1,4 @@
-"""The model zoo of the port: the dense, SSM and hybrid decoders
-(``model_zoo``), their building blocks (``common``) and the Mamba2 blocks
-(``mamba``). Mixture-of-experts and encoder models are not ported yet."""
+"""The model zoo of the port: the dense, MoE, SSM and hybrid decoders, the
+VLM (``vision_stub``) and encoder-only (``audio_stub``) models
+(``model_zoo``), their building blocks (``common``), the MoE layer
+(``moe``) and the Mamba2 blocks (``mamba``)."""

@@ -1,14 +1,20 @@
-"""The decoders of the model zoo in PyTorch — the port's counterpart of
-``repro.models.model_zoo`` for the dense family (and the VLM configs with
-``frontend=None``), the mixture-of-experts family (``models.moe``), the SSM
-family (Mamba2) and the hybrid family (Mamba2 blocks with shared attention
-blocks, Zamba2-style).
+"""The model zoo in PyTorch — the port's counterpart of
+``repro.models.model_zoo``: the dense family, the VLM configs (their
+``vision_stub`` patch embeddings before the tokens), the encoder-only
+configs (``audio_stub`` frame embeddings in place of a token embedding),
+the mixture-of-experts family (``models.moe``), the SSM family (Mamba2) and
+the hybrid family (Mamba2 blocks with shared attention blocks,
+Zamba2-style).
 
   init(cfg, generator, device)                  -> DenseDecoder or SSMDecoder (random weights)
   forward(model, cfg, batch, router_state)      -> (logits (B, S, V), aux)
   prefill(model, cfg, batch, max_len)           -> (logits (B, 1, V), cache)
   decode_step(model, cfg, token, pos, cache)    -> (logits (B, 1, V), cache)
   cache_spec(cfg, batch, max_len) / init_cache(cfg, batch, max_len, device)
+
+A batch holds ``tokens`` (B, S) for a decoder; ``patches`` (B, Np, D) and
+``tokens`` (B, S - Np) for a ``vision_stub`` config; ``embeddings``
+(B, S, D) for an encoder, which has no token embedding and no decode step.
 
 The reference scans over stacked layer parameters; here the layers are an
 ``nn.ModuleList`` run in a Python loop. Attention runs the hand-written
@@ -18,6 +24,16 @@ intra-chunk kernel likewise (``models.mamba``), in ``forward`` and in
 ``prefill``; every function takes ``ops=`` to choose another route
 (``kernels.ops.plain`` to compare routes on the card). The entry points run
 on the card unless the caller asks for the CPU.
+
+``forward`` builds an autograd graph when grad is enabled and the weights
+require it (``init(..., requires_grad=True)``, as ``training`` draws
+them); on the card the flash attention kernel's backward is a kernel too
+(``kernels.ops.flash_attention``). ``remat`` re-runs each block in the
+backward pass instead of keeping its activations: ``"full"`` keeps nothing
+(``torch.utils.checkpoint``), ``"dots"`` keeps the matrix products and
+``"dots_no_batch"`` those without a batch axis (selective activation
+checkpointing), the reference's ``REMAT_POLICIES``. ``prefill`` and
+``decode_step`` run without grad.
 
 In an MoE config, layer ``i`` holds an MoE FFN in place of its MLP when
 ``i % moe_interleave == moe_interleave - 1`` (the reference's ``sub{i}``
@@ -32,17 +48,17 @@ state with the sum of the layers' ``aux_loss``; ``prefill`` and
 returns a new one). The reference's ``_constrain_cache`` is a GSPMD sharding
 hint and ``moe_ep_shardmap`` picks its expert-parallel dispatch under a
 device mesh; the port has no mesh, so both are left out.
-
-Encoder configs and the modality frontends raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from .common import DTYPES, MLP, Attention, RMSNorm
@@ -52,22 +68,26 @@ from .moe import MoE, init_router_state, moe_ffn
 
 __all__ = ["DenseDecoder", "SSMDecoder", "is_moe_layer", "init", "fill_", "forward", "prefill",
            "decode_step", "cache_spec", "init_cache", "check_supported",
-           "ssd_chunked_with_state"]
+           "ssd_chunked_with_state", "REMAT_POLICIES"]
 
-# (config field, what it needs, ROADMAP.md section 1 item that ports it)
-_NOT_PORTED = (
-    ("is_encoder", "encoder-only models", 7),
-    ("frontend", "modality frontends (pass cfg.with_(frontend=None) for the text decoder)", 7),
-)
+FRONTENDS = (None, "vision_stub", "audio_stub")
+
+_aten = torch.ops.aten
+#: the ops whose outputs each remat policy keeps for the backward pass: "none" re-runs
+#: nothing, "full" keeps no op's output
+REMAT_POLICIES = {
+    "none": None,
+    "full": (),
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config the port does not run yet."""
-    for field, what, item in _NOT_PORTED:
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"{cfg.name}: {what} are not ported yet (ROADMAP.md, section 1, module item "
-                f"{item}); the port runs dense, MoE, SSM and hybrid decoders")
+    """Raise ``ValueError`` for a frontend other than the reference's two
+    stubs (which would otherwise run silently as a text decoder)."""
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} is not one of {FRONTENDS}")
 
 
 class Block(nn.Module):
@@ -110,22 +130,23 @@ class Block(nn.Module):
 
 
 class DenseDecoder(nn.Module):
-    """Token embedding, ``cfg.n_layers`` blocks (MoE blocks where
-    :func:`is_moe_layer`), final norm and the LM head (the embedding itself
-    when ``cfg.tie_embeddings``). Parameters are in ``cfg.param_dtype``; the
-    state_dict names mirror the reference's tree (``embed``,
-    ``blocks.{i}.attn.wq.weight``, ``blocks.{i}.moe.w_gate``,
-    ``final_norm.weight``, ...)."""
+    """Token embedding (none for an encoder), ``cfg.n_layers`` blocks (MoE
+    blocks where :func:`is_moe_layer`), final norm and the LM head (the
+    embedding itself when ``cfg.tie_embeddings``, never for an encoder).
+    Parameters are in ``cfg.param_dtype``; the state_dict names mirror the
+    reference's tree (``embed``, ``blocks.{i}.attn.wq.weight``,
+    ``blocks.{i}.moe.w_gate``, ``final_norm.weight``, ...)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         check_supported(cfg)
         kw = dict(dtype=DTYPES[cfg.param_dtype], device=device)
-        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw))
+        self.embed = (None if cfg.is_encoder
+                      else nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, **kw)))
         self.blocks = nn.ModuleList(Block(cfg, is_moe_layer(cfg, i), **kw)
                                     for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
-        self.lm_head = (None if cfg.tie_embeddings
+        self.lm_head = (None if cfg.tie_embeddings and not cfg.is_encoder
                         else nn.Linear(cfg.d_model, cfg.vocab_size, bias=False, **kw))
 
 
@@ -189,17 +210,18 @@ def fill_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 @torch.no_grad()
-def init(cfg, generator: torch.Generator, device="cuda") -> nn.Module:
+def init(cfg, generator: torch.Generator, device="cuda", *, requires_grad: bool = False
+         ) -> nn.Module:
     """A :class:`DenseDecoder` (an :class:`SSMDecoder` for ``cfg.ssm``) with
     random weights drawn from ``generator`` (a ``torch.Generator`` on
     ``device``), on the card unless ``device="cpu"``. The numbers differ from
     the reference's ``jax.random`` draws; to hold the two against each other,
     load the reference's weights with ``convert.model_params_from_numpy``.
-    Gradients are off."""
+    Gradients are off unless ``requires_grad`` (training)."""
     device = resolve_device(device)
     with torch.device("meta"):
         model = (SSMDecoder if cfg.ssm else DenseDecoder)(cfg)
-    return fill_(model.to_empty(device=device).requires_grad_(False), generator)
+    return fill_(model.to_empty(device=device), generator).requires_grad_(requires_grad)
 
 
 def _hybrid_groups(cfg) -> list[tuple[int, int, bool]]:
@@ -221,12 +243,38 @@ def _hybrid_groups(cfg) -> list[tuple[int, int, bool]]:
 # ---------------------------------------------------------------------------
 
 def _embed_input(model, cfg, batch):
-    return model.embed[batch["tokens"]].to(DTYPES[cfg.compute_dtype])
+    """The input sequence in the compute type: an encoder's ``embeddings``,
+    else the embedded ``tokens``, after the ``patches`` for a
+    ``vision_stub`` config that has them."""
+    cdt = DTYPES[cfg.compute_dtype]
+    if cfg.is_encoder:
+        return batch["embeddings"].to(cdt)
+    x = model.embed[batch["tokens"]].to(cdt)
+    if cfg.frontend == "vision_stub" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(cdt), x], dim=1)
+    return x
 
 
 def _unembed(model, cfg, x):
     w = model.embed if model.lm_head is None else model.lm_head.weight
     return F.linear(x, w).to(DTYPES[cfg.compute_dtype])
+
+
+def _remat(fn, remat: str):
+    """``fn`` run under the ``remat`` policy of :data:`REMAT_POLICIES`."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {sorted(REMAT_POLICIES)}, got {remat!r}")
+    keep = REMAT_POLICIES[remat]
+    if keep is None:
+        return fn
+    if not keep:
+        return partial(checkpoint, fn, use_reentrant=False)
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return partial(checkpoint, fn, use_reentrant=False,
+                   context_fn=partial(create_selective_checkpoint_contexts, policy))
 
 
 def _start_state(cfg, router_state, device):
@@ -239,11 +287,13 @@ def _start_state(cfg, router_state, device):
     return torch.zeros((1,), dtype=torch.float32, device=device)
 
 
-@torch.no_grad()
-def forward(model, cfg, batch, router_state=None, *, ops=None):
+def forward(model, cfg, batch, router_state=None, *, ops=None, remat: str = "none"):
     """Full-sequence forward. Returns (logits (B, S, V), aux dict):
     ``moe_aux_loss``, the sum of the MoE layers' load-balance losses (0
-    without them), and ``router_state``, the state after the last layer."""
+    without them), and ``router_state``, the state after the last layer.
+    Differentiable when grad is enabled; ``remat`` names a policy of
+    :data:`REMAT_POLICIES` applied to each block (not to a hybrid's shared
+    attention blocks, as in the reference)."""
     x = _embed_input(model, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     rs = _start_state(cfg, router_state, x.device)
@@ -251,12 +301,12 @@ def forward(model, cfg, batch, router_state=None, *, ops=None):
     if cfg.ssm:
         for gi, (s, e, attn_after) in enumerate(_hybrid_groups(cfg)):
             for block in model.blocks[s:e]:
-                x = mamba_block(block, x, cfg, ops=ops) + x
+                x = _remat(partial(mamba_block, cfg=cfg, ops=ops), remat)(block, x) + x
             if attn_after:
                 x, *_ = model.shared_attn[gi % cfg.n_shared_attn](x, positions, ops)
     else:
         for block in model.blocks:
-            x, _, rs, aux = block(x, positions, ops, cfg, rs)
+            x, _, rs, aux = _remat(block, remat)(x, positions, ops, cfg, rs)
             if aux is not None:
                 aux_total = aux_total + aux
     logits = _unembed(model, cfg, model.final_norm(x))
@@ -322,7 +372,10 @@ def decode_step(model, cfg, token, pos, cache, *, ops=None):
     """One serving step: token (B, 1) ids, pos (B,) write positions. Returns
     (logits (B, 1, V), cache), the cache updated in place. An MoE stack's
     router state starts from zeros and is discarded, as the reference's; the
-    B tokens share each expert's capacity."""
+    B tokens share each expert's capacity. An encoder has no decode step
+    (``ValueError``)."""
+    if cfg.is_encoder:
+        raise ValueError("encoder-only architectures have no decode step")
     x = _embed_input(model, cfg, {"tokens": token})
     if cfg.ssm:
         x = _ssm_decode(model, cfg, x, pos, cache, ops)

@@ -134,12 +134,9 @@ def moe_ffn(moe, x, cfg, router_state=None):
     expert_in = buf[:E * cap].view(E, cap, D)
 
     h = F.silu(_bmm(expert_in, moe.w_gate)) * _bmm(expert_in, moe.w_up)
-    # the products into rows 0..E*cap-1 of a buffer whose last row is 0, so
-    # that a dropped entry gathers 0
-    w_down = moe.w_down.to(h.dtype)
-    out = torch.empty((E * cap + 1, D), dtype=h.dtype, device=x.device)
-    out[E * cap].zero_()
-    torch.bmm(h, w_down, out=out[:E * cap].view(E, cap, D))
+    # the products as rows 0..E*cap-1 above one zero row, so that a dropped
+    # entry gathers 0 (a new tensor, not an out= write: autograd flows)
+    out = F.pad(_bmm(h, moe.w_down).view(E * cap, D), (0, 0, 0, 1))
     y_tok = out[slot]  # (N, k, D)
     y = (y_tok * top_w[..., None].to(x.dtype)).sum(dim=1)
 

@@ -1,0 +1,100 @@
+"""AdamW and its learning-rate schedule — the port's counterpart of
+``repro.training.optimizer``, each formula as the reference writes it.
+
+Trees are dicts ``{parameter name: tensor}`` (``dict(model.named_parameters())``).
+:func:`adamw_update` updates the parameters and the moments in place (the
+reference returns new trees), so the card holds one copy of the weights.
+The moments are kept in ``cfg.state_dtype`` (float32 by default) and every
+update is computed in float32 and cast back to the parameter's type.
+
+Weight decay is decoupled and falls on the tensors the reference decays:
+its leaves of two or more axes. The reference stacks each block's leaves
+along a leading layer axis, so every parameter under ``blocks.`` or
+``shared_attn.`` (norm weights and biases included) is one of them, and of
+the others only the matrices (the embedding, the LM head); the final norm
+is not.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..models.common import DTYPES
+
+__all__ = ["OptConfig", "init_opt_state", "adamw_update", "lr_at", "global_norm", "decays"]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    state_dtype: str = "float32"
+
+
+def lr_at(cfg: OptConfig, step) -> torch.Tensor:
+    """Linear warmup, then cosine decay to ``min_lr_frac * lr``; float32."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = cfg.lr * step / max(cfg.warmup_steps, 1)
+    prog = ((step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1)).clamp(0.0, 1.0)
+    cos = cfg.min_lr_frac * cfg.lr + (1 - cfg.min_lr_frac) * cfg.lr * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params: dict, cfg: OptConfig) -> dict:
+    """``{m, v}``: zeros shaped as each parameter in ``cfg.state_dtype``,
+    keyed by name; ``step``: an int32 zero on the parameters' device."""
+    dt = DTYPES[cfg.state_dtype]
+    device = next(iter(params.values())).device
+    return dict(m={n: torch.zeros(p.shape, dtype=dt, device=p.device) for n, p in params.items()},
+                v={n: torch.zeros(p.shape, dtype=dt, device=p.device) for n, p in params.items()},
+                step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """The l2 norm over every tensor of ``tree``, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree.values()))
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """Whether weight decay falls on parameter ``name``: its reference leaf
+    (with the layer axis of the stacked blocks) has two or more axes."""
+    stacked = name.startswith(("blocks.", "shared_attn."))
+    return p.dim() + stacked >= 2
+
+
+@torch.no_grad()
+def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig):
+    """One AdamW step with global-norm clipping and bias corrections,
+    in place. Returns (params, opt_state, metrics) with ``metrics`` the
+    gradients' ``grad_norm`` (before clipping) and the step's ``lr``."""
+    step = opt_state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
+    lr = lr_at(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
+    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
+    for name, p in params.items():
+        g = grads[name].float() * scale
+        m, v = opt_state["m"][name], opt_state["v"][name]
+        m_new = b1 * m.float() + (1 - b1) * g
+        v_new = b2 * v.float() + (1 - b2) * g * g
+        update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+        if decays(name, p):  # decoupled weight decay
+            update = update + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * update)
+        m.copy_(m_new)
+        v.copy_(v_new)
+    opt_state["step"] = step
+    return params, opt_state, dict(grad_norm=gnorm, lr=lr)

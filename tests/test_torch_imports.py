@@ -1,7 +1,8 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
 (``repro_torch.obs``, the host-loop oracles ``repro_torch.core.cohort``
-and ``repro_torch.core.eventsim`` and the MoE layer ``repro_torch.models.moe``
-among them), ``chip_smoke`` and the port's
+and ``repro_torch.core.eventsim``, the MoE layer ``repro_torch.models.moe``,
+the training package ``repro_torch.training`` and the data package
+``repro_torch.data`` among them), ``chip_smoke`` and the port's
 benchmark ``benchmarks.torch_systems`` loads no ``jax*`` module and nothing
 of the reference package ``repro``. Runs in a fresh interpreter so this
 process's imports cannot mask a leak."""
@@ -27,7 +28,12 @@ print(len(names), "modules;", "leaked:", bad)
 obs = all(n in names for n in ("repro_torch.obs", "repro_torch.obs.metrics",
                                 "repro_torch.obs.recorder", "repro_torch.obs.trace",
                                 "repro_torch.core.cohort", "repro_torch.core.eventsim",
-                                "repro_torch.models.moe"))
+                                "repro_torch.models.moe", "repro_torch.training",
+                                "repro_torch.training.optimizer",
+                                "repro_torch.training.compression",
+                                "repro_torch.training.checkpoint",
+                                "repro_torch.training.train_loop", "repro_torch.data",
+                                "repro_torch.data.pipeline", "repro_torch.data.specs"))
 print("obs walked:", obs)
 sys.exit(1 if bad or len(names) < 15 or not obs else 0)
 """

@@ -33,6 +33,13 @@ the schedule kernel (``potus``) or the price kernel (``potus-loop``) once a
 slot. The MoE layer (``models/moe.py``, no kernel of its own) on the card
 equals its run on the CPU in its selections, keep masks, loads, router
 states and dropped fractions, y within 1e-5 of max |y|, two runs bitwise.
+The flash attention backward kernel matches the autograd gradient of the
+plain version within 2e-5 (float32) / 2e-2 (bfloat16) of each gradient's
+scale at internvl2-1b's and hubert-xlarge's widths, GQA, head_dim up to 256
+and ragged S, repeats bitwise, runs under ``kernels.ops.flash_attention``'s
+autograd, and a reduced train step's gradients on the kernel route match the
+plain route within 1e-4; ``ssd_intra_chunk`` raises when a CUDA input
+requires grad (no SSD backward kernel yet).
 Run on the machine with the card:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
@@ -552,3 +559,113 @@ def test_moe_ffn_card_equals_cpu(cuda_device, n_tokens, router, calls):
                                                        capacity_factor=1.0)
     worst, *_ = chip_smoke.moe_card_vs_cpu(cfg, n_tokens, router, calls, cuda_device)
     assert worst <= 1e-5
+
+
+def _scale_gap(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()),
+                                                                 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 14, 2, 300, 64), (2, 16, 16, 200, 80),
+                                          (1, 8, 2, 129, 128), (1, 4, 1, 33, 256),
+                                          (1, 6, 3, 64, 48)])
+def test_flash_attention_bwd_kernel_matches_plain_version(cuda_device, B, Hq, Hkv, S, D,
+                                                          causal, dtype):
+    """The backward kernel's dq, dk, dv against the autograd gradient of the
+    plain version, within 2e-5 (float32) / 2e-2 (bfloat16) of each
+    gradient's scale, at internvl2-1b's (14/2 heads of 64) and
+    hubert-xlarge's (16/16 of 80) widths, GQA, head_dim up to 256 and S no
+    multiple of a tile; two runs bitwise (no atomics)."""
+    from repro_torch.kernels import flash_attention as kf
+
+    rng = np.random.default_rng(S + D)
+    q, k, v = (_randn(rng, (B, h, S, D), dtype, cuda_device) for h in (Hq, Hkv, Hkv))
+    dout = _randn(rng, (B, Hq, S, D), dtype, cuda_device)
+    kf.launches_bwd.reset()
+    got = kf.flash_attention_bwd_call(q, k, v, dout, causal)
+    again = kf.flash_attention_bwd_call(q, k, v, dout, causal)
+    want = kf.flash_attention_bwd_plain(q, k, v, dout, causal)
+    torch.cuda.synchronize()
+    assert kf.launches_bwd.n == 2
+    for name, g, a, w, x in zip("qkv", got, again, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert _scale_gap(g, w) <= ATT_TOL[dtype], name
+        assert torch.equal(g, a), name
+
+
+def test_flash_attention_gradients_flow_through_the_kernels(cuda_device):
+    """``kernels.ops.flash_attention`` on CUDA tensors that require grad: the
+    output has a ``grad_fn``, the backward launches the backward kernel once
+    and no plain version, and q, k, v (strided views of the model's layout)
+    get the plain version's gradients."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(1)
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = (_randn(rng, (2, 100, h, 64), dtype, cuda_device).requires_grad_(True)
+                   for h in (6, 2, 2))
+        dout = _randn(rng, (2, 100, 6, 64), dtype, cuda_device)
+        kf.launches.reset()
+        kf.launches_bwd.reset()
+        out = ops.flash_attention(q, k, v, causal=True)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        assert (kf.launches.n, kf.launches_bwd.n) == (1, 1)
+        want = torch.autograd.grad(ops.plain.flash_attention(q, k, v, causal=True), (q, k, v),
+                                   dout)
+        for g, w in zip(got, want):
+            assert _scale_gap(g, w) <= ATT_TOL[dtype]
+
+
+def test_ssd_intra_chunk_raises_when_a_cuda_input_requires_grad(cuda_device):
+    """No SSD backward kernel yet: the wrapper raises rather than return an
+    output without a ``grad_fn``; without grad it runs."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    b, nc, Q, H, P, S = 1, 2, 16, 2, 16, 8
+    xc = _randn(rng, (b, nc, Q, H, P), "float32", cuda_device).requires_grad_(True)
+    dtc = _randn(rng, (b, nc, Q, H), "float32", cuda_device).abs()
+    dA = -torch.cumsum(dtc, dim=2)
+    Bc, Cc = (_randn(rng, (b, nc, Q, S), "float32", cuda_device) for _ in range(2))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ops.ssd_intra_chunk(xc, dtc, dA, Bc, Cc)
+    with torch.no_grad():
+        y, states = ops.ssd_intra_chunk(xc, dtc, dA, Bc, Cc)
+    assert y.shape == xc.shape and states.shape == (b, nc, H, P, S)
+
+
+@pytest.mark.parametrize("arch", ["internvl2_1b", "hubert_xlarge"])
+def test_train_step_kernel_route_matches_plain_route(cuda_device, arch):
+    """One reduced float32 train step's loss and gradients on the card, the
+    kernel route (flash attention and its backward kernel) against the
+    plain route, within 1e-4 of each gradient's scale; both kernels launch
+    once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.specs import make_batch
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops
+    from repro_torch.training import train_loop as ptl
+
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    state = ptl.init_train_state(cfg, ptl.TrainConfig(), gen, cuda_device)
+    model = state["params"]
+    batch = make_batch(np.random.default_rng(0), cfg, 2, 40, device=cuda_device)
+    grads = {}
+    for route in (ops, ops.plain):
+        kf.launches.reset()
+        kf.launches_bwd.reset()
+        loss, _ = ptl.make_loss_fn(cfg, ptl.TrainConfig(), ops=route)(model, batch,
+                                                                      state["router_state"])
+        grads[route is ops] = (loss.detach(), torch.autograd.grad(loss, list(model.parameters())))
+        counts = (kf.launches.n, kf.launches_bwd.n)
+        assert counts == ((cfg.n_layers, cfg.n_layers) if route is ops else (0, 0))
+    (lk, gk), (lp, gp) = grads[True], grads[False]
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    for a, b in zip(gk, gp):
+        assert _scale_gap(a, b) <= 1e-4

@@ -10,9 +10,11 @@
   ``use_pallas`` False (dense einsum attention) and True (Pallas in
   interpret mode): float32 logits within rtol = atol = 1e-4 (the
   reference's own two paths differ by ~2e-6), and the KV cache likewise;
-* the families the port does not run (encoders, frontends) raise
-  ``NotImplementedError`` naming the ROADMAP.md item that ports them, the
-  MoE configs pass (``tests/test_torch_moe.py`` holds them against the
+* the encoder (hubert-xlarge: frame embeddings in, no token embedding, no
+  decode step) and the ``vision_stub`` config (internvl2-1b: patch
+  embeddings before the tokens) equal the reference likewise, and every
+  family (MoE, encoder, frontend, SSM, hybrid) passes ``check_supported``
+  (``tests/test_torch_moe.py`` holds the MoE configs against the
   reference), and the entry points refuse a missing card unless given
   ``device="cpu"``.
 """
@@ -53,9 +55,14 @@ def test_config_matches_reference_field_by_field(name):
 
 def _pair(name, **kw):
     """(reference cfg, port cfg, reference params, port model on the CPU with
-    the reference's weights)."""
-    rcfg = rconfigs.get_config(name).reduced().with_(frontend=None, **kw)
-    pcfg = pconfigs.get_config(name).reduced().with_(frontend=None, **kw)
+    the reference's weights). ``name`` with ``:frontend`` keeps the config's
+    frontend; without it the frontend is dropped (the text decoder), except
+    for an encoder, whose frontend stub is its input."""
+    name, _, keep = name.partition(":")
+    if not keep and not rconfigs.get_config(name).is_encoder:
+        kw = dict(frontend=None, **kw)
+    rcfg = rconfigs.get_config(name).reduced().with_(**kw)
+    pcfg = pconfigs.get_config(name).reduced().with_(**kw)
     params = rz.init(jax.random.PRNGKey(0), rcfg)
     model = pz.init(pcfg, torch.Generator().manual_seed(0), "cpu")
     model.load_state_dict(convert.model_params_from_numpy(pcfg, jax.tree.map(np.asarray, params)))
@@ -94,26 +101,48 @@ def _tok(x):
     return torch.as_tensor(np.asarray(x), dtype=torch.long)
 
 
+def _batches(rcfg, rng):
+    """The same batch for both sides: (reference's, port's); 16 positions —
+    an encoder's frame embeddings, or a ``vision_stub`` config's 8 patches
+    before 8 tokens, or 16 tokens."""
+    if rcfg.is_encoder:
+        x = rng.standard_normal((2, 16, rcfg.d_model)).astype(np.float32)
+        return {"embeddings": jnp.asarray(x)}, {"embeddings": torch.from_numpy(x)}
+    n_p = rcfg.n_frontend_tokens if rcfg.frontend == "vision_stub" else 0
+    toks = rng.integers(0, rcfg.vocab_size, (2, 16 - n_p)).astype(np.int32)
+    ref, port = {"tokens": jnp.asarray(toks)}, {"tokens": _tok(toks)}
+    if n_p:
+        x = rng.standard_normal((2, n_p, rcfg.d_model)).astype(np.float32)
+        ref["patches"], port["patches"] = jnp.asarray(x), torch.from_numpy(x)
+    return ref, port
+
+
 @pytest.mark.parametrize("use_pallas", [False, True])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + ["internvl2_1b:vision_stub", "hubert_xlarge"])
 def test_model_matches_reference(name, use_pallas):
     rcfg, pcfg, params, model = _pair(name, use_pallas=use_pallas)
     rng = np.random.default_rng(0)
-    toks = rng.integers(0, rcfg.vocab_size, (2, 16)).astype(np.int32)
+    rbatch, pbatch = _batches(rcfg, rng)
 
-    want, _ = rz.forward(params, rcfg, {"tokens": jnp.asarray(toks)})
-    got, aux = pz.forward(model, pcfg, {"tokens": _tok(toks)})
+    want, _ = rz.forward(params, rcfg, rbatch)
+    got, aux = pz.forward(model, pcfg, pbatch)
     assert got.shape == (2, 16, rcfg.vocab_size) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert float(aux["moe_aux_loss"]) == 0.0
 
     max_len = 32
-    want, rcache = rz.prefill(params, rcfg, {"tokens": jnp.asarray(toks)}, max_len)
-    got, pcache = pz.prefill(model, pcfg, {"tokens": _tok(toks)}, max_len)
+    want, rcache = rz.prefill(params, rcfg, rbatch, max_len)
+    got, pcache = pz.prefill(model, pcfg, pbatch, max_len)
     assert got.shape == (2, 1, rcfg.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     shape, _ = pz.cache_spec(pcfg, 2, max_len)["k"]
     assert tuple(pcache["k"].shape) == shape == tuple(rcache["k"].shape)
+    if rcfg.is_encoder:  # an encoder has no decode step, in either package
+        assert model.embed is None and model.lm_head is not None
+        with pytest.raises(ValueError, match="encoder"):
+            pz.decode_step(model, pcfg, _tok(np.zeros((2, 1), np.int32)),
+                           torch.full((2,), 16, dtype=torch.int32), pcache)
+        return
 
     pos = np.array([16, 16], np.int32)
     for _ in range(4):
@@ -187,41 +216,49 @@ def test_init_draws_the_reference_scales():
 
 @pytest.mark.parametrize("name", ["granite_moe_1b", "hubert_xlarge", "internvl2_1b"])
 def test_unported_families_raise(name):
-    """Encoder and frontend configs raise. The MoE family is ported
-    (``models/moe.py``): its case checks that both MoE configs build and
-    pass ``check_supported`` instead."""
-    cfg = pconfigs.get_config(name).reduced()
+    """The families that once raised are ported: the MoE configs
+    (``models/moe.py``), the encoder (hubert-xlarge: no token embedding, an
+    LM head, no decode step) and the ``vision_stub`` config (internvl2-1b)
+    build at their reduced and full sizes and pass ``check_supported``; a
+    frontend other than the two stubs raises."""
+    cfg = pconfigs.get_config(name)
+    pz.check_supported(cfg)
+    pz.check_supported(cfg.reduced())
+    model = pz.init(cfg.reduced(), torch.Generator().manual_seed(0), "cpu")
+    assert pz.cache_spec(cfg.reduced(), 1, 16)["k"][0][0] == cfg.reduced().n_layers
     if cfg.moe:
-        for moe_name in ("granite_moe_1b", "llama4_maverick_400b"):
-            moe_cfg = pconfigs.get_config(moe_name)
-            pz.check_supported(moe_cfg)
-            pz.check_supported(moe_cfg.reduced())
-            model = pz.init(moe_cfg.reduced(), torch.Generator().manual_seed(0), "cpu")
-            assert any(b.moe is not None for b in model.blocks)
-            assert pz.cache_spec(moe_cfg.reduced(), 1, 16)["k"][0][0] == moe_cfg.reduced().n_layers
-        return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pz.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pz.cache_spec(cfg, 1, 16)
+        assert any(b.moe is not None for b in model.blocks)
+        pz.check_supported(pconfigs.get_config("llama4_maverick_400b"))
+    with torch.device("meta"):
+        full = pz.DenseDecoder(cfg)
+    # the config's count (configs/base.py) counts an embedding even for an encoder, and
+    # leaves out the final norm and the q/k/v biases
+    n = sum(p.numel() for p in full.parameters())
+    biases = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.resolved_head_dim
+    assert n == (cfg.param_count() + cfg.d_model + biases * cfg.qkv_bias
+                 - cfg.vocab_size * cfg.d_model * cfg.is_encoder)
+    assert (full.embed is None) == cfg.is_encoder
+    with pytest.raises(ValueError, match="frontend"):
+        pz.check_supported(cfg.with_(frontend="video_stub"))
 
 
 @pytest.mark.parametrize("field,value,item", [("moe", True, 6), ("is_encoder", True, 7),
                                               ("frontend", "vision_stub", 7)])
 def test_check_supported_names_the_roadmap_item(field, value, item):
-    """Encoder-only and frontend configs still raise, each naming the
-    ROADMAP.md section 1 item that ports it; SSM and hybrid configs run. The
-    MoE case (item 6's single-card part, now ported) checks that MoE configs
-    pass."""
-    cfg = pconfigs.get_config("qwen2_5_32b").reduced().with_(**{field: value})
-    if field == "moe":
-        pz.check_supported(cfg)
-        for name in ("granite_moe_1b", "llama4_maverick_400b"):
-            pz.check_supported(pconfigs.get_config(name))
-    else:
-        with pytest.raises(NotImplementedError, match=rf"module item {item}\)"):
-            pz.check_supported(cfg)
-    for name in ("mamba2_1_3b", "zamba2_1_2b"):
+    """Every family the ROADMAP.md section 1 items ported passes
+    ``check_supported``: MoE (item 6's single-card part), encoder-only and
+    frontend configs (item 7), SSM and hybrid configs; a model of the field
+    builds and runs a forward on the CPU."""
+    experts = dict(n_experts=4, top_k=2) if field == "moe" else {}
+    cfg = pconfigs.get_config("qwen2_5_32b").reduced().with_(**{field: value}, **experts)
+    pz.check_supported(cfg)
+    model = pz.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = ({"embeddings": torch.zeros(1, 4, cfg.d_model)} if cfg.is_encoder
+             else {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    logits, _ = pz.forward(model, cfg, batch)
+    assert logits.shape == (1, 4, cfg.vocab_size), f"item {item}: {field}"
+    for name in ("mamba2_1_3b", "zamba2_1_2b", "granite_moe_1b", "llama4_maverick_400b",
+                 "hubert_xlarge", "internvl2_1b"):
         pz.check_supported(pconfigs.get_config(name))
 
 
