@@ -91,18 +91,21 @@ I=16384 serving fleet, counting the kernel launches of each:
 * phase M, training (``repro_torch.training``, ``repro_torch.data``): M1
   the flash attention backward kernel (``flash_attention_bwd``) alone at
   internvl2-1b's (causal, 14/2 heads of 64) and hubert-xlarge's
-  (bidirectional, 16/16 of 80) widths, B=2, S=1024, bf16 and f32, against
-  the autograd gradient of the plain version, beside SDPA's backward; M2
-  internvl2-1b at full width and depth in bf16 (weights from a seeded
-  ``torch.Generator``), ``make_train_step`` on one repeated
-  ``TokenPipeline`` batch of 2 x 1024 (256 patches + 768 tokens): kernels
-  5 (tensor cores) and 5b once per layer and step, the loss falling, the
-  kernel route against the plain route at full depth (recorded) and at 2
-  layers in f32 (held); M4 its state (weights, AdamW's moments) through an
-  ``AsyncCheckpointer``, restored on the card bitwise, and a run resumed
-  from it against the uninterrupted one; M3 hubert-xlarge (encoder, 48
-  layers, bf16, 1024 frame embeddings) likewise for two steps (kernel 5 on
-  its SIMT route).
+  (bidirectional, 16/16 of 80) widths, B=2, S=1024, bf16 (its tensor-core
+  route) and f32 (SIMT), against the autograd gradient of the plain
+  version and, on the tensor cores, its arithmetic stated in plain
+  PyTorch, beside SDPA's backward; M2 internvl2-1b at full width and depth
+  in bf16 (weights from a seeded ``torch.Generator``), ``make_train_step``
+  on one repeated ``TokenPipeline`` batch of 2 x 1024 (256 patches + 768
+  tokens): kernels 5 and 5b (both on the tensor cores) once per layer and
+  step, the loss falling, the kernel route against the plain route at full
+  depth (recorded) and at 2 layers in f32 (held); M4 its state (weights,
+  AdamW's moments) through an ``AsyncCheckpointer``, restored on the card
+  bitwise, and a run resumed from it against the uninterrupted one; M3
+  hubert-xlarge (encoder, 48 layers, bf16, 1024 frame embeddings) likewise
+  for two steps (kernel 5 on its SIMT route, 5b on the tensor cores at
+  head_dim 80), its full-depth f32 witness held (the kernel route's bf16
+  gap on the worst leaf within 1.5x the plain route's own).
 
 It checks the results and prints:
 
@@ -135,11 +138,13 @@ It checks the results and prints:
 * for phase L, ``moe_ffn``'s device ms and device items per call at N=4
   and N=512 with its top device items, the served run's numbers as phase
   G's, and each router's expert load max/mean and dropped fraction;
-* for phase M, kernel 5b's device ms per call beside SDPA's backward and
-  its bound; per trained model its steps' loss, grad norm and wall ms, the
-  launches of kernels 5 and 5b, the busy share and top device items of a
-  profiled step, the peak device memory, the route gaps, and the
-  checkpoint's bytes and seconds and whether the resumed run is bitwise;
+* for phase M, kernel 5b's route, device ms per call and per pass beside
+  SDPA's backward and its bound, and its TFLOP/s on the bound's five
+  products and on the nine it does; per trained model its steps' loss,
+  grad norm and wall ms, the launches of kernels 5 and 5b, the busy share
+  and top device items of a profiled step, the peak device memory, the
+  route gaps, and the checkpoint's bytes and seconds and whether the
+  resumed run is bitwise;
 * one JSON line ``{"kernels": [...]}`` (eight kernels: the seven TPU
   kernels' counterparts and the flash attention backward; the slot
   kernel's row carries its batched entry under ``"batched"``, rows 2 and 3
@@ -147,7 +152,8 @@ It checks the results and prints:
   5 and 6 their launches on phase L's served run under ``"moe_launches"``,
   row 5 its launches on phase M's M2 and M3 steps under
   ``"train_launches"`` and ``"encoder_launches"``, the backward's row its
-  M3 launches under ``"encoder_launches"``), then, last,
+  M3 launches under ``"encoder_launches"``, its route under
+  ``"kernel_route"`` and its passes' ms under ``"passes_ms"``), then, last,
   ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full f32: TF32 is switched off for cuBLAS
@@ -216,8 +222,20 @@ MOE_SERVE_LAYERS = 8
 # CKPT_RESUME_STEPS steps; hubert-xlarge (48 layers, bf16) ENCODER_STEPS steps on 1024 frames
 BWD_DIMS = {"internvl2-1b": (2, 14, 2, 64, True), "hubert-xlarge": (2, 16, 16, 80, False)}
 BWD_ENTRY = ("internvl2-1b", "bfloat16")  # the kernels line's case
+# kernel 5b's device functions by route (the tensor-core route sums the G heads' partials
+# only when G > 1); its tensor-core route against its arithmetic in plain PyTorch
+# (flash_attention_bwd_tc_plain): both round P and dS to bf16 as operands and the gradients at
+# the end, so they part where float32 sums in another order flip a rounding (one bf16 ulp of
+# the largest element is at most 2^-7 of the scale)
+BWD_PASSES = {"tc": ("flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkv_kernel",
+                     "flash_bwd_tc_reduce_kernel"),
+              "simt": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+BWD_TC_TOL = 1e-2
 TRAIN_B, TRAIN_S, TRAIN_LR = 2, 1024, 1e-4
 TRAIN_STEPS, ENCODER_STEPS, CKPT_RESUME_STEPS = 4, 2, 2
+# hubert-xlarge's full-depth witness, held: the kernel route's bf16 gradient on the worst leaf
+# at most this many times as far from the f32 plain route as the plain route's bf16 gradient
+WITNESS_FACTOR = 1.5
 
 
 def check(cond: bool, what: str) -> None:
@@ -1254,31 +1272,33 @@ def counters():
 
 
 def route_counters():
+    """The route counters of kernels 5, 6 and 5b: {kernel: (tensor cores, SIMT)}."""
     from repro_torch.kernels import decode_attention as kda
     from repro_torch.kernels import flash_attention as kfa
 
-    return {"flash_attention": kfa, "decode_attention": kda}
+    return {"flash_attention": (kfa.launches_tc, kfa.launches_simt),
+            "decode_attention": (kda.launches_tc, kda.launches_simt),
+            "flash_attention_bwd": (kfa.launches_bwd_tc, kfa.launches_bwd_simt)}
 
 
 def kernel_routes():
-    """Launches of each route of kernels 5 and 6 (tensor cores, SIMT) since
-    the last reset: {kernel: {"tc": n, "simt": n}}."""
-    return {name: {"tc": m.launches_tc.n, "simt": m.launches_simt.n}
-            for name, m in route_counters().items()}
+    """Launches of each route of kernels 5, 6 and 5b (tensor cores, SIMT)
+    since the last reset: {kernel: {"tc": n, "simt": n}}."""
+    return {name: {"tc": tc.n, "simt": simt.n} for name, (tc, simt) in route_counters().items()}
 
 
 def all_on_tensor_cores(n):
-    """The routes expected when every launch of kernels 5 and 6 in the
-    counts ``n`` took the tensor cores (bf16 at head_dim 64 or 128)."""
+    """The routes expected when every launch of kernels 5, 6 and 5b in the
+    counts ``n`` took the tensor cores (bf16 at their tensor-core head_dims)."""
     return {name: {"tc": n[name], "simt": 0} for name in route_counters()}
 
 
 def reset_counts():
     for c in counters().values():
         c.reset()
-    for m in route_counters().values():
-        m.launches_tc.reset()
-        m.launches_simt.reset()
+    for tc, simt in route_counters().values():
+        tc.reset()
+        simt.reset()
 
 
 def read_counts():
@@ -3583,10 +3603,13 @@ def library_sdpa_backward(q, k, v, dout, causal):
 def flash_bwd_checks(card, cuda):
     """M1: kernel 5b alone at internvl2-1b's widths (causal, Hq 14 / Hkv 2,
     D 64) and hubert-xlarge's (bidirectional, 16/16, D 80), B=2, S=1024, in
-    bf16 and f32: dQ, dK, dV against the autograd gradient of the plain
-    version within ``ATT_TOL`` of each gradient's scale, two runs bitwise;
-    device ms per call beside SDPA's backward and the bound. Returns the
-    kernels line's row (``BWD_ENTRY``)."""
+    bf16 (the tensor-core route) and f32 (SIMT): dQ, dK, dV against the
+    autograd gradient of the plain version within ``ATT_TOL`` of each
+    gradient's scale, the tensor-core route also against its statement in
+    plain PyTorch within ``BWD_TC_TOL``, two runs bitwise, launches on the
+    route ``bwd_route`` names; device ms per call and per pass beside SDPA's
+    backward and the bound, TFLOP/s on the bound's five products and on the
+    nine the kernels do. Returns the kernels line's row (``BWD_ENTRY``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as kf
@@ -3595,6 +3618,7 @@ def flash_bwd_checks(card, cuda):
     for widths, (B, Hq, Hkv, D, causal) in BWD_DIMS.items():
         for name in ("bfloat16", "float32"):
             dtype, S = getattr(torch, name), TRAIN_S
+            route = kf.bwd_route(dtype, D)
             g = torch.Generator(device=cuda).manual_seed(D)
             q, k, v, dout = (torch.randn((B, h, S, D), generator=g, device=cuda).to(dtype)
                              for h in (Hq, Hkv, Hkv, Hq))
@@ -3603,9 +3627,11 @@ def flash_bwd_checks(card, cuda):
             again = kf.flash_attention_bwd_call(q, k, v, dout, causal)
             want = kf.flash_attention_bwd_plain(q, k, v, dout, causal)
             torch.cuda.synchronize()
-            check(read_counts() == dict(ZERO_COUNTS, flash_attention_bwd=2),
-                  f"M1 launches {read_counts()}")
-            label = f"M1 flash backward {widths} S={S} {name} causal={causal}"
+            routes = kernel_routes()["flash_attention_bwd"]
+            check(read_counts() == dict(ZERO_COUNTS, flash_attention_bwd=2)
+                  and routes == {r: 2 * (r == route) for r in ("tc", "simt")},
+                  f"M1 launches {read_counts()}, routes {routes}, expected 2 on {route}")
+            label = f"M1 flash backward {widths} S={S} {name} causal={causal} ({route})"
             gaps = [float((a.float() - w.float()).abs().max()) / float(w.float().abs().max())
                     for a, w in zip(got, want)]
             print(f"{label}: dq/dk/dv gap of scale {gaps[0]:.3e}/{gaps[1]:.3e}/{gaps[2]:.3e} "
@@ -3613,27 +3639,44 @@ def flash_bwd_checks(card, cuda):
             check(max(gaps) <= ATT_TOL[name], f"{label}: kernel vs plain beyond {ATT_TOL[name]}")
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{label}: two kernel runs differ")
+            if route == "tc":
+                stmt = kf.flash_attention_bwd_tc_plain(q, k, v, dout, causal)
+                sgaps = [float((a.float() - w.float()).abs().max()) / float(w.float().abs().max())
+                         for a, w in zip(got, stmt)]
+                print(f"  against its statement (flash_attention_bwd_tc_plain): dq/dk/dv gap of "
+                      f"scale {sgaps[0]:.3e}/{sgaps[1]:.3e}/{sgaps[2]:.3e} (limit {BWD_TC_TOL}) "
+                      f"[{card}]")
+                check(max(sgaps) <= BWD_TC_TOL, f"{label}: kernel vs its statement beyond "
+                                                f"{BWD_TC_TOL}")
+                del stmt
             err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
             worst = max(worst, err)
             del got, again, want
             n = 10
             kernel = partial(kf.flash_attention_bwd_call, q, k, v, dout, causal)
             sdpa = library_sdpa_backward(q, k, v, dout, causal)
-            passes = {"flash_bwd_dq_kernel": 1, "flash_bwd_dkv_kernel": 1}
-            ms = device_ms(kernel, n, expect=passes)
+            passes = {f: 1 for f in BWD_PASSES[route]
+                      if f != "flash_bwd_tc_reduce_kernel" or Hq > Hkv}
+            parts = {}
+            ms = device_ms(kernel, n, parts=parts, expect=passes)
             event_ms = time_calls(kernel, n)
             library_ms, library_event_ms = device_ms(sdpa, n), time_calls(sdpa, n)
             plain_ms = time_calls(lambda: kf.flash_attention_bwd_plain(q, k, v, dout, causal), 3)
             nbytes, flops, bound_ms, bound_by = bwd_bound(B, Hq, Hkv, S, D, causal, dtype)
-            print(f"  device ms per call: kernel {ms:.4f}, library (SDPA backward) "
-                  f"{library_ms:.4f}; event ms per call: kernel {event_ms:.4f}, SDPA "
-                  f"{library_event_ms:.4f}, plain {plain_ms:.4f}; bound {bound_ms:.4f} ms "
-                  f"({bound_by}: {nbytes} bytes, {flops} flops); kernel "
-                  f"{flops / ms / 1e9:.2f} TFLOP/s, SDPA {flops / library_ms / 1e9:.2f} [{card}]")
+            flops9 = flops // 5 * 9  # S and dP twice, dQ; S^T, dP^T, dV, dK
+            print(f"  device ms per call: kernel {ms:.4f} ("
+                  + ", ".join(f"{kernel_base(f)} {t:.4f}" for f, t in parts.items())
+                  + f"), library (SDPA backward) {library_ms:.4f}; event ms per call: kernel "
+                  f"{event_ms:.4f}, SDPA {library_event_ms:.4f}, plain {plain_ms:.4f}; bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, {flops} flops); kernel "
+                  f"{flops / ms / 1e9:.2f} TFLOP/s on the bound's 5 products, "
+                  f"{flops9 / ms / 1e9:.2f} on the 9 it does; SDPA "
+                  f"{flops / library_ms / 1e9:.2f} [{card}]")
             if (widths, name) == BWD_ENTRY:
                 entry = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=library_ms,
-                             library_event_ms=library_event_ms)
+                             library_event_ms=library_event_ms, kernel_route=route,
+                             passes_ms={kernel_base(f): t for f, t in parts.items()})
             del q, k, v, dout, sdpa
             torch.cuda.empty_cache()
     return {"name": "flash_attention_bwd", "route": "cuda",
@@ -3702,11 +3745,11 @@ def route_gaps(cfg, model, batch, rs, witness=False):
                           worst_plain=plain_bf16[j], worst_plain_at=names[j]))
 
 
-def train_run(cfg, tcfg, state, batch, n_steps, card, label, route):
+def train_run(cfg, tcfg, state, batch, n_steps, card, label, routes):
     """``n_steps`` train steps on one repeated batch, each counted and timed
-    (synchronised); checks each step's launches (kernels 5, on ``route``,
-    and 5b once per layer, no other kernel) and finite loss and grad norm.
-    Returns (losses, step ms, launches summed)."""
+    (synchronised); checks each step's launches (kernels 5 and 5b once per
+    layer, each on its route in ``routes``, no other kernel) and finite
+    loss and grad norm. Returns (losses, step ms, launches summed)."""
     import torch
 
     from repro_torch.training import train_loop as ptl
@@ -3724,9 +3767,10 @@ def train_run(cfg, tcfg, state, batch, n_steps, card, label, route):
         n = read_counts()
         want = dict(ZERO_COUNTS, flash_attention=cfg.n_layers, flash_attention_bwd=cfg.n_layers)
         check(n == want, f"{label} step {i}: launches {n}, expected {want}")
-        routes = kernel_routes()["flash_attention"]
-        check(routes == {r: cfg.n_layers * (r == route) for r in ("tc", "simt")},
-              f"{label} step {i}: forward launches off the {route} route: {routes}")
+        for kernel, route in routes.items():
+            got = kernel_routes()[kernel]
+            check(got == {r: cfg.n_layers * (r == route) for r in ("tc", "simt")},
+                  f"{label} step {i}: {kernel} launches off the {route} route: {got}")
         check(np.isfinite(loss) and np.isfinite(gnorm), f"{label} step {i}: not finite")
         print(f"{label} step {i}: loss {loss:.6f}, grad norm {gnorm:.4f}, lr "
               f"{float(met['lr']):.3e}, {walls[-1]:.2f} ms; launches flash_attention="
@@ -3736,13 +3780,16 @@ def train_run(cfg, tcfg, state, batch, n_steps, card, label, route):
     return losses, walls, total
 
 
-def train_model(arch, card, cuda, n_steps):
+def train_model(arch, card, cuda, n_steps, hold_witness=False):
     """M2 (internvl2-1b) or M3 (hubert-xlarge) at full width and depth in
     bf16: the model drawn from a seeded ``torch.Generator`` with gradients
     on, ``n_steps`` train steps on one repeated batch (the loss must fall),
     one more step profiled (busy share, top device items), the peak device
     memory; then the full-depth gap between the kernel and the plain route
-    (recorded) and, at 2 layers in f32, the same gap (held within 1e-4).
+    (recorded) with its f32 witness (held with ``hold_witness``: on the
+    worst leaf, the kernel route's bf16 gap to f32 within
+    ``WITNESS_FACTOR`` times the plain route's own) and, at 2 layers in
+    f32, the same gap (held within 1e-4).
     Returns (the state after the steps, the config, the train config, the
     batch, the launches of the timed steps)."""
     import torch
@@ -3760,9 +3807,11 @@ def train_model(arch, card, cuda, n_steps):
     model = state["params"]
     n_params = sum(p.numel() for p in model.parameters())
     batch = train_batch(cfg, cuda)
-    route = kf.route(torch.bfloat16, cfg.resolved_head_dim)
+    routes = {"flash_attention": kf.route(torch.bfloat16, cfg.resolved_head_dim),
+              "flash_attention_bwd": kf.bwd_route(torch.bfloat16, cfg.resolved_head_dim)}
     print(f"phase M model: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
-          f"heads, head_dim {cfg.resolved_head_dim} (flash route {route}), d_ff {cfg.d_ff}, "
+          f"heads, head_dim {cfg.resolved_head_dim} (flash route {routes['flash_attention']}, "
+          f"backward route {routes['flash_attention_bwd']}), d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab_size}, {cfg.n_layers} layers, {cfg.param_dtype}, "
           f"{'encoder' if cfg.is_encoder else 'causal decoder'}, frontend {cfg.frontend}: "
           f"{n_params} parameters; batch {TRAIN_B} x {TRAIN_S} "
@@ -3786,7 +3835,7 @@ def train_model(arch, card, cuda, n_steps):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, walls, total = train_run(cfg, tcfg, state, batch, n_steps, card, f"M {cfg.name}",
-                                     route)
+                                     routes)
     peak = torch.cuda.max_memory_allocated()
     check(losses[-1] < losses[0], f"M {cfg.name}: the loss did not fall: {losses}")
     print(f"  {n_steps} steps: loss {losses[0]:.6f} -> {losses[-1]:.6f}; step wall ms median "
@@ -3794,7 +3843,7 @@ def train_model(arch, card, cuda, n_steps):
           f"memory {peak} bytes ({peak / 2**30:.3f} GiB) [{card}]")
     step = ptl.make_train_step(cfg, tcfg)
     profile_run(lambda: step(state, batch), top=8, suffix=f" [{card}]",
-                also=("flash_bwd", "flash_simt", "flash_tc"))
+                also=(*BWD_PASSES["tc"], *BWD_PASSES["simt"], "flash_simt", "flash_tc"))
     # the kernel route against the plain route: the full-depth bf16 gap, recorded
     t1 = time.perf_counter()
     loss_gap, grad_gap, where, f32 = route_gaps(cfg, model, batch, state["router_state"],
@@ -3805,6 +3854,13 @@ def train_model(arch, card, cuda, n_steps):
           f"gap is {f32['plain']:.3e} by the plain route in bf16 and {f32['kernel']:.3e} by the "
           f"kernel route in bf16; the plain route's worst bf16 gap {f32['worst_plain']:.3e} "
           f"({f32['worst_plain_at']}); {time.perf_counter() - t1:.1f} s [{card}]")
+    ratio = f32["kernel"] / max(f32["plain"], 1e-30)
+    print(f"  witness: the kernel route's bf16 gap to f32 on {where} is {ratio:.3f}x the plain "
+          f"route's own (limit {WITNESS_FACTOR}, {'held' if hold_witness else 'recorded'}) "
+          f"[{card}]")
+    if hold_witness:
+        check(ratio <= WITNESS_FACTOR, f"M {cfg.name}: the kernel route's bf16 gap to f32 on "
+                                       f"{where} is {ratio:.3f}x the plain route's own")
     torch.cuda.empty_cache()
     return state, cfg, tcfg, batch, total
 
@@ -3906,7 +3962,7 @@ def training_path(card, cuda):
     print(f"  M4 {time.perf_counter() - t0:.1f} s [{card}]")
 
     t0 = time.perf_counter()
-    state, *_, m3 = train_model("hubert_xlarge", card, cuda, ENCODER_STEPS)
+    state, *_, m3 = train_model("hubert_xlarge", card, cuda, ENCODER_STEPS, hold_witness=True)
     del state
     torch.cuda.empty_cache()
     two_layer_f32_gap("hubert_xlarge", card, cuda)

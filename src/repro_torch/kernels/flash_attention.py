@@ -36,15 +36,29 @@ takes :func:`flash_attention_plain` for CPU tensors only.
 The backward pass (``csrc/flash_attention_bwd.cu``, :func:`flash_attention_bwd_call`)
 replaces no TPU kernel: the reference differentiates its plain attention
 with XLA. From q, k, v and the output's gradient it computes dQ, dK and dV
-in two passes on the CUDA cores in float32 (pass A a block per query-row
-tile: the row statistics, D = rowsum(P·dP) over the recomputed P and dP,
-and dQ; pass B a block per key tile: dK and dV over the G query heads of
-its KV head),
-both types and any head_dim up to ``MAX_HEAD_DIM``, no atomics (two runs
-are bitwise equal). Its plain version is the autograd gradient of
-:func:`flash_attention_plain` (:func:`flash_attention_bwd_plain`), which
-the tests and ``chip_smoke.py`` compare it with; ``kernels.ops`` never
-takes it on the card.
+(the forward's output is not read), with D = rowsum(P·dP) over the
+recomputed P and dP in float32, no atomics (two runs are bitwise equal).
+Two routes, chosen by :func:`bwd_route` before the launch:
+
+* ``"tc"`` — bfloat16 at head_dim 64, 80 or 128: every product on the
+  tensor cores (``mma.sync`` m16n8k16, float32 accumulators). Pass A, a
+  block per (64 query rows, query head, request), writes the rows' lse and
+  D, then dQ, with dS rounded to bf16 as an operand; pass B, a block per
+  (64 keys, query head, request), takes Sᵀ and dPᵀ and accumulates dV and
+  dK with Pᵀ and dSᵀ rounded to bf16, each query head's float32 partials
+  summed over the G heads of a KV head in ascending order by a third
+  kernel (skipped when G = 1). Every pointer and row stride must be 16-byte
+  aligned; the wrapper raises otherwise.
+  :func:`flash_attention_bwd_tc_plain` states its arithmetic in plain
+  PyTorch.
+* ``"simt"`` — float32, and bfloat16 at any other head_dim up to
+  ``MAX_HEAD_DIM``: two passes on the CUDA cores in float32 (pass A a block
+  per query-row tile of a KV head: the row statistics, D and dQ; pass B a
+  block per key tile: dK and dV over the G query heads of its KV head).
+
+Its plain version is the autograd gradient of :func:`flash_attention_plain`
+(:func:`flash_attention_bwd_plain`), which the tests and ``chip_smoke.py``
+compare it with; ``kernels.ops`` never takes it on the card.
 """
 from __future__ import annotations
 
@@ -56,19 +70,26 @@ import torch
 from ._build import LaunchCounter
 
 __all__ = ["flash_attention_call", "flash_attention_plain", "flash_attention_bwd_call",
-           "flash_attention_bwd_plain", "route", "launches", "launches_tc", "launches_simt",
-           "launches_bwd", "check_dtype", "MAX_HEAD_DIM", "TC_HEAD_DIMS"]
+           "flash_attention_bwd_plain", "flash_attention_bwd_tc_plain", "route", "bwd_route",
+           "launches", "launches_tc", "launches_simt", "launches_bwd", "launches_bwd_tc",
+           "launches_bwd_simt", "check_dtype", "MAX_HEAD_DIM", "TC_HEAD_DIMS",
+           "BWD_TC_HEAD_DIMS"]
 
 #: launches of either CUDA kernel (one per :func:`flash_attention_call`)
 launches = LaunchCounter()
 #: launches of the tensor-core kernel, and of the SIMT kernel
 launches_tc = LaunchCounter()
 launches_simt = LaunchCounter()
-#: launches of the backward kernels (one per :func:`flash_attention_bwd_call`, both passes)
+#: launches of the backward kernels (one per :func:`flash_attention_bwd_call`, every pass)
 launches_bwd = LaunchCounter()
+#: launches of the backward's tensor-core route, and of its SIMT route
+launches_bwd_tc = LaunchCounter()
+launches_bwd_simt = LaunchCounter()
 
 MAX_HEAD_DIM = 256  # the largest NS*32 instantiated in the SIMT kernel
 TC_HEAD_DIMS = (64, 128)  # the head dims instantiated in the tensor-core kernel
+BWD_TC_HEAD_DIMS = (64, 80, 128)  # those of the backward's tensor-core route
+BWD_TC_ROWS = 64  # rows of a tile of the backward's tensor-core passes (BT_ROWS in the source)
 
 _P = ctypes.c_void_p
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -93,7 +114,10 @@ def _bwd_library():
     lib.flash_attention_bwd_run.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P]
-    lib.flash_attention_bwd_run.restype = ctypes.c_int
+    lib.flash_attention_bwd_tc_run.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_float, _P]
+    lib.flash_attention_bwd_run.restype = lib.flash_attention_bwd_tc_run.restype = ctypes.c_int
     return lib
 
 
@@ -117,6 +141,24 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a call of this type and head_dim takes: ``"tc"`` (tensor
     cores) for bfloat16 at head_dim 64 or 128, ``"simt"`` otherwise."""
     return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "simt"
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel a call of this type and head_dim takes: ``"tc"``
+    (tensor cores) for bfloat16 at head_dim 64, 80 or 128, ``"simt"``
+    otherwise (float32: TF32 would break its 2e-5 limit)."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in BWD_TC_HEAD_DIMS else "simt"
+
+
+def _check_aligned(name, **tensors):
+    """Raises unless every pointer and every stride but the last (in bytes)
+    of ``tensors`` is a multiple of 16, as the tensor-core kernels' 16-byte
+    loads and stores need."""
+    misaligned = [key for key, t in tensors.items()
+                  if t.data_ptr() % 16 or any(st * t.element_size() % 16 for st in t.stride()[:3])]
+    if misaligned:
+        raise ValueError(f"{name}: the tensor-core kernel needs 16-byte aligned pointers and "
+                         f"strides; {', '.join(misaligned)} is not")
 
 
 def _check_shapes(name, q, k, v):
@@ -155,12 +197,7 @@ def flash_attention_call(q, k, v, causal: bool = True):
     B, Hq, Hkv, S, D = _check_shapes("flash_attention_call", q, k, v)
     kernel = route(dtype, D)
     if kernel == "tc":
-        elem = q.element_size()
-        misaligned = [name for name, t in (("q", q), ("k", k), ("v", v))
-                      if t.data_ptr() % 16 or any(st * elem % 16 for st in t.stride()[:3])]
-        if misaligned:
-            raise ValueError(f"flash_attention_call: the tensor-core kernel needs 16-byte aligned "
-                             f"pointers and strides; {', '.join(misaligned)} is not")
+        _check_aligned("flash_attention_call", q=q, k=k, v=v)
     out = _model_layout(B, Hq, S, D, q)
     if q.numel() == 0:
         return out
@@ -198,13 +235,15 @@ def flash_attention_plain(q, k, v, causal: bool = True):
 def flash_attention_bwd_call(q, k, v, dout, causal: bool = True):
     """The gradients (dq, dk, dv) of :func:`flash_attention_call`'s output
     attention(q, k, v) for the output gradient ``dout``, computed by the
-    CUDA backward kernel, which recomputes the attention weights (the
-    forward's output is not needed): q, dout (B, Hq, S, D), k, v
-    (B, Hkv, S, D), one type (float32 or bfloat16) on one card, the head
-    dimension contiguous (``dout`` is made so if it is not), ``k`` and ``v``
-    with the same strides. The gradients come in the inputs' types, laid out
-    (B, S, H, D) in memory like the forward's output. Raises on CPU tensors,
-    on what the kernel does not take, and on a failed build or launch."""
+    CUDA backward kernels of the route :func:`bwd_route` names, which
+    recompute the attention weights (the forward's output is not needed):
+    q, dout (B, Hq, S, D), k, v (B, Hkv, S, D), one type (float32 or
+    bfloat16) on one card, the head dimension contiguous (``dout`` is made
+    so if it is not), ``k`` and ``v`` with the same strides. The gradients
+    come in the inputs' types, laid out (B, S, H, D) in memory like the
+    forward's output. Raises on CPU tensors, on what the kernel does not take
+    (on the tensor-core route, a pointer or stride that is not 16-byte
+    aligned), and on a failed build or launch."""
     dtype = check_dtype("flash_attention_bwd_call", q, k, v, dout)
     B, Hq, Hkv, S, D = _check_shapes("flash_attention_bwd_call", q, k, v)
     if dout.shape != q.shape:
@@ -212,24 +251,36 @@ def flash_attention_bwd_call(q, k, v, dout, causal: bool = True):
                          f"{tuple(q.shape)}; got {tuple(dout.shape)}")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
+    kernel = bwd_route(dtype, D)
     dq, dk, dv = _model_layout(B, Hq, S, D, q), _model_layout(B, Hkv, S, D, k), \
         _model_layout(B, Hkv, S, D, k)
+    if kernel == "tc":
+        _check_aligned("flash_attention_bwd_call", q=q, k=k, v=v, dout=dout, dq=dq, dk=dk, dv=dv)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    # the row statistics (lse) and D = rowsum(P * dP) that pass A hands to pass B
-    scratch = torch.empty((2, B, Hq, S), dtype=torch.float32, device=q.device)
     strides = torch.tensor([*q.stride()[:3], *k.stride()[:3], *dout.stride()[:3],
                             *dq.stride()[:3], *dk.stride()[:3]], dtype=torch.int64)
     lib = _bwd_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_bwd_run(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), B, Hq, Hkv,
-        S, D, strides.data_ptr(), int(bool(causal)), 1.0 / math.sqrt(D),
-        int(dtype == torch.bfloat16), stream)
+    # the row statistics (lse) and D = rowsum(P * dP) that pass A hands to pass B; the
+    # tensor-core passes read them in whole tiles of BWD_TC_ROWS rows
+    rows = -(-S // BWD_TC_ROWS) * BWD_TC_ROWS if kernel == "tc" else S
+    stats = torch.empty((2, B, Hq, rows), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr())
+    shape = (B, Hq, Hkv, S, D, strides.data_ptr(), int(bool(causal)), 1.0 / math.sqrt(D))
+    if kernel == "tc":
+        # each query head's float32 partial dK and dV, summed over the G heads of a KV head
+        part = (torch.empty((2, B, Hq, S, D), dtype=torch.float32, device=q.device)
+                if Hq > Hkv else None)
+        err = lib.flash_attention_bwd_tc_run(*args, None if part is None else part.data_ptr(),
+                                             *shape, stream)
+    else:
+        err = lib.flash_attention_bwd_run(*args, *shape, int(dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"flash attention backward kernel failed: CUDA error {err}")
+        raise RuntimeError(f"flash attention backward kernel ({kernel}) failed: CUDA error {err}")
     launches_bwd.n += 1
+    (launches_bwd_tc if kernel == "tc" else launches_bwd_simt).n += 1
     return dq, dk, dv
 
 
@@ -241,3 +292,37 @@ def flash_attention_bwd_plain(q, k, v, dout, causal: bool = True):
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = flash_attention_plain(*leaves, causal)
         return torch.autograd.grad(out, leaves, dout)
+
+
+def flash_attention_bwd_tc_plain(q, k, v, dout, causal: bool = True, rounded: bool = True):
+    """The arithmetic of the backward's tensor-core route in plain PyTorch,
+    on any device: S = q·kᵀ/sqrt(D) masked, lse and P = exp(S - lse),
+    dP = dO·vᵀ and D = Σ P·dP in float32, dS = P (dP - D); dQ = dS·k/sqrt(D)
+    and, per query head, dK = dSᵀ·q/sqrt(D) and dV = Pᵀ·dO in float32,
+    with P and dS rounded to bfloat16 where the kernels round them (as the
+    operands of dV, dQ and dK) when ``rounded``; each KV head's dK and dV the
+    sum of its G query heads' in ascending g. Returns (dq, dk, dv) in the
+    inputs' type, shaped as q, k, v."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, Hkv, G, S, D)
+    gg = dout.float().reshape(B, Hkv, G, S, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -math.inf)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", gg, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    if rounded:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk_heads = torch.einsum("bhgqk,bhgqd->bhgkd", ds, qg) * scale
+    dv_heads = torch.einsum("bhgqk,bhgqd->bhgkd", p, gg)
+    dk, dv = dk_heads[:, :, 0], dv_heads[:, :, 0]
+    for g in range(1, G):
+        dk, dv = dk + dk_heads[:, :, g], dv + dv_heads[:, :, g]
+    return dq.reshape(B, Hq, S, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

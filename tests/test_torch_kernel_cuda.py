@@ -36,8 +36,11 @@ states and dropped fractions, y within 1e-5 of max |y|, two runs bitwise.
 The flash attention backward kernel matches the autograd gradient of the
 plain version within 2e-5 (float32) / 2e-2 (bfloat16) of each gradient's
 scale at internvl2-1b's and hubert-xlarge's widths, GQA, head_dim up to 256
-and ragged S, repeats bitwise, runs under ``kernels.ops.flash_attention``'s
-autograd, and a reduced train step's gradients on the kernel route match the
+and ragged S, repeats bitwise, and counts its route (bf16 at head_dim 64,
+80 and 128 on the tensor cores, the rest SIMT); the tensor-core route
+matches its arithmetic stated in plain PyTorch within 1e-2 and raises on a
+misaligned pointer or stride; the kernel runs under
+``kernels.ops.flash_attention``'s autograd, and a reduced train step's gradients on the kernel route match the
 plain route within 1e-4; ``ssd_intra_chunk`` raises when a CUDA input
 requires grad (no SSD backward kernel yet).
 Run on the machine with the card:
@@ -578,22 +581,78 @@ def test_flash_attention_bwd_kernel_matches_plain_version(cuda_device, B, Hq, Hk
     plain version, within 2e-5 (float32) / 2e-2 (bfloat16) of each
     gradient's scale, at internvl2-1b's (14/2 heads of 64) and
     hubert-xlarge's (16/16 of 80) widths, GQA, head_dim up to 256 and S no
-    multiple of a tile; two runs bitwise (no atomics)."""
+    multiple of a tile; two runs bitwise (no atomics). bf16 at head_dim 64,
+    80 and 128 takes the tensor-core route, float32 and head_dims 48 and 256
+    the SIMT route, as the route counters show."""
     from repro_torch.kernels import flash_attention as kf
 
     rng = np.random.default_rng(S + D)
     q, k, v = (_randn(rng, (B, h, S, D), dtype, cuda_device) for h in (Hq, Hkv, Hkv))
     dout = _randn(rng, (B, Hq, S, D), dtype, cuda_device)
-    kf.launches_bwd.reset()
+    for c in (kf.launches_bwd, kf.launches_bwd_tc, kf.launches_bwd_simt):
+        c.reset()
     got = kf.flash_attention_bwd_call(q, k, v, dout, causal)
     again = kf.flash_attention_bwd_call(q, k, v, dout, causal)
     want = kf.flash_attention_bwd_plain(q, k, v, dout, causal)
     torch.cuda.synchronize()
-    assert kf.launches_bwd.n == 2
+    tc = dtype == "bfloat16" and D in (64, 80, 128)
+    assert kf.bwd_route(q.dtype, D) == ("tc" if tc else "simt")
+    assert (kf.launches_bwd.n, kf.launches_bwd_tc.n, kf.launches_bwd_simt.n) == \
+        ((2, 2, 0) if tc else (2, 0, 2))
     for name, g, a, w, x in zip("qkv", got, again, want, (q, k, v)):
         assert g.shape == x.shape and g.dtype == x.dtype
         assert _scale_gap(g, w) <= ATT_TOL[dtype], name
         assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(2, 14, 2, 300, 64), (2, 16, 16, 200, 80),
+                                          (1, 8, 2, 129, 128), (1, 7, 1, 65, 64)])
+def test_flash_attention_bwd_tc_kernel_matches_its_statement(cuda_device, B, Hq, Hkv, S, D,
+                                                             causal):
+    """The tensor-core route against ``flash_attention_bwd_tc_plain`` (its
+    arithmetic in plain PyTorch, held against the reference's jax.grad on
+    the CPU by tests/test_torch_flash_bwd_design.py) on the same card
+    inputs, within 1e-2 of each gradient's scale: both round P and dS to
+    bf16 as operands and the gradients to bf16 at the end, so they part
+    only where float32 sums in another order (and exp2 for exp) flip a
+    rounding; one bf16 ulp of the largest element is at most 2^-7 of the
+    scale."""
+    from repro_torch.kernels import flash_attention as kf
+
+    rng = np.random.default_rng(S + D + 1)
+    q, k, v = (_randn(rng, (B, h, S, D), "bfloat16", cuda_device) for h in (Hq, Hkv, Hkv))
+    dout = _randn(rng, (B, Hq, S, D), "bfloat16", cuda_device)
+    kf.launches_bwd_tc.reset()
+    got = kf.flash_attention_bwd_call(q, k, v, dout, causal)
+    want = kf.flash_attention_bwd_tc_plain(q, k, v, dout, causal)
+    torch.cuda.synchronize()
+    assert kf.launches_bwd_tc.n == 1
+    for name, g, w in zip("qkv", got, want):
+        assert _scale_gap(g, w) <= 1e-2, name
+
+
+def test_flash_attention_bwd_tc_kernel_raises_on_misaligned_strides(cuda_device):
+    """The tensor-core route needs every pointer and row stride 16-byte
+    aligned, dout's too: a view 2 bytes off a 16-byte boundary, or a row
+    stride of 66 elements, raises before any launch; the SIMT route (f32)
+    takes the same views."""
+    from repro_torch.kernels import flash_attention as kf
+
+    kv = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device=cuda_device)
+    q = torch.zeros((1, 4, 8, 64), dtype=torch.bfloat16, device=cuda_device)
+    wide = torch.zeros((1, 4, 8, 72), dtype=torch.bfloat16, device=cuda_device)
+    rows66 = torch.zeros((1, 4, 8, 66), dtype=torch.bfloat16, device=cuda_device)[..., :64]
+    kf.launches_bwd.reset()
+    for bad in ({"q": wide[..., 1:65]}, {"dout": wide[..., 1:65]}, {"dout": rows66}):
+        args = dict(q=q, k=kv, v=kv, dout=q) | bad
+        with pytest.raises(ValueError, match="aligned"):
+            kf.flash_attention_bwd_call(args["q"], args["k"], args["v"], args["dout"])
+    assert kf.launches_bwd.n == 0
+    dq, dk, dv = kf.flash_attention_bwd_call(q.float(), kv.float(), kv.float(),
+                                             rows66.float())
+    torch.cuda.synchronize()
+    assert kf.launches_bwd.n == 1 and dq.shape == q.shape
 
 
 def test_flash_attention_gradients_flow_through_the_kernels(cuda_device):
