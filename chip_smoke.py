@@ -52,8 +52,8 @@ I=16384 serving fleet, counting the kernel launches of each:
   bitwise its own ``simulate``; the dyadic sweep against the CPU and every
   batched call against the batched plain version; the paper profile's
   Fig. 6ab and Fig. 5 grids (``benchmarks/torch_figures.py``) against the
-  CPU (of Fig. 6ab, the outer V columns: 14 of its 28 scenarios), whose
-  runs follow the card's;
+  CPU (of Fig. 6ab, the last V column: 7 of its 28 scenarios; of Fig. 5,
+  the W=0 column: 7 of 14), whose runs follow the card's;
 * phase J, observability (``metrics=``, span tracing, the obs dump; no
   kernel of its own): J1 the metric streams of both ported engines on the
   dyadic system — the card's equal the CPU's, metrics on leave every
@@ -75,8 +75,8 @@ I=16384 serving fleet, counting the kernel launches of each:
   the scan engine bitwise, one launch a slot; K2 the paper profile, the
   event loop against ``cohort-fused`` at the reference's floors; K3
   ``benchmarks/torch_systems.py``'s ``cohort_scale`` on the fleet at I=1024
-  and 16384 (the loop on a truncated horizon, extrapolated), each loop run
-  profiled; K4 its event-gap rows, the card's events equal to the CPU's;
+  (shuffle, potus) and 16384 (potus) (the loop on a truncated horizon,
+  extrapolated), each loop run profiled; K4 its event-gap rows, the card's events equal to the CPU's;
 * phase L, the mixture-of-experts decoder (``models/moe.py``; no kernel of
   its own): L1 ``moe_ffn`` alone at granite-moe-1b widths in f32, on the
   card against the port on the CPU (selections, keep masks, loads and
@@ -94,18 +94,29 @@ I=16384 serving fleet, counting the kernel launches of each:
   (bidirectional, 16/16 of 80) widths, B=2, S=1024, bf16 (its tensor-core
   route) and f32 (SIMT), against the autograd gradient of the plain
   version and, on the tensor cores, its arithmetic stated in plain
-  PyTorch, beside SDPA's backward; M2 internvl2-1b at full width and depth
+  PyTorch, the bf16 route timed beside SDPA's backward; M2 internvl2-1b at full width and depth
   in bf16 (weights from a seeded ``torch.Generator``), ``make_train_step``
   on one repeated ``TokenPipeline`` batch of 2 x 1024 (256 patches + 768
   tokens): kernels 5 and 5b (both on the tensor cores) once per layer and
   step, the loss falling, the kernel route against the plain route at full
-  depth (recorded) and at 2 layers in f32 (held); M4 its state (weights,
-  AdamW's moments) through an ``AsyncCheckpointer``, restored on the card
-  bitwise, and a run resumed from it against the uninterrupted one; M3
+  depth (recorded) and at 2 layers in f32 (held); M4 the state (weights,
+  AdamW's moments) of its full width at 2 of its 24 layers after 4 steps
+  through an ``AsyncCheckpointer``, restored on the card bitwise, and a run
+  resumed from it against the uninterrupted one; M3
   hubert-xlarge (encoder, 48 layers, bf16, 1024 frame embeddings) likewise
   for two steps (kernel 5 on its SIMT route, 5b on the tensor cores at
   head_dim 80), its full-depth f32 witness held (the kernel route's bf16
-  gap on the worst leaf within 1.5x the plain route's own).
+  gap on the worst leaf within 1.5x the plain route's own);
+* phase N, the instance-sharded engines (``core/sharded.py`` on
+  ``torch.distributed``): N1 one NCCL rank in this process,
+  ``simulate(EngineSpec(engine="cohort-fused", sharded=True,
+  use_pallas=True))`` on the I=16384 fleet — the slot kernel once a slot,
+  bitwise path 1; N2 four gloo ranks sharing the card
+  (``distributed.world.spawn_world``): the I=16 dyadic cases of
+  ``tests/test_torch_sharded.py`` (cohort-fused potus/shuffle/jsq with and
+  without a restart, chunks, ``use_pallas``, ``engine="sharded"``) bitwise
+  the dense port on the card on every rank, and the fleet at T=16 on the
+  compact route within rtol 1e-4 a slot, its collectives' payload counted.
 
 It checks the results and prints:
 
@@ -145,9 +156,14 @@ It checks the results and prints:
   and top device items of a profiled step, the peak device memory, the
   route gaps, and the checkpoint's bytes and seconds and whether the
   resumed run is bitwise;
+* for phase N, N1's and path 1's wall ms per slot in turns, N2's wall ms
+  per slot on each rank, the share of it in collectives and the payload
+  per slot;
 * one JSON line ``{"kernels": [...]}`` (eight kernels: the seven TPU
   kernels' counterparts and the flash attention backward; the slot
-  kernel's row carries its batched entry under ``"batched"``, rows 2 and 3
+  kernel's row carries its batched entry under ``"batched"`` and its
+  launches on phase N's one-rank and four-rank runs under
+  ``"sharded_launches"``, rows 2 and 3
   their launches on phase K's host loops under ``"cohort_launches"``, rows
   5 and 6 their launches on phase L's served run under ``"moe_launches"``,
   row 5 its launches on phase M's M2 and M3 steps under
@@ -233,6 +249,9 @@ BWD_PASSES = {"tc": ("flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkv_kernel",
 BWD_TC_TOL = 1e-2
 TRAIN_B, TRAIN_S, TRAIN_LR = 2, 1024, 1e-4
 TRAIN_STEPS, ENCODER_STEPS, CKPT_RESUME_STEPS = 4, 2, 2
+# M4 checkpoints internvl2-1b at full width cut to CKPT_LAYERS of its 24 layers, trained
+# TRAIN_STEPS steps on M2's batch (its state ~1.7 GB: the 151655-row embedding leads)
+CKPT_LAYERS = 2
 # hubert-xlarge's full-depth witness, held: the kernel route's bf16 gradient on the worst leaf
 # at most this many times as far from the f32 plain route as the plain route's bf16 gradient
 WITNESS_FACTOR = 1.5
@@ -2452,15 +2471,16 @@ def ssm_path(card, cuda):
 # phase F and phase I: scenario sweeps (core/sweep.py, run_fused_sweep)
 # ---------------------------------------------------------------------------
 
-#: the V columns of I3's Fig. 6ab grid that the CPU runs (the grid's first and last)
-I3_CPU_VS = (1, 20)
+#: the V columns of I3's Fig. 6ab grid that the CPU runs (the grid's last), and the
+#: window of Fig. 5's V x W grid it runs (W=0: 7 of its 14 scenarios)
+I3_CPU_VS, I3_CPU_FIG5_W = (20,), 0
 
 
 def cpu_run(name):
     """The port's run on the CPU that phase F or I3 holds the card against:
     ``transient`` (phase F's W=2 scenarios), ``fig6ab`` (I3: the V columns
-    ``I3_CPU_VS`` of the grid, all its predictors) or ``fig5`` (I3); returns
-    (sweep, wall s). It runs after the card's run it is held against, so no
+    ``I3_CPU_VS`` of the grid, all its predictors) or ``fig5`` (I3: its V
+    column at ``W = I3_CPU_FIG5_W``); returns (sweep, wall s). It runs after the card's run it is held against, so no
     timed phase runs beside it."""
     import torch
 
@@ -2472,9 +2492,11 @@ def cpu_run(name):
         if name == "transient":
             grid = tf.transient_grid("cpu", T=300, windows=(2,))
             return grid[6], grid[7]
-        if name == "fig6ab":  # the grid's outer V columns: 14 of its 28 scenarios
+        if name == "fig6ab":  # the grid's last V column: 7 of its 28 scenarios
             return tf.fig6ab_sweep("cpu", vs=I3_CPU_VS)[3:]
-        return tf.fig5_sweep("fat-tree", "cpu")[3:]
+        sys_ = tf.paper_system("fat-tree")  # fig5_sweep's grid at one window
+        spec = tf.SweepSpec(V=tuple(float(v) for v in tf.FIG5_VS), window=(I3_CPU_FIG5_W,))
+        return tf._sweep(sys_, tf.arrivals_for(sys_, "trace", tf.T_SIM), tf.T_SIM, spec, "cpu")
     finally:
         torch.set_num_threads(threads)
 
@@ -2726,12 +2748,15 @@ def sweep_path(card, cuda, fleet=None):
     sys5, arr5, _, sw5, wall5 = tf.fig5_sweep("fat-tree", cuda)
     sw5c, wall5c = cpu_run("fig5")
     worst = {}
-    for (scn, a), (_, b) in zip(sw5, sw5c):
+    for scn, a in sw5:
         check(np.isfinite(a.backlog).all() and a.backlog.shape == (tf.T_SIM,), "I3 Fig. 5")
+    for scn, b in sw5c:
+        a = sw5.result(V=scn.V, window=scn.window)
         for f in ("avg_backlog", "avg_cost"):
             worst[f] = max(worst.get(f, 0.0), rel_diff(getattr(a, f), getattr(b, f)))
     print(f"I3: Fig. 5 grid on the scan engine, {len(sw5)} scenarios in {sw5.n_batches} "
-          f"partitions, T={tf.T_SIM}: card {wall5:.3f} s, CPU {wall5c:.3f} s; worst card vs CPU "
+          f"partitions, T={tf.T_SIM}: card {wall5:.3f} s; its {len(sw5c)} scenarios at W="
+          f"{I3_CPU_FIG5_W} against the CPU's ({wall5c:.3f} s); worst card vs CPU "
           f"rel diff of the means " + ", ".join(f"{f} {v:.3e}" for f, v in worst.items())
           + f" [{card}]")
     check(worst["avg_backlog"] <= 0.10 and worst["avg_cost"] <= 0.02,
@@ -3009,6 +3034,9 @@ ORACLE_SCHEDULERS = ("potus", "potus-loop", "shuffle", "jsq")
 # K3's event-loop horizons on the fleet, extrapolated to FLEET_T as
 # benchmarks/systems_bench.py:186-188 does (the loop's per-slot cost is T-independent)
 ORACLE_PY_T = {1024: 8, 16384: 1}
+# K3's cells, (sizes, schedulers): at I=16384 the potus loop only (a slot of the
+# shuffle loop there took ~21 s and was cut; its I=1024 row stays)
+ORACLE_CELLS = (((1024,), ("shuffle", "potus")), ((16384,), ("potus",)))
 ORACLE_GAP_T = 200  # K4's horizon: the event-gap rows of benchmarks/workload.py:118-140
 
 
@@ -3191,15 +3219,18 @@ class LoopProfile:
 
 def oracle_scale(card):
     """K3: ``benchmarks/torch_systems.py``'s ``cohort_scale`` on the fleet at
-    I=1024 and 16384, T=128, potus and shuffle: the event loop's wall ms a
+    T=128 (``ORACLE_CELLS``: shuffle and potus at I=1024, potus at 16384):
+    the event loop's wall ms a
     slot (on ORACLE_PY_T slots, extrapolated) beside the fused engine's,
     and from the loop's profile the device ms a slot of kernel 2, of the
     copy of X back and the busy share. Returns kernel 2's launches."""
     import benchmarks.torch_systems as ts
 
     prof = LoopProfile()
-    rows = ts.cohort_scale_rows("cuda", sizes=tuple(ORACLE_PY_T), T=FLEET_T,
-                                python_T=lambda I, T: ORACLE_PY_T[I], observe=prof)
+    rows = [row for sizes, scheds in ORACLE_CELLS
+            for row in ts.cohort_scale_rows("cuda", sizes=sizes, T=FLEET_T, schedulers=scheds,
+                                            python_T=lambda I, T: ORACLE_PY_T[I],
+                                            observe=prof)]
     for row in rows:
         print(f"  K3 {row.csv()} [{card}]")
     launches = 0
@@ -3607,9 +3638,10 @@ def flash_bwd_checks(card, cuda):
     autograd gradient of the plain version within ``ATT_TOL`` of each
     gradient's scale, the tensor-core route also against its statement in
     plain PyTorch within ``BWD_TC_TOL``, two runs bitwise, launches on the
-    route ``bwd_route`` names; device ms per call and per pass beside SDPA's
-    backward and the bound, TFLOP/s on the bound's five products and on the
-    nine the kernels do. Returns the kernels line's row (``BWD_ENTRY``)."""
+    route ``bwd_route`` names; in bf16 the device ms per call and per pass
+    beside SDPA's backward and the bound, TFLOP/s on the bound's five
+    products and on the nine the kernels do (the f32 route is held, not
+    timed). Returns the kernels line's row (``BWD_ENTRY``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as kf
@@ -3652,6 +3684,10 @@ def flash_bwd_checks(card, cuda):
             err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
             worst = max(worst, err)
             del got, again, want
+            if name == "float32":  # the SIMT route is held above, not timed
+                del q, k, v, dout
+                torch.cuda.empty_cache()
+                continue
             n = 10
             kernel = partial(kf.flash_attention_bwd_call, q, k, v, dout, causal)
             sdpa = library_sdpa_backward(q, k, v, dout, causal)
@@ -3887,8 +3923,24 @@ def two_layer_f32_gap(arch, card, cuda):
     torch.cuda.empty_cache()
 
 
+def checkpoint_state(cfg, tcfg, batch, cuda):
+    """M4's model: ``cfg`` at full width cut to ``CKPT_LAYERS`` layers,
+    drawn from the seed of M2 and trained ``TRAIN_STEPS`` steps on M2's
+    batch. Returns (its config, the train config, the state)."""
+    import torch
+
+    from repro_torch.training import train_loop as ptl
+
+    cfg = cfg.with_(n_layers=CKPT_LAYERS)
+    state = ptl.init_train_state(cfg, tcfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    step = ptl.make_train_step(cfg, tcfg)
+    for _ in range(TRAIN_STEPS):
+        state, _ = step(state, batch)
+    return cfg, tcfg, state
+
+
 def checkpoint_resume(cfg, tcfg, state, batch, card, cuda):
-    """M4: M2's state (weights, AdamW's moments and step) through an
+    """M4: a trained state (weights, AdamW's moments and step) through an
     ``AsyncCheckpointer`` (the host copy on this thread, the write on its
     own), restored on the card into a fresh state, bitwise; then
     ``CKPT_RESUME_STEPS`` more steps from each, the resumed run against the
@@ -3942,8 +3994,8 @@ def checkpoint_resume(cfg, tcfg, state, batch, card, cuda):
 
 def training_path(card, cuda):
     """Phase M: kernel 5b alone (M1); internvl2-1b trained at full width and
-    depth in bf16 (M2) and its checkpoint and resume (M4); hubert-xlarge
-    likewise (M3). Returns the kernels line's row of kernel 5b with its
+    depth in bf16 (M2); the checkpoint and resume of its full width at
+    ``CKPT_LAYERS`` layers (M4); hubert-xlarge likewise (M3). Returns the kernels line's row of kernel 5b with its
     launches on M2's steps, and kernel 5's launches on M2 and M3."""
     import torch
 
@@ -3956,8 +4008,10 @@ def training_path(card, cuda):
     two_layer_f32_gap("internvl2_1b", card, cuda)
     print(f"  M2 {time.perf_counter() - t0:.1f} s [{card}]")
     t0 = time.perf_counter()
-    resumed = checkpoint_resume(cfg, tcfg, state, batch, card, cuda)
-    del state, batch
+    del state
+    torch.cuda.empty_cache()
+    resumed = checkpoint_resume(*checkpoint_state(cfg, tcfg, batch, cuda), batch, card, cuda)
+    del batch
     torch.cuda.empty_cache()
     print(f"  M4 {time.perf_counter() - t0:.1f} s [{card}]")
 
@@ -3973,6 +4027,224 @@ def training_path(card, cuda):
     row["resume_bitwise"] = resumed
     return row, {"train_launches": m2["flash_attention"],
                  "encoder_launches": m3["flash_attention"]}
+
+
+# ---------------------------------------------------------------------------
+# phase N: the instance-sharded engines (core/sharded.py on torch.distributed)
+# ---------------------------------------------------------------------------
+
+# N2's world: four gloo ranks sharing the card, with a timeout of its own (a
+# hung rank fails the phase); the I=16 dyadic system of tests/test_torch_sharded.py
+# (its rolling restart takes down instances of two-instance components, so every
+# split stays dyadic), cut from the CPU tests' T=30 to T=16 (a gloo exchange costs
+# ~3-7 ms there, ~9 a slot), and the fleet at T=16
+SHARD_RANKS, SHARD_TIMEOUT_S = 4, 240
+SHARD_T, SHARD_RESTART, SHARD_FLEET_T = 16, (1, 7, 11), 16
+
+
+def sharded_system(pt):
+    """tests/test_sharded_cohort.py's dyadic system (I=16, divisible by 4)
+    and its dyadic rolling restart."""
+    C = pt.Component
+    apps = [[C("src", 0, True, 2, successors=(1,)),
+             C("mid", 0, False, 4, 4.0, successors=(2,)),
+             C("sink", 0, False, 2, 4.0)],
+            [C("src", 1, True, 2, successors=(1, 2), selectivity=(0.5, 0.5)),
+             C("a", 1, False, 2, 4.0, successors=(3,)),
+             C("b", 1, False, 2, 4.0, successors=(3,)),
+             C("sink", 1, False, 2, 8.0)]]
+    topo = pt.build_topology(apps, gamma=64.0)
+    sd, _ = pt.fat_tree(4)
+    net = pt.container_costs("fat-tree", sd)
+    placement = pt.t_heron_placement(topo, net, np.ones((topo.n_instances, topo.n_components)),
+                                     max_per_container=4)
+    rng = np.random.default_rng(11)
+    unit = pt.spout_rate_matrix(topo, 1.0)
+    arr = (2.0 ** rng.integers(-1, 2, size=(SHARD_T + 1, *unit.shape))).astype(np.float32)
+    arr *= rng.random((SHARD_T + 1, *unit.shape)) < 0.8
+    trace = pt.rolling_restart(topo, start=8, down_slots=2, instances=list(SHARD_RESTART)
+                               ).compile(topo, SHARD_T, placement)
+    return topo, net, placement, (arr * (unit > 0)).astype(np.float32), trace
+
+
+def sharded_cases(pt, device):
+    """(name, spec) of N2's dyadic cases, those of the CPU world of
+    tests/test_torch_sharded.py: cohort-fused potus, shuffle and jsq with and
+    without the restart (metric streams on), chunks 7 and 15, ``use_pallas``,
+    ``engine="sharded"`` with and without the restart, and its potus-loop."""
+    topo, net, placement, arr, trace = sharded_system(pt)
+    base = dict(topo=topo, net=net, placement=placement, arrivals=arr, T=SHARD_T, V=2.0,
+                device=device)
+    fused = dict(base, warmup=5, age_cap=32, sharded=True)
+    cases = [(f"{s} {tag}", pt.EngineSpec(**fused, scheduler=s, events=ev, metrics=True))
+             for s in ("potus", "shuffle", "jsq") for tag, ev in (("", None), ("restart", trace))]
+    cases += [(f"chunk {c}", pt.EngineSpec(**fused, chunk=c)) for c in (7, 15)]
+    cases += [("use_pallas", pt.EngineSpec(**fused, use_pallas=True))]
+    cases += [(f"engine sharded {tag}", pt.EngineSpec(**base, engine="sharded", events=ev,
+                                                      metrics=True))
+              for tag, ev in (("", None), ("restart", trace))]
+    cases += [("engine sharded loop", pt.EngineSpec(**base, engine="sharded",
+                                                    scheduler="potus-loop"))]
+    return cases
+
+
+def dense_twin(spec):
+    """The dense run a sharded case is held to: ``cohort-fused`` without
+    ``sharded``, ``engine="jax"`` for ``engine="sharded"``."""
+    if spec.engine == "sharded":
+        return dataclasses.replace(spec, engine="jax")
+    return dataclasses.replace(spec, sharded=False)
+
+
+def n2_rank(cases, fleet_spec):
+    """One rank of N2: every dyadic case, then the fleet run timed, with the
+    launches, the sharded routes and the collectives' payload and seconds of
+    that run (this rank's counters)."""
+    import torch
+
+    import repro_torch.core as pt
+    from repro_torch.core import sharded as psh
+    from repro_torch.distributed import PAYLOAD
+
+    entered = time.time()
+    out = {name: pt.simulate(spec) for name, spec in cases}
+    cases_s = time.time() - entered
+    reset_counts()
+    psh.ROUTES.clear()
+    PAYLOAD.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["fleet"] = pt.simulate(fleet_spec)
+    torch.cuda.synchronize()
+    out["stats"] = dict(wall_s=time.perf_counter() - t0, launches=read_counts(),
+                        routes=psh.route_counts(), elements=PAYLOAD.n(),
+                        collective_s=PAYLOAD.seconds, calls=PAYLOAD.calls, entered=entered,
+                        cases_s=cases_s)
+    return out
+
+
+def sharded_path(card, cuda, fleet=None):
+    """Phase N, the instance-sharded engines (``core/sharded.py``): N1 one
+    NCCL rank in this process, ``sharded=True`` with ``use_pallas`` on the
+    I=16384 fleet (T=128): the slot kernel's route, bitwise path 1, kernel 1
+    once a slot, wall ms per slot beside path 1's in turns; N2 four gloo
+    ranks sharing the card (``spawn_world``): the dyadic cases bitwise the
+    dense port on the card, every rank the same, the fleet at T=16 within
+    rtol 1e-4 a slot of the dense port, the compact route (kernel 1 launched
+    0 times), the counted payload per slot against
+    ``cohort_slot_payload_floats``, wall ms per slot and the collectives'
+    share. Callable alone after ``card_setup`` and ``build_kernels``
+    (kernel 1); builds the fleet itself when not given. Returns
+    ``{"1": N1's kernel 1 launches, "4": N2's}``."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.core as pt
+    from repro_torch.core import sharded as psh
+    from repro_torch.distributed import spawn_world
+
+    t_phase = time.perf_counter()
+    topo, net, placement, arr = fleet if fleet is not None else fleet_system(pt, FLEET_I,
+                                                                            FLEET_T)
+    base = dict(topo=topo, net=net, placement=placement, scheduler="potus", V=FLEET_V,
+                window=FLEET_W, age_cap=FLEET_AGE_CAP, device="cuda")
+
+    # -- N1: one NCCL rank, in this process -----------------------------------------
+    dense_spec = pt.EngineSpec(**base, arrivals=arr, T=FLEET_T)
+    shard_spec = dataclasses.replace(dense_spec, sharded=True, use_pallas=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            dense = pt.simulate(dense_spec)
+            reset_counts()
+            psh.ROUTES.clear()
+            shard = pt.simulate(shard_spec)
+            torch.cuda.synchronize()
+            n1, routes = read_counts(), psh.route_counts()
+            walls = {"dense": [], "sharded": []}
+            for which in ("dense", "sharded", "sharded", "dense"):
+                spec = dense_spec if which == "dense" else shard_spec
+                walls[which].append(timed_runs(lambda: pt.simulate(spec), FLEET_T, 1)[0])
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    same = same_result(shard, dense)
+    print(f"N1 one {backend} rank: cohort-fused potus sharded=True use_pallas I={FLEET_I} "
+          f"T={FLEET_T}: route {routes}, launches " + " ".join(f"{k}={v}" for k, v in n1.items())
+          + f"; bitwise path 1's dense run: {same}")
+    print(f"  wall ms/slot in turns (dense, sharded, sharded, dense): sharded "
+          f"{walls['sharded'][0]:.4f}, {walls['sharded'][1]:.4f}; path 1 "
+          f"{walls['dense'][0]:.4f}, {walls['dense'][1]:.4f} [{card}]")
+    check(routes == {"kernel": 1} and n1 == dict(ZERO_COUNTS, potus_slot=FLEET_T),
+          f"N1: route {routes}, launches {n1}")
+    check(same, "N1: the one-rank sharded run differs from path 1's dense run")
+
+    # -- N2: four gloo ranks sharing the card ------------------------------------------
+    cases = sharded_cases(pt, "cuda")
+    want = {name: pt.simulate(dense_twin(spec)) for name, spec in cases}
+    fleet_spec = dataclasses.replace(shard_spec, use_pallas=False, T=SHARD_FLEET_T,
+                                     arrivals=arr[:SHARD_FLEET_T + FLEET_W + 1])
+    fleet_dense = pt.simulate(dense_twin(fleet_spec))
+    torch.cuda.synchronize()
+    t0, started = time.perf_counter(), time.time()
+    outs = spawn_world(n2_rank, SHARD_RANKS, "gloo", SHARD_TIMEOUT_S, (cases, fleet_spec))
+    world_s = time.perf_counter() - t0
+    for name, _ in cases:
+        for r, out in enumerate(outs):
+            got, ok = out[name], True
+            if hasattr(got, "final_state"):
+                ok = all(np.array_equal(getattr(got, f), getattr(want[name], f))
+                         for f in ("backlog", "comm_cost", "q_in_total", "q_out_total",
+                                   "served_total"))
+            else:
+                ok = same_result(got, want[name])
+            if got.metrics is not None:  # every stream but the payload (0 on one card)
+                ok = ok and all(np.array_equal(got.metrics.streams[k], v) or k == "payload"
+                                for k, v in want[name].metrics.streams.items())
+            check(ok, f"N2 {name}: rank {r} differs from the dense port on the card")
+    print(f"N2 {SHARD_RANKS} gloo ranks on the card, the I=16 dyadic system T={SHARD_T}: "
+          f"{len(cases)} cases ({', '.join(n for n, _ in cases)}), each rank bitwise the dense "
+          f"port on the card: True")
+    topo16, net16 = sharded_system(pt)[:2]
+    payload = psh.cohort_slot_payload_floats(topo16.n_instances, topo16.n_components,
+                                             net16.U.shape[0], 32 + 1, SHARD_RANKS)
+    got = {name: float(outs[0][name].metrics.streams["payload"][0, 0])
+           for name in ("potus restart", "potus ", "engine sharded ")}
+    print(f"  counted payload per slot: potus with the restart {got['potus restart']} (formula "
+          f"{payload}), without {got['potus ']} (the formula less the C={topo16.n_components} "
+          f"alive counts), engine=sharded {got['engine sharded ']} (2I+5 = "
+          f"{2 * topo16.n_instances + 5})")
+    check(got == {"potus restart": payload, "potus ": payload - topo16.n_components,
+                  "engine sharded ": 2 * topo16.n_instances + 5}, f"N2 payload {got}")
+
+    stats = [out["stats"] for out in outs]
+    fl = [out["fleet"] for out in outs]
+    check(all(same_result(f, fl[0]) for f in fl[1:]), "N2 fleet: the ranks' results differ")
+    r_slot = max(rel_diff(fl[0].backlog, fleet_dense.backlog),
+                 rel_diff(fl[0].comm_cost, fleet_dense.comm_cost))
+    C, K, atot = topo.n_components, net.U.shape[0], FLEET_AGE_CAP + FLEET_W + 1
+    formula = psh.cohort_slot_payload_floats(topo.n_instances, C, K, atot, SHARD_RANKS)
+    per_slot = [s["elements"] / SHARD_FLEET_T for s in stats]
+    wall_ms = [s["wall_s"] * 1e3 / SHARD_FLEET_T for s in stats]
+    share = [s["collective_s"] / s["wall_s"] for s in stats]
+    print(f"N2 fleet I={FLEET_I} potus T={SHARD_FLEET_T} on {SHARD_RANKS} gloo ranks: per-slot "
+          f"backlog/cost rel diff to the dense port {r_slot:.3e} (limit 1e-4); routes "
+          f"{stats[0]['routes']}, launches " + " ".join(
+              f"{k}={v}" for k, v in stats[0]["launches"].items())
+          + f"; payload per slot {per_slot[0]:.0f} elements (formula {formula}, less C={C}: "
+          f"{formula - C}), {stats[0]['calls'] / SHARD_FLEET_T:.0f} collectives a slot")
+    print(f"  wall ms/slot per rank: " + ", ".join(f"{w:.3f}" for w in wall_ms)
+          + "; share in collectives: " + ", ".join(f"{x:.3f}" for x in share)
+          + f"; the world {world_s:.1f} s: the ranks up after "
+          + ", ".join(f"{s['entered'] - started:.1f}" for s in stats) + " s, the dyadic cases "
+          + ", ".join(f"{s['cases_s']:.1f}" for s in stats) + f" s [{card}]")
+    check(r_slot <= 1e-4, f"N2 fleet: per-slot rel diff {r_slot} beyond 1e-4")
+    check(all(s["routes"] == {"compact": 1} for s in stats)
+          and all(s["launches"] == ZERO_COUNTS for s in stats),
+          f"N2 fleet: routes/launches {[(s['routes'], s['launches']) for s in stats]}")
+    check(all(p == formula - C for p in per_slot), f"N2 fleet: payload per slot {per_slot}")
+    print(f"  phase N {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"1": n1["potus_slot"], str(SHARD_RANKS): stats[0]["launches"]["potus_slot"]}
 
 
 def slot_kernel(card, cuda):
@@ -4120,7 +4392,8 @@ def card_setup():
     power limit (``nvidia-smi``) and the device. A section called alone
     (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``,
     ``sweep_path``, ``obs_path``, ``oracle_path``, ``moe_path``,
-    ``training_path``) starts with this and :func:`build_kernels`."""
+    ``training_path``, ``sharded_path``) starts with this and
+    :func:`build_kernels`."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4214,7 +4487,10 @@ def run_phases(pt, cf, card, cuda) -> int:
     bwd_kernel, flash_train = training_path(card, cuda)
     attention_kernels[0].update(flash_train)
 
-    # -- 13. the kernels line, 14. the last line ---------------------------------
+    # -- 13. phase N: the instance-sharded engines (kernel 1 on one rank) ------------
+    slot.row["sharded_launches"] = sharded_path(card, cuda, slot.fleet)
+
+    # -- 14. the kernels line, 15. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel, bwd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
 """Fused cohort engine in PyTorch — response-time semantics, one step per
 slot (DESIGN.md §8).
 
-The port's counterpart of ``repro.core.cohort_fused``, without the instance
-mesh: one scenario (``simulate``) or a sweep's grid
-(:func:`run_fused_sweep`), whose partitions run N scenarios each. Every FIFO
+The port's counterpart of ``repro.core.cohort_fused``: one scenario
+(``simulate``) or a sweep's grid (:func:`run_fused_sweep`), whose partitions
+run N scenarios each, on one device or over an instance mesh of ranks
+(``sharded=True``, below). Every FIFO
 is an age-by-source-slot mass matrix (see the reference module and
 DESIGN.md §8). State, each with a leading scenario axis N:
 
@@ -31,6 +32,15 @@ picks the route from the run's spec before anything runs:
   slot, each scenario in turn, on the full (I, I) problem, with the drain
   and split in ``kernels.ops.cohort_drain_split`` (streams or not).
 
+``sharded=True`` (DESIGN.md §13) runs the scan over ``core.sharded``'s
+instance mesh, SPMD on ``torch.distributed`` (:meth:`_Fleet.sharded_runner`):
+each rank holds its rows of every stream, state tensor and event row for the
+whole run, while ``U``, ``comp_count`` and the response accumulators stay
+whole on every rank. The route rule is the reference's: on a one-rank mesh
+with ``use_pallas``, ``potus``, no events and no streams the slot kernel runs
+exactly as on the dense route; otherwise each scenario in turn runs
+``compact_slot_step`` with the collectives (identities on one rank).
+
 With ``metrics=`` every slot also yields the selected streams' rows; they
 stay on the device with the chunk's metrics and become each result's
 ``metrics`` frame. Each chunk runs under the span
@@ -53,6 +63,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.context import PAYLOAD, rank_device
 from ..kernels import ops as kops
 from ..obs.metrics import build_frame
 from ..obs.trace import span as obs_span
@@ -62,6 +73,7 @@ from .compact import (COMPACT_SCHEDULERS, _EPS, StepConsts, _check_columns, _dra
                       kernel_layout, slot_streams)
 from .network import NetworkCosts
 from .potus import _schedule_with, _u_pair, caps_for_slot, make_problem
+from .sharded import ROUTES, Mesh, instance_mesh
 from .simulator import (_POTUS_METHODS, SimConfig, _StreamRows, host_trace,
                         materialize_arrivals, pad_arrivals, stacked_host_traces)
 from .topology import Topology
@@ -287,6 +299,18 @@ def _fused_step(c: StepConsts, prob, sched, edges: tuple, u_pair, V: float, beta
     return state, out
 
 
+#: the fields of :class:`StepConsts` with a leading instance axis
+_ROW_FIELDS = ("mu", "inv_service", "sel_cmp", "stream_cmp", "valid_cmp", "succ_map", "term_f",
+               "comp_onehot", "inst_comp", "inst_cont", "gamma", "spout_f", "adj_rows")
+
+
+def _row_consts(c: StepConsts, rows: slice) -> StepConsts:
+    """One rank's rows of the constants: the per-instance fields sliced,
+    ``U``, ``comp_count``, ``V`` and ``beta`` whole, no kernel layout."""
+    return c._replace(**{f: getattr(c, f)[rows] for f in _ROW_FIELDS}, comp_start=None,
+                      cont_rows=None, cont_start=None)
+
+
 def _step_consts(prob: _CompactProb, comp_onehot, U, mu, inv_service, sel_cmp, stream_cmp,
                  valid_cmp, succ_map, term_f, adj_rows, V, beta, layout) -> StepConsts:
     return StepConsts(
@@ -496,10 +520,39 @@ class _Fleet:
             runs.append(partial(_slot_loop, step))
         return _each_scenario(runs, shared, ev_shared)
 
+    def sharded_runner(self, mesh: Mesh, scheduler: str, Vs: list, betas: list,
+                       use_pallas: bool, has_events: bool, shared: bool, ev_shared: bool,
+                       age_cap: int, slots_per_launch: int, ops, metrics=None):
+        """The partition's ``run_chunk`` on this rank's rows of ``mesh``
+        (DESIGN.md §13), with the reference's route rule: on a one-rank mesh
+        with ``use_pallas``, ``potus``, no events and no metric streams the
+        slot kernel runs exactly as on the dense route; otherwise each
+        scenario in turn runs ``compact_slot_step`` with the collectives.
+        Each chunk adds one to :data:`~repro_torch.core.sharded.ROUTES`
+        under the route it took."""
+        if (mesh.i.size == 1 and use_pallas and scheduler == "potus" and not has_events
+                and metrics is None):
+            route = "kernel"
+            run = self.chunk_runner(scheduler, Vs, betas, False, shared, ev_shared, age_cap,
+                                    slots_per_launch, ops)
+        else:
+            route = "compact"
+            rows = mesh.rows(self.topo.n_instances)
+            run = _each_scenario([partial(_slot_loop, partial(
+                compact_slot_step, _row_consts(self.consts(V, beta), rows), scheduler=scheduler,
+                age_cap=age_cap, metrics_spec=metrics, axis=mesh.i))
+                for V, beta in zip(Vs, betas)], shared, ev_shared)
+
+        def run_chunk(*args):
+            ROUTES[route] += 1
+            return run(*args)
+        return run_chunk
+
 
 def _run_chunked_cohort(run_chunk, age_cap: int, n_components: int, act: np.ndarray,
                         pred: np.ndarray, nxt: np.ndarray, q0: np.ndarray, ev_host,
-                        ev_shared: bool, T: int, chunk: int | None, device):
+                        ev_shared: bool, T: int, chunk: int | None, device,
+                        sharded: bool = False):
     """Run the N scenarios of a partition ``chunk`` slots at a time
     (DESIGN.md §11).
 
@@ -517,7 +570,9 @@ def _run_chunked_cohort(run_chunk, age_cap: int, n_components: int, act: np.ndar
     capped, served, streams)``, each with a leading scenario axis; resp_* are
     (N, C, T + W + 1) and ``streams`` is a list of (N, T, width) metric-stream
     slabs, one per stream a chunk's run yields after its four metrics (empty
-    without metric streams), concatenated over the chunks.
+    without metric streams), concatenated over the chunks. Under sharding
+    the queues, streams and trace are this rank's rows and the response
+    accumulators whole.
     """
     N, I, Sc, W1 = q0.shape
     Atot = age_cap + W1
@@ -547,7 +602,7 @@ def _run_chunked_cohort(run_chunk, age_cap: int, n_components: int, act: np.ndar
     tc = T if chunk is None else int(chunk)
     for t0 in range(0, T, tc) or [0]:
         t1 = min(t0 + tc, T)
-        with obs_span("potus/cohort-fused/chunk", t0=t0, t1=t1, sharded=False):
+        with obs_span("potus/cohort-fused/chunk", t0=t0, t1=t1, sharded=sharded):
             acc = torch.zeros((N, n_components, t1 - t0 + Atot), **f32)
             states = carry + (acc, torch.zeros_like(acc))
             ev = None if ev_host is None else tuple(to_dev(cut(e, ev_shared, t0, t1))
@@ -582,12 +637,37 @@ def _check_opts(age_cap: int, chunk, slots_per_launch: int) -> None:
         raise ValueError(f"slots_per_launch must be >= 1, got {slots_per_launch}")
 
 
+def _run_partition(fleet: _Fleet, mesh: Mesh | None, scheduler: str, Vs: list, betas: list,
+                   use_pallas: bool, shared: bool, streams, q0, ev_host, ev_shared: bool,
+                   T: int, chunk, age_cap: int, slots_per_launch: int, ops, metrics):
+    """Run one partition of N scenarios (``streams`` = (act, pred, nxt),
+    shared or stacked; ``q0`` (N, I, Sc, W+1)) on its route; under ``mesh``
+    on this rank's rows. Returns :func:`_run_chunked_cohort`'s output and
+    the elements the collectives moved per scenario and slot (the
+    ``payload`` stream; 0 off a mesh and on one rank)."""
+    has_events = ev_host is not None
+    if mesh is None:
+        run_chunk = fleet.chunk_runner(scheduler, Vs, betas, has_events, shared, ev_shared,
+                                       age_cap, slots_per_launch, ops, metrics)
+        return _run_chunked_cohort(run_chunk, age_cap, fleet.topo.n_components, *streams, q0,
+                                   ev_host, ev_shared, T, chunk, fleet.device), 0.0
+    run_chunk = fleet.sharded_runner(mesh, scheduler, Vs, betas, use_pallas, has_events, shared,
+                                     ev_shared, age_cap, slots_per_launch, ops, metrics)
+    rows = mesh.rows(fleet.topo.n_instances)
+    ev_rows = None if ev_host is None else tuple(e[..., rows] for e in ev_host)
+    moved = PAYLOAD.n()
+    out = _run_chunked_cohort(run_chunk, age_cap, fleet.topo.n_components,
+                              *(x[..., rows, :] for x in streams), q0[:, rows], ev_rows,
+                              ev_shared, T, chunk, fleet.device, sharded=True)
+    return out, (PAYLOAD.n() - moved) / max(len(Vs) * T, 1)
+
+
 def _results(out, weights_s, reach, labels, age_cap, T, W, warmup, drain_margin,
-             metrics=None):
+             metrics=None, payload_floats=0.0):
     """One :class:`CohortResult` per scenario of a partition's run ``out``
     (``weights_s``: one arrival-weights matrix, or one per scenario), with
-    its ``metrics`` frame when ``metrics`` (a ``MetricsSpec``) is set. The
-    ``payload`` stream is 0: no collective runs off an instance mesh."""
+    its ``metrics`` frame when ``metrics`` (a ``MetricsSpec``) is set;
+    ``payload_floats`` is its ``payload`` stream."""
     resp_mass, resp_time, backlog, cost, capped, served, streams = out
     results = []
     for s, label in enumerate(labels):
@@ -598,7 +678,8 @@ def _results(out, weights_s, reach, labels, age_cap, T, W, warmup, drain_margin,
             backlog[s], cost[s], sat, float(served[s]), T, W, warmup, drain_margin)
         if metrics is not None:
             result = dataclasses.replace(result, metrics=build_frame(
-                metrics, [slab[s] for slab in streams], n_slots=T, payload_floats=0.0))
+                metrics, [slab[s] for slab in streams], n_slots=T,
+                payload_floats=payload_floats))
         results.append(result)
     return results
 
@@ -621,6 +702,8 @@ def _run_cohort_fused_impl(
     metrics=None,  # MetricsSpec | None — metric streams (DESIGN.md §14)
     device="cuda",  # the card unless the caller asks for the CPU
     ops=kops,  # the kernels' route; kernels.ops.plain compares routes on the card
+    sharded: bool = False,  # shard the scan over an instance mesh (DESIGN.md §13)
+    mesh: Mesh | None = None,  # explicit mesh (implies sharded)
 ) -> CohortResult:
     """Fused cohort engine implementation behind ``simulate(EngineSpec)``:
     the one-scenario partition of :func:`run_fused_sweep`.
@@ -634,22 +717,51 @@ def _run_cohort_fused_impl(
     concerns only the slot-kernel route (a compact scheduler without
     ``events`` or ``metrics``). The run takes ``device="cuda"`` unless the caller asks for
     the CPU, and raises where CUDA is asked for and absent.
+
+    ``sharded`` (or an explicit ``mesh``) runs the scan over an instance
+    mesh of ranks (DESIGN.md §13; :meth:`_Fleet.sharded_runner`): every
+    rank of the process group calls this with the same arguments, runs its
+    rows on its own device and returns the same result.
     """
     _check_opts(age_cap, chunk, slots_per_launch)
     device = resolve_device(device)
+    mesh = _sharded_mesh(topo, [cfg.scheduler], sharded, mesh)
+    if mesh is not None:
+        if not mesh.member:
+            return mesh.share(None)
+        device = rank_device(device)
     W = cfg.window
     actual = materialize_arrivals(actual, topo, T + W + 1)
     fleet = _Fleet(topo, net, inst_container, device, service)
     act, pred, nxt, q_rem0 = _prep_streams(actual, predicted, T, W, fleet.cpt, fleet.mask)
-    ev_host = host_trace(events, T)
-    run_chunk = fleet.chunk_runner(cfg.scheduler, [cfg.V], [cfg.beta], ev_host is not None,
-                                   True, True, age_cap, slots_per_launch, ops, metrics)
-    out = _run_chunked_cohort(run_chunk, age_cap, topo.n_components, act, pred, nxt,
-                              q_rem0[None], ev_host, True, T, chunk, device)
+    out, payload = _run_partition(fleet, mesh, cfg.scheduler, [cfg.V], [cfg.beta],
+                                  cfg.use_pallas, True, (act, pred, nxt), q_rem0[None],
+                                  host_trace(events, T), True, T, chunk, age_cap,
+                                  slots_per_launch, ops, metrics)
     weights = np.einsum("sic,ic->cs", act, fleet.mask)
-    return _results(out, [weights], _reachability(topo),
-                    [f"scheduler={cfg.scheduler} V={cfg.V} W={W}"], age_cap, T, W, warmup,
-                    drain_margin, metrics)[0]
+    result = _results(out, [weights], _reachability(topo),
+                      [f"scheduler={cfg.scheduler} V={cfg.V} W={W}"], age_cap, T, W, warmup,
+                      drain_margin, metrics, payload)[0]
+    return result if mesh is None else mesh.share(result)
+
+
+def _sharded_mesh(topo: Topology, schedulers, sharded: bool, mesh: Mesh | None):
+    """The instance mesh of a sharded run (None when it is not sharded),
+    after the reference's checks: compact schedulers only, I divisible."""
+    if mesh is None and not sharded:
+        return None
+    for scheduler in schedulers:  # fail before anything runs: no silent dense fallback
+        if scheduler not in COMPACT_SCHEDULERS:
+            from .engine import UnsupportedEngineOption  # lazy: engine imports us
+
+            raise UnsupportedEngineOption(
+                "cohort-fused", "sharded",
+                reason=f"scheduler {scheduler!r} keeps the dense (I, I) reference path; "
+                       f"sharded runs support {COMPACT_SCHEDULERS}")
+    mesh = mesh if mesh is not None else instance_mesh(topo.n_instances)
+    if topo.n_instances % mesh.i.size != 0:
+        raise ValueError(f"mesh size {mesh.i.size} does not divide I={topo.n_instances}")
+    return mesh
 
 
 def run_fused_sweep(
@@ -677,14 +789,12 @@ def run_fused_sweep(
     one kernel call a launch for all of them, on the events, metrics and
     dense routes each scenario in turn. With ``metrics`` every result carries
     its frame. Returns (results in grid order, n_batches).
-    ``spec.sharded`` raises: the instance mesh is not ported yet."""
-    _check_opts(age_cap, chunk, slots_per_launch)
-    if spec.sharded:
-        from .engine import UnsupportedEngineOption  # lazy: engine imports us
 
-        raise UnsupportedEngineOption("cohort-fused", "sharded",
-                                      reason="not ported yet (ROADMAP.md, section 1, "
-                                             "module item 5)")
+    With ``spec.sharded`` every partition runs over the instance mesh, its
+    scenarios in turn inside each rank (:meth:`_Fleet.sharded_runner`); a
+    scheduler with no shard layout (``potus-loop``) raises before any
+    partition runs."""
+    _check_opts(age_cap, chunk, slots_per_launch)
     scenarios = spec.scenarios()
     # raising lookup, like arr_map: a named trace missing from the map is a
     # caller error, not an undisturbed run silently labeled as disturbed
@@ -693,6 +803,11 @@ def run_fused_sweep(
     if missing:
         raise KeyError(f"spec names event scenarios {missing} not present in events_map")
     device = resolve_device(device)
+    mesh = _sharded_mesh(topo, [scn.scheduler for scn in scenarios], spec.sharded, None)
+    if mesh is not None:
+        if not mesh.member:
+            return mesh.share(None)
+        device = rank_device(device)
     fleet = _Fleet(topo, net, inst_container, device, service)
     reach = _reachability(topo)
 
@@ -702,7 +817,7 @@ def run_fused_sweep(
         groups.setdefault(key, []).append(scn)
 
     results: list[CohortResult | None] = [None] * len(scenarios)
-    for (scheduler, W, _, has_events), group in groups.items():
+    for (scheduler, W, use_pallas, has_events), group in groups.items():
         N = len(group)
         shared = len({scn.arrival for scn in group}) == 1
         if shared:  # one prep, one copy a chunk and one weights matrix for the partition
@@ -718,14 +833,14 @@ def run_fused_sweep(
         if has_events:
             ev_host, ev_shared = stacked_host_traces(
                 [scn.events for scn in group], [events_map[scn.events] for scn in group], T)
-        Vs, betas = [scn.V for scn in group], [scn.beta for scn in group]
-        run_chunk = fleet.chunk_runner(scheduler, Vs, betas, has_events, shared, ev_shared,
-                                       age_cap, slots_per_launch, ops, metrics)
-        out = _run_chunked_cohort(run_chunk, age_cap, topo.n_components, act, pred, nxt, q0,
-                                  ev_host, ev_shared, T, chunk, device)
+        out, payload = _run_partition(fleet, mesh, scheduler, [scn.V for scn in group],
+                                      [scn.beta for scn in group], use_pallas, shared,
+                                      (act, pred, nxt), q0, ev_host, ev_shared, T, chunk,
+                                      age_cap, slots_per_launch, ops, metrics)
         labels = [f"scheduler={scheduler} V={scn.V} W={W} arrival={scn.arrival} "
                   f"events={scn.events}" for scn in group]
         for scn, res in zip(group, _results(out, weights_s, reach, labels, age_cap, T, W,
-                                            warmup, drain_margin, metrics)):
+                                            warmup, drain_margin, metrics, payload)):
             results[scn.index] = res
-    return results, len(groups)
+    out = (results, len(groups))
+    return out if mesh is None else mesh.share(out)

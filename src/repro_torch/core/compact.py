@@ -1,8 +1,8 @@
 """One-dispatch slot math for the fused cohort engine, in PyTorch
 (DESIGN.md §12).
 
-The port's counterpart of ``repro.core.compact`` with ``axis=None``. Each
-scheduler's per-slot decision is kept in the
+The port's counterpart of ``repro.core.compact``. Each scheduler's
+per-slot decision is kept in the
 successor-component-compact form
 
     CompactDecision(shipped, point, j_point, even_per, cost)
@@ -29,6 +29,10 @@ gather; PyTorch can, and the results are equal.
 With ``metrics_spec`` (DESIGN.md §14) the step also returns the selected
 metric streams' rows (:func:`slot_streams`); the slot kernel has no streams,
 so a run with metrics takes this step, as the reference's does.
+
+With ``axis`` (DESIGN.md §13) the decision and the step run on one rank's
+block of instance rows and fold with the collectives of
+``distributed.context``: the sharded cohort-fused scan.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..distributed.context import Axis, all_gather, pmin, psum
 from ..obs.metrics import compute_scan_streams, scan_stream_names
 from .potus import _fill_components
 
@@ -98,12 +103,40 @@ def _rows_add(out: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.
     return out.index_add_(0, idx, src)
 
 
-def _u_col_sums(U: torch.Tensor, cp: CompactProblem) -> torch.Tensor:
-    """(K, C) per-component sums of alive columns of ``U[:, k_j]``."""
+def _u_col_sums(U: torch.Tensor, cp: CompactProblem, axis: Axis | None = None) -> torch.Tensor:
+    """(K, C) per-component sums of alive columns of ``U[:, k_j]``. Under
+    sharding (``axis``) the columns are this rank's instances and the (K, C)
+    partials fold with one ``psum`` (it re-associates the dense column
+    order: invisible on the dyadic tier, the identity on one rank)."""
     C = cp.comp_count.shape[0]
     u_cols = U[:, cp.inst_cont.long()] * cp.alive[None, :]  # (K, I)
     out = torch.zeros((C, U.shape[0]), dtype=U.dtype, device=U.device)
-    return _rows_add(out, cp.inst_comp.long(), u_cols.T).T
+    out = _rows_add(out, cp.inst_comp.long(), u_cols.T).T
+    return out if axis is None else psum(out, axis)
+
+
+def _fold_min_with_payload(m_loc: torch.Tensor, p_loc: torch.Tensor, sentinel: int,
+                           axis: Axis) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold a (value, payload) argmin pair across ``axis``: the global min of
+    ``m_loc`` and the smallest payload among the ranks attaining it. With
+    payloads lifted to global instance ids this is the dense engine's
+    lowest-global-index tie-break, bitwise (``pmin`` selects elements)."""
+    m = pmin(m_loc, axis)
+    p = pmin(torch.where(m_loc == m, p_loc, sentinel), axis)
+    return m, p
+
+
+def _owner_gather(idx_g: torch.Tensor, values: torch.Tensor, off: int, n_local: int,
+                  sentinel_fill: int, axis: Axis) -> torch.Tensor:
+    """``values[idx_g]`` for global instance ids ``idx_g`` when only the
+    owning rank holds ``values`` (its (n_local,) row block): the owner gives
+    the element, every other rank a large int that ``pmin`` folds away.
+    Out-of-range ids (the ``I_all`` "no target" sentinel) give
+    ``sentinel_fill``; callers read those only where the mass is zero."""
+    own = (idx_g >= off) & (idx_g < off + n_local)
+    local = torch.clamp(idx_g - off, 0, n_local - 1)
+    contrib = torch.where(own, values.long()[local], 2**30)
+    return torch.clamp_max(pmin(contrib, axis), sentinel_fill)
 
 
 def _fill_rows_sort(m, j_c, budget, gamma):
@@ -126,19 +159,27 @@ def _fill_rows_rank(m, j_c, budget, gamma):
     return torch.minimum(after, g) - torch.minimum(before, g)
 
 
-def _potus_decide(cp, U, q_in, q_out, must_send, V, beta, kernel_safe):
-    I = cp.inst_comp.shape[0]
+def _potus_decide(cp, U, q_in, q_out, must_send, V, beta, kernel_safe, axis=None):
+    I = cp.inst_comp.shape[0]  # this rank's rows under sharding
     C = cp.comp_count.shape[0]
+    I_all = I if axis is None else I * axis.size
     cont = cp.inst_cont.long()
     edge = cp.adj_rows > 0.0
     big = torch.full((), _BIG, dtype=U.dtype, device=U.device)
     # shared per-(container, component) cheapest candidate: O(K·I), no (I, I)
     t1 = torch.where((cp.alive > 0.0)[None, :], V * U[:, cont] + q_in[None, :], big)
     M, J = _colmin_per_comp(t1, cp.inst_comp, C, kernel_safe)
+    if axis is not None:
+        # fold the rank-local (M, J) into the global cheapest candidate: one
+        # small pmin pair, J lifted to global instance ids first so that the
+        # dense lowest-index tie-break holds bitwise
+        off = axis.index * I
+        J = torch.where(J < I, J + off, I_all)
+        M, J = _fold_min_with_payload(M, J, I_all, axis)
     m_raw = M[cont] - beta * q_out  # row-constant shift
     cand = edge & (m_raw < 0.0)
     m = torch.where(cand, m_raw, _INF)
-    j_c = torch.where(edge, J[cont], I)
+    j_c = torch.where(edge, J[cont], I_all)
     budget = torch.where(cand, torch.clamp_min(q_out, 0.0), 0.0)
     fill_rows = _fill_rows_rank if kernel_safe else _fill_rows_sort
     fill = fill_rows(m, j_c, budget, cp.gamma)
@@ -146,8 +187,15 @@ def _potus_decide(cp, U, q_in, q_out, must_send, V, beta, kernel_safe):
     can_even = edge & (cp.comp_count > 0.0)[None, :]
     shortfall = torch.where(can_even, torch.clamp_min(must_send - fill, 0.0), 0.0)
     even_per = shortfall / torch.clamp_min(cp.comp_count, 1.0)[None, :]
-    u_sum = _u_col_sums(U, cp)  # (K, C)
-    u_point = U[cont[:, None], cont[torch.clamp_max(j_c, I - 1)]]  # fill is 0 where j_c == I
+    u_sum = _u_col_sums(U, cp, axis)  # (K, C)
+    if axis is None:
+        u_point = U[cont[:, None], cont[torch.clamp_max(j_c, I - 1)]]  # fill is 0 where j_c == I
+    else:
+        # only the target's owning rank knows its container: one more (K, C)
+        # integer pmin; the K - 1 clamp is reached only where fill == 0
+        k_j = _owner_gather(J, cp.inst_cont, off, I, U.shape[0] - 1, axis)  # (K, C)
+        u_point = U[cont[:, None], k_j[cont]]
+    # under sharding this rank's partial; compact_slot_step folds it
     cost = (fill * u_point).sum() + (even_per * u_sum[cont]).sum()
     return CompactDecision(fill + shortfall, fill, j_c, even_per, cost)
 
@@ -160,32 +208,44 @@ def _ship_amounts_compact(cp, q_out, must_send):
     return torch.maximum(q_out * scale, must_send)
 
 
-def _shuffle_decide(cp, U, q_in, q_out, must_send, V, beta, kernel_safe):
+def _shuffle_decide(cp, U, q_in, q_out, must_send, V, beta, kernel_safe, axis=None):
     I = cp.inst_comp.shape[0]
+    I_all = I if axis is None else I * axis.size
     ship = _ship_amounts_compact(cp, q_out, must_send)
     can = (cp.adj_rows > 0.0) & (cp.comp_count > 0.0)[None, :]
     per_target = torch.where(can, ship / torch.clamp_min(cp.comp_count, 1.0)[None, :], 0.0)
     shipped = per_target * cp.comp_count[None, :]
-    u_sum = _u_col_sums(U, cp)
+    u_sum = _u_col_sums(U, cp, axis)
     cost = (per_target * u_sum[cp.inst_cont.long()]).sum()
     return CompactDecision(shipped, torch.zeros_like(ship), torch.full_like(
-        ship, I, dtype=torch.long), per_target, cost)
+        ship, I_all, dtype=torch.long), per_target, cost)
 
 
-def _jsq_decide(cp, U, q_in, q_out, must_send, V, beta, kernel_safe):
+def _jsq_decide(cp, U, q_in, q_out, must_send, V, beta, kernel_safe, axis=None):
     I = cp.inst_comp.shape[0]
     C = cp.comp_count.shape[0]
+    I_all = I if axis is None else I * axis.size
     cont = cp.inst_cont.long()
     comps = torch.arange(C, device=U.device)
     ship = _ship_amounts_compact(cp, q_out, must_send)
     # winner[c] = argmin q_in over the alive instances of c (ties -> lowest)
     cand = (cp.inst_comp.long()[:, None] == comps[None, :]) & (cp.alive > 0.0)[:, None]
-    winner = torch.argmin(torch.where(cand, q_in[:, None], _INF), dim=0)  # (C,)
-    win_ok = (cp.inst_comp.long()[winner] == comps) & (cp.alive[winner] > 0.0)
-    u_win = U[cont[:, None], cont[winner][None, :]]  # (I, C)
+    masked_q = torch.where(cand, q_in[:, None], _INF)
+    winner = torch.argmin(masked_q, dim=0)  # (C,)
+    if axis is None:
+        win_ok = (cp.inst_comp.long()[winner] == comps) & (cp.alive[winner] > 0.0)
+        u_win = U[cont[:, None], cont[winner][None, :]]  # (I, C)
+    else:
+        # fold the per-component winner as the POTUS candidate is folded:
+        # global-id lift, pmin on (value, id), an owner pmin for its container
+        off = axis.index * I
+        w_min, winner = _fold_min_with_payload(masked_q.amin(dim=0), winner + off, I_all, axis)
+        win_ok = w_min < _INF  # some alive instance of c exists on some rank
+        k_win = _owner_gather(winner, cp.inst_cont, off, I, U.shape[0] - 1, axis)
+        u_win = U[cont[:, None], k_win[None, :]]  # (I, C)
     can = (cp.adj_rows > 0.0) & win_ok[None, :]
     shipped = torch.where(can, ship, 0.0)
-    j_point = torch.where(can, winner[None, :], I)
+    j_point = torch.where(can, winner[None, :], I_all)
     cost = (shipped * u_win).sum()
     return CompactDecision(shipped, shipped, j_point, torch.zeros_like(shipped), cost)
 
@@ -194,10 +254,22 @@ _DECIDERS = {"potus": _potus_decide, "shuffle": _shuffle_decide, "jsq": _jsq_dec
 
 
 def compact_decide(scheduler: str, cp: CompactProblem, U, q_in, q_out, must_send, V, beta,
-                   kernel_safe: bool = False) -> CompactDecision:
+                   kernel_safe: bool = False, axis: Axis | None = None) -> CompactDecision:
     """One slot's scheduling decision in compact form; ``scheduler`` must be
-    in :data:`COMPACT_SCHEDULERS`."""
-    return _DECIDERS[scheduler](cp, U, q_in, q_out, must_send, V, beta, kernel_safe)
+    in :data:`COMPACT_SCHEDULERS`.
+
+    With ``axis`` (a mesh axis, ``distributed.context.Axis``) every (I, …)
+    argument is this rank's row block of the global problem, ``q_in``
+    included: the local column min covers exactly the local instances, so
+    nothing is all-gathered. ``j_point`` then holds global instance ids with
+    ``I · axis.size`` as "no target", and ``cost`` is this rank's partial
+    (``compact_slot_step`` folds it). ``axis`` and ``kernel_safe`` exclude
+    each other: the kernel's arithmetic holds no collective (DESIGN.md §13).
+    """
+    if axis is not None and kernel_safe:
+        raise ValueError("compact_decide: axis (sharded) and kernel_safe are mutually "
+                         "exclusive: a kernel body holds no collective (DESIGN.md §13)")
+    return _DECIDERS[scheduler](cp, U, q_in, q_out, must_send, V, beta, kernel_safe, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -322,11 +394,14 @@ def _drain_sources(c: StepConsts, q_rem, admit, q_out_tag, shipped_cmp, age_cap:
     return q_rem, admit, q_out_tag, src_ext, drained
 
 
-def _serve_and_shift(c: StepConsts, state, land, mu_eff, new_pred, t: int, age_cap: int):
+def _serve_and_shift(c: StepConsts, state, land, mu_eff, new_pred, t: int, age_cap: int,
+                     axis: Axis | None = None):
     """Stages 4 and 5: last slot's transit lands, bolts serve up to
     ``mu_eff``, terminal completions enter the response accumulators at
     columns ``[t, t + Atot)``, emissions join the output queues, leftover
     actuals join the admission backlog, and windows and age axes shift.
+    Under sharding (``axis``) the completed mass folds with a ``psum``, so
+    every rank's replicated accumulators see the global completions.
     Returns ``(state, capped_served, term_served)``."""
     q_rem, admit, q_in_tag, q_out_tag, transit, resp_mass, resp_time = state
     Atot = q_in_tag.shape[-1]
@@ -338,6 +413,8 @@ def _serve_and_shift(c: StepConsts, state, land, mu_eff, new_pred, t: int, age_c
     served_b = drain_ages(avail, served_amt)
     q_in_tag = (avail - served_b) * bolt_f[:, None]
     cmass = c.comp_onehot.T @ (served_b * c.term_f[:, None])  # (C, Atot)
+    if axis is not None:
+        cmass = psum(cmass, axis)
     resp_per_b = torch.clamp_min(age_cap - torch.arange(Atot, dtype=dt, device=dev), 0.0)
     cols = torch.arange(t, t + Atot, device=dev)
     resp_mass = resp_mass.index_add(1, cols, cmass)
@@ -364,30 +441,40 @@ def _check_columns(t: int, Atot: int, resp_mass) -> int:
 
 
 def slot_streams(c: StepConsts, metrics_spec, backlog, q_in_arr, recon, admit, land,
-                 capped_served, term_served) -> tuple[torch.Tensor, ...]:
+                 capped_served, term_served, axis: Axis | None = None
+                 ) -> tuple[torch.Tensor, ...]:
     """The §14 metric streams of one cohort slot (DESIGN.md §14), shared by
     the compact step and the dense route's step, as the reference computes
     them: ``landed`` is this slot's landing (I,) before the age shift, the
     price ``V * u_mean[container] + q_in``, ``held`` the admission backlog
     carried after stage 5 (``admit``), ``dropped`` the mispredicted mass the
-    reconciliation ``recon = (r, pred_m, tp, tn)`` retired."""
+    reconciliation ``recon = (r, pred_m, tp, tn)`` retired. Under sharding
+    (``axis``) the (I,) vectors are all-gathered and the sums psum'd (tag
+    ``"obs"``), so every rank emits the same global rows."""
     r, pred_m, tp, tn = recon
     fp = pred_m - tp
     landed = land.sum(-1)
+    vecs = (q_in_arr, c.V * c.U.mean(dim=0)[c.inst_cont.long()] + q_in_arr, landed)
+    comp_backlog = q_in_arr @ c.comp_onehot
+    sums = torch.stack([admit.sum(), (r * fp).sum(), tp.sum(), fp.sum(), tn.sum()])
+    if axis is not None:  # one all-gather and one psum, each of the quantities stacked
+        vecs = all_gather(torch.stack(vecs, dim=1), axis, tag="obs").unbind(1)
+        folded = psum(torch.cat([comp_backlog, sums]), axis, tag="obs")
+        comp_backlog, sums = folded[:-5], folded[-5:]
+    q_in_g, price_g, landed_g = vecs
+    held, dropped, tp_s, fp_s, tn_s = sums.unbind()
     ctx = {
-        "h": backlog, "q_in": q_in_arr,
-        "price": c.V * c.U.mean(dim=0)[c.inst_cont.long()] + q_in_arr,
-        "landed": landed, "transit_total": landed.sum(),
-        "comp_backlog": q_in_arr @ c.comp_onehot,
-        "held": admit.sum(), "dropped": (r * fp).sum(),
-        "tp": tp.sum(), "fp": fp.sum(), "tn": tn.sum(),
+        "h": backlog, "q_in": q_in_g, "price": price_g,
+        "landed": landed_g, "transit_total": landed_g.sum(),
+        "comp_backlog": comp_backlog, "held": held, "dropped": dropped,
+        "tp": tp_s, "fp": fp_s, "tn": tn_s,
         "capped": capped_served, "served": term_served,
     }
     return compute_scan_streams(scan_stream_names(metrics_spec), ctx)
 
 
 def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
-                      kernel_safe: bool = False, metrics_spec=None):
+                      kernel_safe: bool = False, metrics_spec=None, axis: Axis | None = None):
     """One slot of the cohort dynamics (stages 1-5 of DESIGN.md §8) with the
     compact one-dispatch decision — no (I, I) tensor anywhere.
 
@@ -401,6 +488,15 @@ def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
     as ``potus.apply_caps`` does on the dense problem. Returns ``(state,
     (backlog, cost, capped_served, term_served))``, followed by one row per
     selected stream of ``metrics_spec`` (a ``MetricsSpec``; DESIGN.md §14).
+
+    With ``axis`` (a mesh axis, DESIGN.md §13) every (I, …) tensor of ``c``,
+    ``state`` and ``xs`` — the disruption rows included — is this rank's row
+    block; ``c.U``, ``c.comp_count`` and the response accumulators are whole
+    on every rank. Per slot the ranks exchange the decision folds of
+    :func:`compact_decide`, the (C,) alive counts under events, the
+    (I_all, Atot) landing ``psum`` (the physical tuple transfer), the (C,
+    Atot) even-spread and served-mass psums and the two scalar metrics
+    (``core.sharded.cohort_slot_payload_floats``); nothing (I, I)-shaped.
     """
     act_t, pred_t, new_pred, t, *ev = xs
     q_rem, admit, q_in_tag, q_out_tag = state[:4]
@@ -420,6 +516,8 @@ def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
             comp_count = (alive_row[None, :] @ c.comp_onehot)[0]
         else:
             comp_count = torch.zeros((C,), dtype=dt, device=dev).index_add_(0, comp, alive_row)
+        if axis is not None:
+            comp_count = psum(comp_count, axis)
         cp = CompactProblem(c.inst_comp, c.inst_cont, gamma_row, comp_count, c.adj_rows,
                             alive_row)
         must_send = must_send * alive_row[:, None]
@@ -428,8 +526,11 @@ def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
         cp = CompactProblem(c.inst_comp, c.inst_cont, c.gamma, c.comp_count, c.adj_rows,
                             torch.ones((I,), dtype=dt, device=dev))
     dec = compact_decide(scheduler, cp, c.U, q_in_arr, q_out_arr, must_send, c.V, c.beta,
-                         kernel_safe)
+                         kernel_safe, axis)
     backlog = q_in_arr.sum() + c.beta * q_out_arr.sum()
+    cost = dec.cost
+    if axis is not None:  # the two slot scalars in one psum
+        backlog, cost = psum(torch.stack([backlog, cost]), axis).unbind()
 
     # -- 3. drain sources oldest-first, split over targets -------------------
     q_rem, admit, q_out_tag, _, drained = _drain_sources(
@@ -446,20 +547,28 @@ def compact_slot_step(c: StepConsts, state, xs, *, scheduler: str, age_cap: int,
     w_ev = torch.where(live, dec.even_per / sh_safe, 0.0)
     # point landing: only the (source, component) pairs that aim mass at an
     # instance take part (the others add +0, and on CUDA would all queue on
-    # the sentinel row I of the sort-based accumulation)
+    # the sentinel row of the sort-based accumulation). Under sharding the
+    # targets are global ids: the local sources' mass lands in the global
+    # buffer, which folds with one psum (the tuple transfer); each rank keeps
+    # its own row block
+    I_all = I if axis is None else I * axis.size
     aimed = torch.nonzero((w_pt > 0).reshape(I * C))[:, 0]
     wd = (w_pt[:, :, None] * d_dense).reshape(I * C, Atot)[aimed]
-    land = _rows_add(torch.zeros((I + 1, Atot), dtype=dt, device=dev),
-                     dec.j_point.reshape(I * C)[aimed], wd)[:I]
+    land = _rows_add(torch.zeros((I_all + 1, Atot), dtype=dt, device=dev),
+                     dec.j_point.reshape(I * C)[aimed], wd)[:I_all]
     # even spread: per-component sum, then broadcast to alive instances
     ev_cb = torch.einsum("ic,icb->cb", w_ev, d_dense)  # (C, Atot)
+    if axis is not None:  # the landing and the even spread in one psum
+        folded = psum(torch.cat([land, ev_cb]), axis)
+        land, ev_cb = folded[axis.index * I:(axis.index + 1) * I], folded[I_all:]
     land = land + cp.alive[:, None] * ev_cb[comp]
 
     # -- 4. serve, 5. admit and shift ------------------------------------------
     state, capped_served, term_served = _serve_and_shift(
-        c, (q_rem, admit, q_in_tag, q_out_tag, *state[4:]), land, mu_eff, new_pred, t, age_cap)
-    out = (backlog, dec.cost, capped_served, term_served)
+        c, (q_rem, admit, q_in_tag, q_out_tag, *state[4:]), land, mu_eff, new_pred, t, age_cap,
+        axis)
+    out = (backlog, cost, capped_served, term_served)
     if metrics_spec is not None:
         out = out + slot_streams(c, metrics_spec, backlog, q_in_arr, recon, state[1], land,
-                                 capped_served, term_served)
+                                 capped_served, term_served, axis)
     return state, out

@@ -4,14 +4,23 @@
 The port's counterpart of ``repro.core.engine``. :class:`EngineSpec` has the
 reference's fields plus ``device``; :func:`simulate` validates the spec
 against the same engine×option matrix (:data:`OPTION_SUPPORT`) and runs it.
-Three engines are ported: ``engine="cohort-fused"`` (all four schedulers,
-``events=`` and ``metrics=`` included), ``engine="jax"`` (the plain scan
-engine, ``metrics=`` included) and ``engine="cohort"`` (the Python event
-loop, the semantic oracle of the cohort engines, with ``events=``,
-``predicted=`` and ``metrics=``). Every engine, option or scheduler
-that the reference supports but the port does not yet raises
-:class:`UnsupportedEngineOption` with the reason "not ported yet"; nothing
-runs something else in its place.
+All four engines are ported: ``engine="cohort-fused"`` (all four
+schedulers, ``events=``, ``metrics=`` and ``sharded=True`` included),
+``engine="jax"`` (the plain scan engine, ``metrics=`` included),
+``engine="sharded"`` (the plain scan engine over an instance mesh of
+ranks, ``core.sharded``) and ``engine="cohort"`` (the Python event loop,
+the semantic oracle of the cohort engines, with ``events=``,
+``predicted=`` and ``metrics=``). An option an engine lacks raises
+:class:`UnsupportedEngineOption`, as in the reference; nothing runs
+something else in its place.
+
+``sharded`` appears twice, as in the reference: ``engine="sharded"`` is the
+plain scan engine row-sharded over an instance mesh (DESIGN.md §7), and
+``EngineSpec(engine="cohort-fused", sharded=True)`` shards the compact
+cohort engine (DESIGN.md §13). Both are SPMD: every rank of a
+``torch.distributed`` process group calls :func:`simulate` with the same
+spec and gets the same result; without a process group the world is one
+rank.
 
 A run takes ``device="cuda"`` unless the caller asks for the CPU. Asking for
 CUDA where there is none raises; the port never falls back to the CPU.
@@ -31,8 +40,8 @@ __all__ = ["EngineSpec", "UnsupportedEngineOption", "simulate", "ENGINES",
 #: engines of the reference facade
 ENGINES = ("jax", "sharded", "cohort", "cohort-fused")
 
-#: engines the port runs today
-PORTED_ENGINES = ("jax", "cohort", "cohort-fused")
+#: engines the port runs: all of the reference's
+PORTED_ENGINES = ENGINES
 
 #: which engines support which :class:`EngineSpec` option (an option absent
 #: here is universal) — the reference's matrix, so a spec written for the
@@ -52,9 +61,6 @@ OPTION_SUPPORT = {
     # (obs.ENGINE_STREAMS), checked by check_metrics_spec (DESIGN.md §14)
     "metrics": ("jax", "sharded", "cohort", "cohort-fused"),
 }
-
-#: per ported engine, the options the reference supports there that the port does not yet
-NOT_PORTED_OPTIONS = {"jax": (), "cohort": (), "cohort-fused": ("sharded",)}
 
 #: the reference's schedulers, all ported on every ported engine
 SCHEDULERS = ("potus", "potus-loop", "shuffle", "jsq")
@@ -80,8 +86,8 @@ class UnsupportedEngineOption(ValueError):
         self.option = option
         self.reason = reason
         supported = supported or OPTION_SUPPORT.get(option, ENGINES)
-        self.nearest = next((e for e in _NEAREST.get(engine, ENGINES)
-                             if e in supported and e in PORTED_ENGINES), None)
+        self.nearest = next((e for e in _NEAREST.get(engine, ENGINES) if e in supported),
+                            None)
         hint = (f"; the nearest engine that does is engine={self.nearest!r}"
                 if self.nearest else "")
         why = f" ({reason})" if reason else ""
@@ -147,7 +153,7 @@ class EngineSpec:
     drain_margin: int | None = None
     age_cap: int = 64
     slots_per_launch: int = 1  # slots per kernel launch (DESIGN.md §12)
-    sharded: bool = False  # instance mesh (not ported yet)
+    sharded: bool = False  # shard cohort-fused over the instance mesh (DESIGN.md §13)
     metrics: Any = None  # MetricsSpec | stream names | True (DESIGN.md §14)
     device: str = "cuda"  # "cuda" or "cpu"
 
@@ -170,13 +176,8 @@ class EngineSpec:
     def validate(self) -> None:
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; expected one of {ENGINES}")
-        if self.engine not in PORTED_ENGINES:
-            raise UnsupportedEngineOption(self.engine, "engine", supported=PORTED_ENGINES,
-                                          reason="not ported yet")
         for option in self._set_options():
             check_engine_option(self.engine, option)
-            if option in NOT_PORTED_OPTIONS[self.engine]:
-                raise UnsupportedEngineOption(self.engine, option, reason="not ported yet")
         if self.scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {self.scheduler!r}")
 
@@ -184,12 +185,12 @@ class EngineSpec:
 def simulate(spec: EngineSpec):
     """Run one fully specified simulation on ``spec.device`` and return the
     engine's result: :class:`~repro_torch.core.simulator.SimResult` for
-    ``engine="jax"``, :class:`~repro_torch.core.cohort.CohortResult` for
-    the cohort engines."""
+    the scan engines (``jax``, ``sharded``),
+    :class:`~repro_torch.core.cohort.CohortResult` for the cohort engines."""
     spec.validate()
     metrics = check_metrics_spec(spec.engine, spec.metrics)
     device = resolve_device(spec.device)
-    if spec.engine == "jax":
+    if spec.engine in ("jax", "sharded"):
         from .simulator import _run_sim_impl
 
         return _run_sim_impl(spec.topo, spec.net, spec.placement, spec.arrivals, spec.T,
@@ -210,4 +211,5 @@ def simulate(spec: EngineSpec):
         spec.T, spec.config(), warmup=spec.warmup, drain_margin=spec.drain_margin,
         age_cap=spec.age_cap, events=spec.events, service=spec.service, chunk=spec.chunk,
         slots_per_launch=spec.slots_per_launch, metrics=metrics, device=device,
+        sharded=spec.sharded,
     )

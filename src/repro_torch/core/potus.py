@@ -111,12 +111,14 @@ def hold_mask_for(prob: SchedProblem, caps: SlotCaps) -> torch.Tensor:
 
 
 def make_problem(topo: Topology, net: NetworkCosts, inst_container: np.ndarray,
-                 device="cuda") -> SchedProblem:
+                 device="cuda", rows: slice = slice(None)) -> SchedProblem:
     """The problem on ``device`` (the card unless the caller asks for the CPU;
     raises if CUDA is asked for and absent). The (I, I) ``edge_mask`` is
     gathered there from the (C, C) adjacency (``topo.edge_mask_instances()``
     on the device), so the largest tensor is never built on the host or
-    copied."""
+    copied. ``rows`` keeps a block of source rows (the sharded engine's):
+    ``edge_mask``, ``gamma`` and ``is_spout`` by row, the column metadata
+    whole."""
     device = resolve_device(device)
 
     def dev(x, dtype):
@@ -124,12 +126,12 @@ def make_problem(topo: Topology, net: NetworkCosts, inst_container: np.ndarray,
 
     comp = dev(topo.inst_comp, torch.int64)
     return SchedProblem(
-        edge_mask=dev(topo.adj, torch.bool)[comp[:, None], comp[None, :]],
+        edge_mask=dev(topo.adj, torch.bool)[comp[rows, None], comp[None, :]],
         inst_comp=dev(topo.inst_comp, torch.int32),
         inst_container=dev(inst_container, torch.int32),
-        gamma=dev(topo.inst_gamma, torch.float32),
+        gamma=dev(topo.inst_gamma, torch.float32)[rows],
         comp_count=dev(topo.comp_parallelism, torch.float32),
-        is_spout=dev(topo.comp_is_spout[topo.inst_comp], torch.bool),
+        is_spout=dev(topo.comp_is_spout[topo.inst_comp], torch.bool)[rows],
         max_succ=int(topo.max_out_instances()),
         n_components=int(topo.n_components),
     )

@@ -20,6 +20,9 @@ on the device with the chunk's metrics and become ``SimResult.metrics``, a
 ``potus/jax/chunk`` (``repro_torch.obs.trace``, off by default) mark the
 set-up and each chunk.
 
+``SimConfig(sharded=True)`` (``engine="sharded"``) runs the same dynamics
+over an instance mesh of ranks (``core.sharded.run_sim_sharded``).
+
 Also here: :class:`SimConfig`, :func:`pad_arrivals` and
 :func:`materialize_arrivals`, which the fused cohort engine shares.
 """
@@ -214,7 +217,15 @@ def _run_sim_impl(
     from .engine import UnsupportedEngineOption
 
     if cfg.sharded:
-        raise UnsupportedEngineOption("sharded", "engine", reason="not ported yet")
+        if cfg.use_pallas:
+            raise UnsupportedEngineOption("sharded", "use_pallas")
+        if chunk is not None:
+            raise UnsupportedEngineOption("sharded", "chunk")
+        from .sharded import run_sim_sharded
+
+        return run_sim_sharded(topo, net, inst_container,
+                               materialize_arrivals(arrivals, topo, T + cfg.window + 1), T, cfg,
+                               mu=mu, events=events, metrics=metrics, device=device)
     _check_mu_override(mu, events)
     if chunk is not None and chunk <= 0:
         raise ValueError(f"chunk must be a positive slot count, got {chunk}")

@@ -23,9 +23,12 @@ through the scan engine (the port's scan step has no scenario axis yet);
 partition each, as the reference does. ``engine_opts["metrics"]`` gives
 every scenario its metric streams' frame on every engine (DESIGN.md §14); a
 compact ``cohort-fused`` partition with metrics runs its scenarios in turn
-on the compact step, as its events partitions do. ``sharded`` is not ported
-yet and raises :class:`~repro_torch.core.engine.UnsupportedEngineOption`
-(on ``engine="cohort"`` the reference's own refusal).
+on the compact step, as its events partitions do. ``SweepSpec(sharded=True)``
+runs every ``cohort-fused`` partition over the instance mesh and every
+``jax`` scenario on ``engine="sharded"``, one partition each, as the
+reference does; on ``engine="cohort"`` it raises
+:class:`~repro_torch.core.engine.UnsupportedEngineOption`, the reference's
+own refusal.
 A sweep takes ``device="cuda"`` unless the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -193,11 +196,6 @@ def _normalize_events(events, spec: SweepSpec, topo: Topology, T: int,
     return out
 
 
-def _not_ported(engine: str, option: str, item: int):
-    return UnsupportedEngineOption(
-        engine, option, reason=f"not ported yet (ROADMAP.md, section 1, module item {item})")
-
-
 def run_sweep(
     topo: Topology,
     net: NetworkCosts,
@@ -235,7 +233,8 @@ def run_sweep(
         raise ValueError(f"engine_opts['chunk'] must be a positive slot count, got {chunk!r}")
     if engine not in ("jax", "cohort", "cohort-fused"):
         raise ValueError(f"unknown engine {engine!r}")
-    metrics = check_metrics_spec(engine, opts.pop("metrics", None))
+    metrics = check_metrics_spec(engine if engine != "jax" or not spec.sharded else "sharded",
+                                 opts.pop("metrics", None))
     if engine == "cohort":
         if mu is not None:
             raise UnsupportedEngineOption(engine, "mu")
@@ -243,9 +242,6 @@ def run_sweep(
             raise UnsupportedEngineOption(engine, "sharded")
         return _cohort_sweep(topo, net, inst_container, arr_map, ev_map, T, spec, scenarios,
                              metrics, opts, device)
-    if spec.sharded:
-        raise _not_ported(engine, "sharded", 5)
-
     if engine == "cohort-fused":
         if mu is not None:
             raise UnsupportedEngineOption(engine, "mu")
@@ -267,6 +263,15 @@ def run_sweep(
         # distinct 'predicted' streams only make sense on the cohort engines
         # (the scan engine takes its one stream as predicted and actual)
         check_engine_option("jax", "predicted")
+    if spec.sharded:
+        if chunk is not None:
+            check_engine_option("sharded", "chunk")
+        # the instance mesh splits the rows; scenarios run in turn, one
+        # partition each, as in the reference (DESIGN.md §7)
+        results = [_run_sim_impl(topo, net, inst_container, arr_map[scn.arrival][0], T,
+                                 scn.config(), mu=mu, events=ev_map[scn.events],
+                                 metrics=metrics, device=device) for scn in scenarios]
+        return SweepResult(spec, scenarios, results, n_batches=len(scenarios))
     groups: dict[tuple, list[Scenario]] = {}
     for scn in scenarios:
         key = (scn.scheduler, scn.window, scn.use_pallas, ev_map[scn.events] is not None)

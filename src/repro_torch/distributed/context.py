@@ -1,0 +1,157 @@
+"""The collectives of the instance-sharded engines on ``torch.distributed``
+(DESIGN.md §7, §13), the port's counterpart of the collectives that
+``repro.distributed.context.shard_map_compat`` lets the reference write
+inside ``shard_map``.
+
+The reference is one controller over many devices; the port is SPMD, one
+process per rank, every rank calling the same entry point. An :class:`Axis`
+is one axis of a mesh: the process group whose ranks fold together, their
+count and this rank's position. ``Axis()`` (:data:`SOLO`) is a world of one:
+every collective is the identity and launches nothing. The three
+collectives map as:
+
+* a tiled ``all_gather`` (:func:`all_gather`) →
+  ``dist.all_gather_single`` (``all_gather_into_tensor`` where the
+  installed torch lacks it);
+* ``psum`` (:func:`psum`) → ``all_reduce(SUM)``;
+* ``pmin`` (:func:`pmin`) → ``all_reduce(MIN)``, which selects an element, so
+  a (value, global instance id) pair folded with two of them keeps the
+  dense engine's lowest-index tie-break bitwise (DESIGN.md §13.2).
+
+Each call adds the elements it moves to :data:`PAYLOAD` under a tag:
+``"step"`` for the slot dynamics (the ``payload`` metric stream reads it),
+``"obs"`` for what only the metric streams need, ``"out"`` for replicating a
+result at the end of a run. An all-reduce of n elements moves n; a tiled
+all-gather moves the n of its output. On one rank nothing is counted.
+
+Gloo stages CUDA tensors through the host (ranks sharing a card), so the
+host waits for the producing kernels in any case; :func:`_collective`
+synchronises the card first, so that the seconds it counts are the
+collective's own.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["Axis", "SOLO", "PAYLOAD", "PayloadCounter", "all_gather", "psum", "pmin",
+           "rank_device", "require_one_rank"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One mesh axis: ``group`` (None: a world of one), its ``size`` and
+    this rank's ``index`` along it."""
+
+    group: Any = None
+    size: int = 1
+    index: int = 0
+
+
+#: the axis of a world of one: every collective is the identity
+SOLO = Axis()
+
+
+class PayloadCounter:
+    """Elements the collectives moved, by tag, since the last reset; the
+    calls that moved them and the host seconds they took."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.elements: dict[str, int] = {}
+        self.calls = 0
+        self.seconds = 0.0
+
+    def add(self, tag: str, n: int, seconds: float) -> None:
+        self.elements[tag] = self.elements.get(tag, 0) + int(n)
+        self.calls += 1
+        self.seconds += seconds
+
+    def n(self, tag: str = "step") -> int:
+        return self.elements.get(tag, 0)
+
+
+#: what every collective of this process moved (one process is one rank)
+PAYLOAD = PayloadCounter()
+
+
+def _collective(run, x: torch.Tensor, tag: str) -> torch.Tensor:
+    """``run`` on ``x`` made contiguous, counted under ``tag``. The card is
+    synchronised first, so that the seconds counted are the exchange's own
+    (gloo stages a CUDA tensor through the host and waits for the kernels
+    that produce it in any case)."""
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    out = run(x.contiguous())
+    PAYLOAD.add(tag, out.numel(), time.perf_counter() - t0)
+    return out
+
+
+def _all_reduce(x: torch.Tensor, axis: Axis, op, tag: str) -> torch.Tensor:
+    if axis.size == 1:
+        return x
+
+    def run(buf):
+        buf = buf.clone()  # all_reduce works in place
+        dist.all_reduce(buf, op, group=axis.group)
+        return buf
+    return _collective(run, x, tag)
+
+
+def psum(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axis``, on every rank."""
+    return _all_reduce(x, axis, dist.ReduceOp.SUM, tag)
+
+
+def pmin(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
+    """Elementwise minimum of ``x`` over the ranks of ``axis``, on every rank."""
+    return _all_reduce(x, axis, dist.ReduceOp.MIN, tag)
+
+
+def all_gather(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
+    """The ranks' ``x`` concatenated along dim 0 in rank order (tiled)."""
+    if axis.size == 1:
+        return x
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+    def run(buf):
+        out = buf.new_empty((axis.size * buf.shape[0], *buf.shape[1:]))
+        gather(out, buf, group=axis.group)
+        return out
+    return _collective(run, x, tag)
+
+
+def require_one_rank(what: str) -> None:
+    """Raise when ``what`` runs in a world of more than one rank: the
+    expert-parallel MoE dispatch and the data-parallel training layouts
+    (``grad_specs``, the ZeRO-1 moments) are not ported yet."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            f"{what} across {dist.get_world_size()} ranks is not ported yet (ROADMAP.md, "
+            "section 1, module item 5b); run it in a world of one rank")
+
+
+def rank_device(device: torch.device) -> torch.device:
+    """The device of this rank for a run on ``device``: ``cuda:<local rank>``
+    when the machine has that many cards; several ranks share a card only
+    under gloo (NCCL refuses two ranks on one device, so that raises)."""
+    if device.type != "cuda" or not dist.is_initialized():
+        return device
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    n = torch.cuda.device_count()
+    if local < n:
+        return torch.device("cuda", local)
+    if dist.get_backend() == "nccl":
+        raise RuntimeError(
+            f"rank {dist.get_rank()} (local rank {local}) has no card of its own ({n} on this "
+            "machine) and NCCL refuses two ranks on one device; start one rank per card, or "
+            "use the gloo backend to share a card")
+    return torch.device("cuda", local % n)

@@ -47,7 +47,9 @@ state with the sum of the layers' ``aux_loss``; ``prefill`` and
 ``decode_step`` updates the cache in place and returns it (the reference
 returns a new one). The reference's ``_constrain_cache`` is a GSPMD sharding
 hint and ``moe_ep_shardmap`` picks its expert-parallel dispatch under a
-device mesh; the port has no mesh, so both are left out.
+device mesh. In a world of one rank the port runs ``moe_ffn``, as the
+reference does without a mesh; across ranks ``moe_ep_shardmap`` raises
+(the expert-parallel dispatch is not ported yet).
 """
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..distributed.context import require_one_rank
 from .common import DTYPES, MLP, Attention, RMSNorm
 from .mamba import (Mamba2Block, mamba_block, mamba_cache_spec, mamba_decode_step,
                     ssd_chunked_with_state)
@@ -111,6 +114,8 @@ class Block(nn.Module):
         h_in = self.ln2(x)
         if self.moe is None:
             return x + self.mlp(h_in), router_state, None
+        if cfg.moe_ep_shardmap:
+            require_one_rank("the expert-parallel MoE dispatch (cfg.moe_ep_shardmap)")
         h, aux = moe_ffn(self.moe, h_in, cfg, router_state)
         rs = aux["router_state"] if aux["router_state"] is not None else router_state
         return x + h, rs, aux["aux_loss"]

@@ -28,8 +28,11 @@ comm_cost_total — and the scheduler call runs under the span
 ``potus/serving/scheduler-call`` (``repro_torch.obs.trace``, off by
 default).
 
-``DispatcherConfig(sharded=True)`` (the reference's instance-sharded route)
-is not ported yet and raises.
+``DispatcherConfig(sharded=True)`` routes each slot through
+``core.sharded.sharded_schedule_batch`` on ``fleet_mesh(I, 1)``: the rows
+of Algorithm 1 split over the ranks of the ``torch.distributed`` process
+group (every rank runs the dispatcher with the same inputs; without a
+process group the world is one rank), POTUS only, as in the reference.
 """
 from __future__ import annotations
 
@@ -40,9 +43,11 @@ import torch
 
 from ..core.network import NetworkCosts
 from ..core.potus import caps_for_slot, make_problem
+from ..core.sharded import fleet_mesh, sharded_schedule_batch
 from ..core.simulator import _get_scheduler
 from ..core.topology import Component, build_topology
 from ..device import resolve_device
+from ..distributed.context import rank_device
 from ..obs.trace import span as obs_span
 
 __all__ = ["DispatcherConfig", "PotusDispatcher", "integral_assign"]
@@ -59,7 +64,7 @@ class DispatcherConfig:
     gamma: float = 64.0  # max requests a frontend ships per slot
     tokens_per_request: float = 1.0  # Q_in normalization: backlog tokens per request
     scheduler: str = "potus"  # "potus" | "potus-loop" | "shuffle" | "jsq"
-    sharded: bool = False  # not ported yet: raises
+    sharded: bool = False  # route via sharded_schedule_batch on a fleet_mesh
 
 
 def integral_assign(assign: np.ndarray, rng: np.random.Generator | None = None) -> np.ndarray:
@@ -102,14 +107,12 @@ class PotusDispatcher:
         recorder=None,  # obs.FlightRecorder — per-slot routing rows (DESIGN.md §14)
         device="cuda",
     ):
-        if cfg.sharded:
-            raise NotImplementedError(
-                "DispatcherConfig(sharded=True) is not ported yet (ROADMAP.md, section 1, "
-                "module item 5); route on one device")
         R = len(replica_hosts)
         F = n_frontends
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.sharded:  # this rank's card (distributed.context.rank_device)
+            self.device = rank_device(self.device)
         app = [
             Component("frontend", 0, True, parallelism=F, successors=(1,)),
             Component("serve", 0, False, parallelism=R,
@@ -134,6 +137,15 @@ class PotusDispatcher:
         self.prob = make_problem(self.topo, self.net, placement, self.device)
         self._U = torch.as_tensor(self.net.U, dtype=torch.float32, device=self.device)
         self._sched = _get_scheduler(cfg.scheduler)
+        self._mesh = None
+        if cfg.sharded:
+            if cfg.scheduler not in ("potus", "potus-loop"):
+                raise ValueError(
+                    f"sharded routing implements Algorithm 1 only; scheduler "
+                    f"{cfg.scheduler!r} keeps the dense path (drop sharded=True)")
+            # batch axis 1: one dispatcher slot per route() call; every rank
+            # goes to the instance axis that cuts the (F+R)^2 price memory
+            self._mesh = fleet_mesh(self.topo.n_instances, 1)
         self.F, self.R = F, R
         # lookahead window per frontend: predicted request counts per slot
         self.window = np.zeros((F, cfg.window + 1), np.float32)
@@ -181,13 +193,24 @@ class PotusDispatcher:
         must = np.zeros((I, C), np.float32)
         must[: self.F, 1] = self.window[:, 0] + self.pending
 
-        caps = None
-        if events_row is not None:
-            caps = caps_for_slot(*(self._tensor(a) for a in events_row))
-        with obs_span(SCHED_SPAN, sharded=False):
-            X = self._sched(self.prob, self._U, self._tensor(q_in), self._tensor(q_out),
-                            self._tensor(must), float(self.cfg.V), float(self.cfg.beta),
-                            caps=caps).cpu().numpy()
+        if self._mesh is not None:
+            caps_b = None
+            if events_row is not None:
+                caps_b = tuple(self._tensor(a)[None] for a in events_row)
+            method = "sort" if self.cfg.scheduler == "potus" else "loop"
+            with obs_span(SCHED_SPAN, sharded=True):
+                X = sharded_schedule_batch(
+                    self._mesh, self.prob, self._U, self._tensor(q_in)[None],
+                    self._tensor(q_out)[None], self._tensor(must)[None], float(self.cfg.V),
+                    float(self.cfg.beta), method=method, caps=caps_b)[0].cpu().numpy()
+        else:
+            caps = None
+            if events_row is not None:
+                caps = caps_for_slot(*(self._tensor(a) for a in events_row))
+            with obs_span(SCHED_SPAN, sharded=False):
+                X = self._sched(self.prob, self._U, self._tensor(q_in), self._tensor(q_out),
+                                self._tensor(must), float(self.cfg.V), float(self.cfg.beta),
+                                caps=caps).cpu().numpy()
         self.h_last = float(q_in.sum() + self.cfg.beta * q_out.sum())
         self.h_history.append(self.h_last)
         self.comm_cost_total += float((X * self._u_pair).sum())

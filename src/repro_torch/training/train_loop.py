@@ -13,7 +13,9 @@ parameters and moments are updated in place and the state is returned.
 
 The reference's ``grad_specs`` (a GSPMD layout that turns the
 data-parallel all-reduce into a reduce-scatter) has no counterpart on one
-card and is left out.
+card and is left out; in a ``torch.distributed`` world of more than one
+rank :func:`make_train_step` raises (data-parallel training is not ported
+yet).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import dataclasses
 import torch
 
 from ..device import resolve_device
+from ..distributed.context import require_one_rank
 from ..models import model_zoo
 from ..models.moe import init_router_state
 from .compression import compress_grads, init_error_state
@@ -97,6 +100,7 @@ def make_train_step(cfg, tcfg: TrainConfig, *, ops=None):
     ``microbatches`` n > 1 the batch is split as ``a[i::n]``, the gradients
     accumulated in float32 and averaged, the router state threaded through
     the microbatches, and the loss the mean of theirs."""
+    require_one_rank("make_train_step (data-parallel gradients, grad_specs, ZeRO-1)")
     loss_fn = make_loss_fn(cfg, tcfg, ops=ops)
 
     def grads_of(model, names, batch, rs):

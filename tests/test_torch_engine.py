@@ -153,23 +153,33 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 @pytest.mark.parametrize("engine", ["jax", "sharded", "cohort"])
 def test_unported_engines_raise(engine):
-    # engine="jax" and engine="cohort" (the event loop) are ported whole, their
-    # metric streams included; with metrics the engine not ported yet still raises
-    if engine == "sharded":
-        with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
-            pt.simulate(_spec(engine=engine, device="cpu", metrics=True))
-        return
+    # every engine is ported whole, its metric streams included; engine="sharded"
+    # on a world of one equals engine="jax" bitwise, its payload stream 0
     res = pt.simulate(_spec(engine=engine, device="cpu", metrics=True))
     assert res.metrics.n_slots == 20 and np.isfinite(res.backlog).all()
     assert tuple(res.metrics.streams) == pt.engine.check_metrics_spec(engine, True).streams
     np.testing.assert_array_equal(res.metrics.streams["backlog"][:, 0], res.backlog)
+    if engine == "sharded":
+        plain = pt.simulate(_spec(engine="jax", device="cpu", metrics=True))
+        np.testing.assert_array_equal(res.backlog, plain.backlog)
+        np.testing.assert_array_equal(res.comm_cost, plain.comm_cost)
+        for name, rows in plain.metrics.streams.items():
+            np.testing.assert_array_equal(res.metrics.streams[name], rows)
 
 
-# metrics are ported; with an option not ported yet they still raise
+# sharded=True on cohort-fused runs the sharded scan: on a world of one it
+# equals the dense engine bitwise, metric streams included
 @pytest.mark.parametrize("option", [{"metrics": True, "sharded": True}, {"sharded": True}])
 def test_unported_options_raise(option):
-    with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
-        pt.simulate(_spec(device="cpu", **option))
+    res = pt.simulate(_spec(device="cpu", **option))
+    dense = pt.simulate(_spec(device="cpu", **dict(option, sharded=False)))
+    np.testing.assert_array_equal(res.backlog, dense.backlog)
+    np.testing.assert_array_equal(res.comm_cost, dense.comm_cost)
+    assert res.completed_mass == dense.completed_mass
+    assert (res.metrics is None) == (dense.metrics is None) == ("metrics" not in option)
+    if res.metrics is not None:
+        for name, rows in dense.metrics.streams.items():
+            np.testing.assert_array_equal(res.metrics.streams[name], rows)
 
 
 def test_reference_option_matrix_still_applies():

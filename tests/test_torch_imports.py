@@ -1,8 +1,9 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
 (``repro_torch.obs``, the host-loop oracles ``repro_torch.core.cohort``
 and ``repro_torch.core.eventsim``, the MoE layer ``repro_torch.models.moe``,
-the training package ``repro_torch.training`` and the data package
-``repro_torch.data`` among them), ``chip_smoke`` and the port's
+the training package ``repro_torch.training``, the data package
+``repro_torch.data``, the ``repro_torch.distributed`` package and
+``repro_torch.core.sharded`` among them), ``chip_smoke`` and the port's
 benchmark ``benchmarks.torch_systems`` loads no ``jax*`` module and nothing
 of the reference package ``repro``. Runs in a fresh interpreter so this
 process's imports cannot mask a leak."""
@@ -33,7 +34,9 @@ obs = all(n in names for n in ("repro_torch.obs", "repro_torch.obs.metrics",
                                 "repro_torch.training.compression",
                                 "repro_torch.training.checkpoint",
                                 "repro_torch.training.train_loop", "repro_torch.data",
-                                "repro_torch.data.pipeline", "repro_torch.data.specs"))
+                                "repro_torch.data.pipeline", "repro_torch.data.specs",
+                                "repro_torch.distributed", "repro_torch.distributed.context",
+                                "repro_torch.distributed.world", "repro_torch.core.sharded"))
 print("obs walked:", obs)
 sys.exit(1 if bad or len(names) < 15 or not obs else 0)
 """

@@ -42,7 +42,10 @@ matches its arithmetic stated in plain PyTorch within 1e-2 and raises on a
 misaligned pointer or stride; the kernel runs under
 ``kernels.ops.flash_attention``'s autograd, and a reduced train step's gradients on the kernel route match the
 plain route within 1e-4; ``ssd_intra_chunk`` raises when a CUDA input
-requires grad (no SSD backward kernel yet).
+requires grad (no SSD backward kernel yet). The sharded cohort-fused scan
+takes the slot kernel on a one-rank NCCL world, bitwise the dense port on
+the card, and on four gloo ranks sharing the card equals the CPU port
+bitwise on the dyadic cases of ``chip_smoke.sharded_cases``.
 Run on the machine with the card:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
@@ -728,3 +731,40 @@ def test_train_step_kernel_route_matches_plain_route(cuda_device, arch):
     assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
     for a, b in zip(gk, gp):
         assert _scale_gap(a, b) <= 1e-4
+
+
+def test_sharded_one_nccl_rank_takes_the_kernel_route(cuda_device):
+    """``sharded=True`` with ``use_pallas`` on a one-rank NCCL world: the slot
+    kernel once a slot (the kernel route), bitwise the dense port on the
+    card, on the I=16 dyadic system."""
+    import dataclasses
+
+    import repro_torch.core as pt
+    from repro_torch.distributed import spawn_world
+
+    spec = dict(chip_smoke.sharded_cases(pt, "cuda"))["use_pallas"]
+    (out,) = spawn_world(chip_smoke.n2_rank, 1, "nccl", 120, ([], spec))
+    dense = pt.simulate(dataclasses.replace(spec, sharded=False))
+    assert out["stats"]["routes"] == {"kernel": 1}
+    assert out["stats"]["launches"]["potus_slot"] == chip_smoke.SHARD_T
+    assert chip_smoke.same_result(out["fleet"], dense)
+
+
+def test_sharded_four_gloo_ranks_on_the_card_equal_the_cpu_port(cuda_device):
+    """Four gloo ranks sharing the card: every dyadic case of
+    ``chip_smoke.sharded_cases`` equals the dense port on the CPU bitwise on
+    every rank, on the compact route (no slot-kernel launch)."""
+    import dataclasses
+
+    import repro_torch.core as pt
+    from repro_torch.distributed import spawn_world
+
+    cases = chip_smoke.sharded_cases(pt, "cuda")
+    outs = spawn_world(chip_smoke.n2_rank, 4, "gloo", 240, (cases, cases[0][1]))
+    for name, spec in cases:
+        want = pt.simulate(dataclasses.replace(chip_smoke.dense_twin(spec), device="cpu"))
+        for out in outs:
+            for f in ("backlog", "comm_cost"):
+                assert np.array_equal(getattr(out[name], f), getattr(want, f)), (name, f)
+    assert all(out["stats"]["routes"] == {"compact": 1} for out in outs)
+    assert all(out["stats"]["launches"]["potus_slot"] == 0 for out in outs)

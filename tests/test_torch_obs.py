@@ -12,8 +12,8 @@ against the reference's ``repro.obs``.
 * the streams equal the reference's ``simulate(metrics=...)`` on the
   dyadic system of ``tests/test_obs_metrics.py`` (every sum exact), and
   ``run_sweep``'s per-scenario frames the reference's sweep frames;
-* the unsupported streams and the engine not ported yet raise; the cohort
-  event loop's host streams equal the reference's.
+* the unsupported streams raise; the cohort event loop's and the sharded
+  engine's streams equal the reference's.
 """
 import dataclasses
 
@@ -357,8 +357,14 @@ def test_unported_engines_with_metrics_raise(arrivals, engine):
                           engine=engine, engine_opts={"metrics": True}, device="cpu")
         assert_frames_equal(sw.result(V=2.0).metrics, port.metrics)
         return
-    with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
-        _port(arrivals, engine, metrics=True)
-    with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
-        pt.run_sweep(topo, net, placement, arrivals, T, pt.SweepSpec(sharded=True),
-                     engine="jax", engine_opts={"metrics": True}, device="cpu")
+    # engine="sharded" is ported: on a world of one its streams equal the
+    # reference's one-device sharded engine's (payload 0: no collective runs),
+    # and a sharded jax sweep's frames equal each scenario's own simulate
+    port = _port(arrivals, engine, metrics=True)
+    assert_frames_equal(port.metrics, _ref(arrivals, engine, metrics=True).metrics)
+    assert not port.metrics.streams["payload"].any()
+    sw = pt.run_sweep(topo, net, placement, arrivals, T, pt.SweepSpec(V=2.0, window=W,
+                                                                      sharded=True),
+                      engine="jax", engine_opts={"metrics": True}, device="cpu")
+    assert sw.n_batches == 1
+    assert_frames_equal(sw.result(V=2.0).metrics, port.metrics)

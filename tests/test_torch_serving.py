@@ -130,7 +130,7 @@ def test_engine_fractional_rate_and_max_len(small_model):
 # the dispatcher
 # ---------------------------------------------------------------------------
 
-def _dispatchers(scheduler="potus", V=0.5, beta=1.0, gamma=64.0, window=0):
+def _dispatchers(scheduler="potus", V=0.5, beta=1.0, gamma=64.0, window=0, sharded=False):
     """F=1 frontend + R=4 heterogeneous replicas on 5 hosts, hop-count U
     (``tests/test_serving_fleet.py:_make_dispatcher``), in both packages."""
     R = len(RATES_TOK)
@@ -138,7 +138,7 @@ def _dispatchers(scheduler="potus", V=0.5, beta=1.0, gamma=64.0, window=0):
     args = dict(n_frontends=1, replica_hosts=np.arange(1, 1 + R), frontend_hosts=np.array([0]),
                 host_costs=host_costs, replica_rates=RATES_TOK)
     kw = dict(V=V, beta=beta, gamma=gamma, window=window, tokens_per_request=TPR,
-              scheduler=scheduler)
+              scheduler=scheduler, sharded=sharded)
     return (rd.PotusDispatcher(**args, cfg=rd.DispatcherConfig(**kw)),
             pd.PotusDispatcher(**args, cfg=pd.DispatcherConfig(**kw), device="cpu"))
 
@@ -206,10 +206,23 @@ def test_dispatcher_without_a_card_and_sharded():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pd.PotusDispatcher(1, np.arange(1, 3), np.array([0]),
                                np.zeros((3, 3), np.float32), np.array([1.0, 1.0]))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # DispatcherConfig(sharded=True) routes through sharded_schedule_batch on a
+    # world of one: the reference's sharded route and the port's dense route
+    ref_disp, port_disp = _dispatchers(sharded=True, window=2)
+    _, dense_disp = _dispatchers(window=2)
+    trace = _scenario(pev).compile(port_disp.topo, T)
+    arrivals = _arrivals(12)
+    a_ref, _ = _drive(ref_disp, rf, arrivals, trace)
+    a_port, f_port = _drive(port_disp, pf, arrivals, trace)
+    a_dense, f_dense = _drive(dense_disp, pf, arrivals, trace)
+    assert np.array_equal(a_port, a_ref) and np.array_equal(a_port, a_dense)
+    assert port_disp.h_history == dense_disp.h_history
+    assert np.array_equal(f_port.backlog_tokens, f_dense.backlog_tokens)
+    assert a_port.sum() > 0
+    with pytest.raises(ValueError, match="Algorithm 1 only"):
         pd.PotusDispatcher(1, np.arange(1, 3), np.array([0]), np.zeros((3, 3), np.float32),
-                           np.array([1.0, 1.0]), cfg=pd.DispatcherConfig(sharded=True),
-                           device="cpu")
+                           np.array([1.0, 1.0]),
+                           cfg=pd.DispatcherConfig(scheduler="jsq", sharded=True), device="cpu")
 
 
 # ---------------------------------------------------------------------------

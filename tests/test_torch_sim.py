@@ -220,9 +220,20 @@ def test_facade_guards():
     assert pt.simulate(_spec(device="cpu", scheduler="potus-loop")).backlog.shape == (20,)
     assert pt.simulate(dataclasses.replace(_spec(device="cpu", scheduler="potus-loop"),
                                            engine="cohort-fused")).backlog.shape == (20,)
-    with pytest.raises(pt.UnsupportedEngineOption, match="not ported yet"):
+    # SimConfig(sharded=True) runs the sharded engine (a world of one here): the
+    # plain engine's result bitwise; use_pallas and chunk are refused there
+    sharded = psim._run_sim_impl(topo, _spec().net, _spec().placement, _spec().arrivals, 20,
+                                 pt.SimConfig(sharded=True), device="cpu")
+    plain = psim._run_sim_impl(topo, _spec().net, _spec().placement, _spec().arrivals, 20,
+                               pt.SimConfig(), device="cpu")
+    np.testing.assert_array_equal(sharded.backlog, plain.backlog)
+    np.testing.assert_array_equal(sharded.final_state.q_in, plain.final_state.q_in)
+    with pytest.raises(pt.UnsupportedEngineOption, match="'use_pallas'"):
         psim._run_sim_impl(topo, _spec().net, _spec().placement, _spec().arrivals, 20,
-                           pt.SimConfig(sharded=True))
+                           pt.SimConfig(sharded=True, use_pallas=True), device="cpu")
+    with pytest.raises(pt.UnsupportedEngineOption, match="'chunk'"):
+        psim._run_sim_impl(topo, _spec().net, _spec().placement, _spec().arrivals, 20,
+                           pt.SimConfig(sharded=True), chunk=4, device="cpu")
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):

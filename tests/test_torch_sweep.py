@@ -15,11 +15,13 @@ reference's ``repro.core.sweep.run_sweep`` on the same numpy inputs.
   long-run means are held at the chaos floor of
   ``tests/test_cohort_fused.py::TestPotusPaperSystem``.
 * ``init_state_batch``, ``stacked_host_traces`` and the batched plain slot
-  step; ``sharded``, not ported yet, and ``engine="cohort"``, which runs
-  each scenario in turn; the rows of
+  step; ``sharded`` on a world of one (each scenario the dense sweep's,
+  bitwise) and ``engine="cohort"``, which runs each scenario in turn; the
+  rows of
   ``benchmarks/torch_figures.py`` and its imports.
 """
 import ast
+import dataclasses
 import math
 import os
 import subprocess
@@ -150,11 +152,19 @@ def test_missing_names_and_ambiguous_result_raise():
 def test_not_ported_yet_raises(what):
     topo, net, placement = _dyadic(pt)
     arr = _pow2_arrivals(topo, T + 16, seed=3)
-    if what == "sharded":  # module item 5 is not ported yet
-        with pytest.raises(pt.UnsupportedEngineOption,
-                           match="not ported yet.*module item 5"):
+    if what == "sharded":  # ported: on a world of one each scenario equals the dense sweep's
+        spec = pt.SweepSpec(V=(1.0, 2.0), scheduler=("potus", "jsq"))
+        dense = pt.run_sweep(topo, net, placement, arr, 8, spec, engine="cohort-fused",
+                             device="cpu")
+        shard = pt.run_sweep(topo, net, placement, arr, 8, dataclasses.replace(
+            spec, sharded=True), engine="cohort-fused", device="cpu")
+        assert shard.n_batches == dense.n_batches == 2
+        for (_, a), (_, b) in zip(dense, shard):
+            np.testing.assert_array_equal(a.backlog, b.backlog)
+            np.testing.assert_array_equal(a.comm_cost, b.comm_cost)
+        with pytest.raises(pt.UnsupportedEngineOption, match="'sharded'"):
             pt.run_sweep(topo, net, placement, arr, 8, pt.SweepSpec(sharded=True),
-                         engine="cohort-fused", device="cpu")
+                         engine="cohort", device="cpu")
         return
     # the event loop (module item 4) is ported: its sweep runs every scenario
     # in turn, one partition each, with metric streams on request
