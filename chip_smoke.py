@@ -81,7 +81,7 @@ I=16384 serving fleet, counting the kernel launches of each:
   its own): L1 ``moe_ffn`` alone at granite-moe-1b widths in f32, on the
   card against the port on the CPU (selections, keep masks, loads and
   router states exact), for top-k and for POTUS with its state carried;
-  L2 granite-moe-1b at full width in bf16, 8 of its 24 layers, served
+  L2 granite-moe-1b at full width in bf16, 2 of its 24 layers, served
   behind the dispatcher as phase G serves (kernel 5 per prefill and layer,
   kernel 6 per decode round and layer, kernel 2 per slot); L3 the kernel
   route against the plain route at full depth, each attention and MoE
@@ -116,7 +116,19 @@ I=16384 serving fleet, counting the kernel launches of each:
   ``tests/test_torch_sharded.py`` (cohort-fused potus/shuffle/jsq with and
   without a restart, chunks, ``use_pallas``, ``engine="sharded"``) bitwise
   the dense port on the card on every rank, and the fleet at T=16 on the
-  compact route within rtol 1e-4 a slot, its collectives' payload counted.
+  compact route within rtol 1e-4 a slot, its collectives' payload counted;
+* phase O, expert-parallel MoE serving (``models/moe_ep.py`` on the model
+  mesh of ``launch/mesh.py``; no kernel of its own): O1 one NCCL rank in
+  this process, ``moe_ffn_ep`` on a 1x1 mesh at granite-moe-1b's widths
+  against ``moe_ffn`` on the card (N=4 and 512, f32 and bf16, top-k and
+  POTUS with its state carried); O2 four gloo ranks sharing the card,
+  meshes 4x1 and 2x2, N=512 f32 at capacity factors 1.25 and 4.0, each
+  rank's card result against its own CPU run; O3 granite-moe-1b at full
+  width, 2 of its 24 layers, served on the 4x1 mesh
+  (``examples/torch_moe_ep.py``'s ``serve_rank``) in f32 against a
+  one-rank run without a mesh and in bf16, kernels 5, 6 and 2 counted on
+  every rank. O2 and O3 run in phase N's world of four gloo ranks, after
+  N2's cases (one start-up for both phases).
 
 It checks the results and prints:
 
@@ -159,6 +171,10 @@ It checks the results and prints:
 * for phase N, N1's and path 1's wall ms per slot in turns, N2's wall ms
   per slot on each rank, the share of it in collectives and the payload
   per slot;
+* for phase O, ``moe_ffn_ep``'s device ms per call beside ``moe_ffn``'s on
+  one rank, and per mesh and rank its ``"ep"`` payload, wall ms per call
+  and share in collectives; per served run its slots, decode rounds, the
+  decode rounds' median ms, the share in collectives and the launches;
 * one JSON line ``{"kernels": [...]}`` (eight kernels: the seven TPU
   kernels' counterparts and the flash attention backward; the slot
   kernel's row carries its batched entry under ``"batched"`` and its
@@ -166,7 +182,8 @@ It checks the results and prints:
   ``"sharded_launches"``, rows 2 and 3
   their launches on phase K's host loops under ``"cohort_launches"``, rows
   5 and 6 their launches on phase L's served run under ``"moe_launches"``,
-  row 5 its launches on phase M's M2 and M3 steps under
+  rows 2, 5 and 6 their launches on phase O's bf16 served run (rank 0) under
+  ``"ep_launches"``, row 5 its launches on phase M's M2 and M3 steps under
   ``"train_launches"`` and ``"encoder_launches"``, the backward's row its
   M3 launches under ``"encoder_launches"``, its route under
   ``"kernel_route"`` and its passes' ms under ``"passes_ms"``), then, last,
@@ -199,8 +216,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # the I=16384 serving fleet of benchmarks/systems_bench.py:137 (_cohort_fleet)
 FLEET_I, FLEET_T, FLEET_W, FLEET_V, FLEET_AGE_CAP = 16384, 128, 4, 2.0, 64
 # the potus-loop route runs max_succ argmin passes per slot (3072 at I=16384,
-# seconds per slot), so its fleet is cut to I=1024 until the loop gets a kernel
-LOOP_I = 1024
+# seconds per slot), so its fleet is cut to I=1024 until the loop gets a kernel; route A
+# (phase A) runs it LOOP_T slots (cut from 128 to make room for phase O)
+LOOP_I, LOOP_T = 1024, 64
 KERNELS = ("potus_slot", "potus_schedule", "potus_price", "cohort_drain", "flash_attention",
            "decode_attention", "ssd_intra_chunk", "flash_attention_bwd")
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
@@ -229,9 +247,9 @@ HYBRID_PREFILL_RUNS = 5  # warm prefills of each H3 prompt, timed
 # serves, with 16 requests; moe_ffn alone at its widths in f32 at N=4 (a decode round) and
 # N=512 (the longest served prompt), POTUS with its state carried over MOE_CALLS calls
 MOE_ARCH, MOE_REQUESTS, MOE_TOKENS, MOE_CALLS = "granite_moe_1b", 16, (4, 512), 4
-# L2 serves granite-moe-1b at 8 of its 24 layers (full width) to make room for phase M; L3's
-# full-depth gap and L4 keep all 24
-MOE_SERVE_LAYERS = 8
+# L2 serves granite-moe-1b at 2 of its 24 layers (full width) to make room for phases M and O;
+# L3's full-depth gap and L4 keep all 24
+MOE_SERVE_LAYERS = 2
 # phase M, training: kernel 5b alone at the trained models' widths, (B, Hq, Hkv, D, causal);
 # internvl2-1b (24 layers, bf16) trained TRAIN_STEPS steps on one repeated TokenPipeline batch
 # of TRAIN_B x TRAIN_S (256 patches + 768 tokens), its checkpoint restored and resumed for
@@ -1391,10 +1409,12 @@ def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
 
     # -- A. the dense potus-loop route end to end, I=1024 -----------------------
     t_phase = time.perf_counter()
-    loop_sys = fleet_system(pt, LOOP_I, FLEET_T)
+    loop_sys = fleet_system(pt, LOOP_I, LOOP_T)
+    # the response is measured over slots [16, LOOP_T - 16) of the cut horizon
+    measured = dict(warmup=16, drain_margin=16)
     spec = pt.EngineSpec(topo=loop_sys[0], net=loop_sys[1], placement=loop_sys[2],
-                         arrivals=loop_sys[3], T=FLEET_T, scheduler="potus-loop", V=FLEET_V,
-                         window=FLEET_W, age_cap=FLEET_AGE_CAP, device="cuda")
+                         arrivals=loop_sys[3], T=LOOP_T, scheduler="potus-loop", V=FLEET_V,
+                         window=FLEET_W, age_cap=FLEET_AGE_CAP, device="cuda", **measured)
     reset_counts()
     runs, walls = [], []
     for _ in range(2):
@@ -1402,13 +1422,13 @@ def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
         t0 = time.perf_counter()
         runs.append(pt.simulate(spec))
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3 / FLEET_T)
+        walls.append((time.perf_counter() - t0) * 1e3 / LOOP_T)
         if len(runs) == 1:
             n = read_counts()
     res1, res2 = runs
-    print(f"route A: cohort-fused potus-loop I={LOOP_I} T={FLEET_T} launches: " + " ".join(
+    print(f"route A: cohort-fused potus-loop I={LOOP_I} T={LOOP_T} launches: " + " ".join(
         f"{k}={v}" for k, v in n.items()) + f" [{card}]")
-    check(n == dict(ZERO_COUNTS, potus_price=FLEET_T, cohort_drain=FLEET_T),
+    check(n == dict(ZERO_COUNTS, potus_price=LOOP_T, cohort_drain=LOOP_T),
           f"route A launches {n}")
     a_launches = n["cohort_drain"]
     same = same_result(res1, res2)
@@ -1421,8 +1441,8 @@ def cohort_dense(pt, card, cuda, fleet, consts, mid, streams):
     print("  profiled: the first 8 slots")
     profile_run(lambda: pt.simulate(dataclasses.replace(spec, T=8)))
     cfg = pt.SimConfig(V=FLEET_V, window=FLEET_W, scheduler="potus-loop")
-    compare_cohort(f"route A fleet I={LOOP_I}", cf, pt, loop_sys, FLEET_T, cfg, cuda,
-                   kernel=res1, age_cap=FLEET_AGE_CAP)
+    compare_cohort(f"route A fleet I={LOOP_I}", cf, pt, loop_sys, LOOP_T, cfg, cuda,
+                   kernel=res1, age_cap=FLEET_AGE_CAP, **measured)
     compare_cohort("route A paper", cf, pt, paper_system(pt, 300), 300,
                    pt.SimConfig(V=2.0, window=2, scheduler="potus-loop"), cuda, age_cap=64)
     print(f"  phase A {time.perf_counter() - t_phase:.1f} s")
@@ -3330,6 +3350,19 @@ def moe_calls(moe, cfg, xs, router_state):
     return out
 
 
+def moe_inputs(cfg, n_tokens, n_calls, device):
+    """L1's and phase O's tokens in ``cfg``'s type: ``n_calls`` arrays from
+    numpy seed N, (4, 1, D) for N=4 (a decode round), else (1, N, D)."""
+    import torch
+
+    from repro_torch.models.common import DTYPES
+
+    rng = np.random.default_rng(n_tokens)
+    shape = (4, 1) if n_tokens == 4 else (1, n_tokens)
+    return [torch.as_tensor(rng.standard_normal(shape + (cfg.d_model,)).astype(np.float32))
+            .to(device=device, dtype=DTYPES[cfg.param_dtype]) for _ in range(n_calls)]
+
+
 MOE_EXACT = ("top_i", "keep", "load", "router_state", "dropped_frac")
 
 
@@ -3347,10 +3380,7 @@ def moe_card_vs_cpu(cfg, n_tokens, router, calls, cuda, seed=0):
 
     c = cfg.with_(router=router)
     cpu, card_moe = moe_layer(c, seed, cuda)
-    rng = np.random.default_rng(n_tokens)
-    shape = (4, 1) if n_tokens == 4 else (1, n_tokens)
-    xs = [torch.as_tensor(rng.standard_normal(shape + (c.d_model,)).astype(np.float32))
-          for _ in range(calls)]
+    xs = moe_inputs(c, n_tokens, calls, "cpu")
     rs = init_router_state(c) if router == "potus" else None
     want = moe_calls(cpu, c, xs, rs)
     xs_card = [x.to(cuda) for x in xs]
@@ -4123,7 +4153,7 @@ def n2_rank(cases, fleet_spec):
     return out
 
 
-def sharded_path(card, cuda, fleet=None):
+def sharded_path(card, cuda, fleet=None, also=()):
     """Phase N, the instance-sharded engines (``core/sharded.py``): N1 one
     NCCL rank in this process, ``sharded=True`` with ``use_pallas`` on the
     I=16384 fleet (T=128): the slot kernel's route, bitwise path 1, kernel 1
@@ -4134,14 +4164,16 @@ def sharded_path(card, cuda, fleet=None):
     0 times), the counted payload per slot against
     ``cohort_slot_payload_floats``, wall ms per slot and the collectives'
     share. Callable alone after ``card_setup`` and ``build_kernels``
-    (kernel 1); builds the fleet itself when not given. Returns
-    ``{"1": N1's kernel 1 launches, "4": N2's}``."""
+    (kernel 1); builds the fleet itself when not given. ``also``: more
+    ``(fn, args, kwargs)`` calls for N2's ranks to run after theirs, in the
+    same world (one start-up). Returns ``{"1": N1's kernel 1 launches, "4":
+    N2's}`` and each rank's results of ``also``."""
     import torch
     import torch.distributed as dist
 
     import repro_torch.core as pt
     from repro_torch.core import sharded as psh
-    from repro_torch.distributed import spawn_world
+    from repro_torch.distributed import call_each, spawn_world
 
     t_phase = time.perf_counter()
     topo, net, placement, arr = fleet if fleet is not None else fleet_system(pt, FLEET_I,
@@ -4187,8 +4219,11 @@ def sharded_path(card, cuda, fleet=None):
     fleet_dense = pt.simulate(dense_twin(fleet_spec))
     torch.cuda.synchronize()
     t0, started = time.perf_counter(), time.time()
-    outs = spawn_world(n2_rank, SHARD_RANKS, "gloo", SHARD_TIMEOUT_S, (cases, fleet_spec))
+    timeout = SHARD_TIMEOUT_S + (EP_TIMEOUT_S if also else 0)
+    world = spawn_world(call_each, SHARD_RANKS, "gloo", timeout,
+                        ([(n2_rank, (cases, fleet_spec), {}), *also],))
     world_s = time.perf_counter() - t0
+    outs = [out[0] for out in world]
     for name, _ in cases:
         for r, out in enumerate(outs):
             got, ok = out[name], True
@@ -4235,7 +4270,8 @@ def sharded_path(card, cuda, fleet=None):
           f"{formula - C}), {stats[0]['calls'] / SHARD_FLEET_T:.0f} collectives a slot")
     print(f"  wall ms/slot per rank: " + ", ".join(f"{w:.3f}" for w in wall_ms)
           + "; share in collectives: " + ", ".join(f"{x:.3f}" for x in share)
-          + f"; the world {world_s:.1f} s: the ranks up after "
+          + f"; the world {world_s:.1f} s" + (" (with phase O's calls)" if also else "")
+          + ": the ranks up after "
           + ", ".join(f"{s['entered'] - started:.1f}" for s in stats) + " s, the dyadic cases "
           + ", ".join(f"{s['cases_s']:.1f}" for s in stats) + f" s [{card}]")
     check(r_slot <= 1e-4, f"N2 fleet: per-slot rel diff {r_slot} beyond 1e-4")
@@ -4244,7 +4280,343 @@ def sharded_path(card, cuda, fleet=None):
           f"N2 fleet: routes/launches {[(s['routes'], s['launches']) for s in stats]}")
     check(all(p == formula - C for p in per_slot), f"N2 fleet: payload per slot {per_slot}")
     print(f"  phase N {time.perf_counter() - t_phase:.1f} s [{card}]")
-    return {"1": n1["potus_slot"], str(SHARD_RANKS): stats[0]["launches"]["potus_slot"]}
+    return ({"1": n1["potus_slot"], str(SHARD_RANKS): stats[0]["launches"]["potus_slot"]},
+            [out[1:] for out in world])
+
+
+# ---------------------------------------------------------------------------
+# phase O: expert-parallel MoE serving across ranks (models/moe_ep.py, launch/mesh.py)
+# ---------------------------------------------------------------------------
+
+# O2's four gloo ranks on the card: N=512 tokens, POTUS with its state carried over
+# EP_CALLS calls, then EP_TIMED calls timed; O3 serves granite-moe-1b at EP_LAYERS of its 24
+# layers to EP_REQUESTS requests of EP_MAX_NEW tokens, prompts of lengths that split over 4
+EP_RANKS, EP_TIMEOUT_S, EP_CALLS, EP_TIMED = 4, 300, 2, 4
+EP_MESHES = ((4, 1), (2, 2))
+EP_CAPACITY = (1.25, 4.0)
+EP_LAYERS, EP_REQUESTS, EP_MAX_NEW = 2, 8, 8
+EP_PROMPT_LENS = (32, 64, 128)
+EP_RATES = (4.0, 2.0, 2.0, 2.0)
+# O3's teacher-forced logits: a (4, 16) batch's forward and prefill, then 4 decode steps
+EP_TF_SHAPE, EP_TF_STEPS = (4, 16), 4
+
+
+def ep_examples():
+    """``examples/torch_moe_ep.py`` (``serve_rank``, ``model_rank``,
+    ``layer_rank``), imported from the checkout."""
+    if str(ROOT / "examples") not in sys.path:
+        sys.path.insert(0, str(ROOT / "examples"))
+    import torch_moe_ep
+
+    return torch_moe_ep
+
+
+def ep_one_rank(card, cuda):
+    """O1: one NCCL rank in this process, ``moe_ffn_ep`` on a 1x1 mesh
+    against ``moe_ffn`` on the card at granite-moe-1b's widths. On one rank
+    the send side keeps every entry (its capacity is N*k*cf >= N*k) and the
+    receive side takes the entries in token-major order, so the selections,
+    the kept entries, load and router state are ``moe_ffn``'s exactly; the
+    reference's ``dropped_frac`` counts the send side's drops (0 here), and
+    the share of entries the receive side drops is ``moe_ffn``'s
+    ``dropped_frac``. y within 1e-6 of max |y| in f32 (2e-2 in bf16)."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.moe import _mean, init_router_state, moe_ffn
+    from repro_torch.models.moe_ep import moe_ffn_ep
+
+    t0 = time.perf_counter()
+    base = get_config(MOE_ARCH).with_(param_dtype="float32", compute_dtype="float32")
+    layer = moe_layer(base, 0, "cpu")[0]
+    print(f"  O1 layer drawn in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        print(f"  O1 process group up in {time.perf_counter() - t0:.1f} s")
+        try:
+            mesh = make_host_mesh(1, 1)
+            backend = dist.get_backend()
+            for dtype in ("float32", "bfloat16"):
+                # the same draw in either type, as model_zoo.fill_ casts its f32 draws
+                moe = copy.deepcopy(layer).to(device=cuda, dtype=getattr(torch, dtype))
+                for n_tokens in MOE_TOKENS:
+                    for router, calls in (("topk", 1), ("potus", MOE_CALLS)):
+                        cfg = base.with_(param_dtype=dtype, compute_dtype=dtype, router=router)
+                        xs = moe_inputs(cfg, n_tokens, calls, cuda)
+                        rs = rs_ep = init_router_state(cfg, cuda) if router == "potus" else None
+                        worst, bitwise, drops = 0.0, True, []
+                        for step, x in enumerate(xs):
+                            y, a = moe_ffn(moe, x, cfg, rs)
+                            y_ep, a_ep = moe_ffn_ep(moe, x, cfg, mesh, rs_ep)
+                            nk = a["keep"].numel()
+                            recv = a_ep["keep_recv"]
+                            same = (torch.equal(a_ep["top_i"], a["top_i"])
+                                    and bool(a_ep["keep"].all())
+                                    and torch.equal(recv[:nk], a["keep"])
+                                    and not bool(recv[nk:].any())
+                                    and torch.equal(a_ep["load"], a["load"])
+                                    and float(a_ep["dropped_frac"]) == 0.0
+                                    and float(1.0 - _mean(recv[:nk].float()))
+                                    == float(a["dropped_frac"]))
+                            if rs is not None:
+                                same = same and torch.equal(a_ep["router_state"],
+                                                            a["router_state"])
+                                rs, rs_ep = a["router_state"], a_ep["router_state"]
+                            check(same, f"O1 {dtype} {router} N={n_tokens} call {step}: "
+                                        "selections, keep, load or state differ from moe_ffn")
+                            worst = max(worst, logit_gap(y_ep, y)[0])
+                            bitwise = bitwise and torch.equal(y_ep, y)
+                            drops.append(float(a["dropped_frac"]))
+                        limit = 1e-6 if dtype == "float32" else 2e-2
+                        print(f"O1 moe_ffn_ep 1x1 mesh ({backend}) {router} N={n_tokens} {dtype} "
+                              f"({calls} call(s)): = moe_ffn in selections, kept entries, "
+                              f"loads, router states; receive-side drop share = moe_ffn's "
+                              f"dropped_frac {drops}, send-side dropped_frac 0; y max gap "
+                              f"{worst:.3e} of max |y| (limit {limit:g}), bitwise {bitwise} "
+                              f"[{card}]")
+                        check(worst <= limit, f"O1 {dtype} {router} N={n_tokens}: y gap {worst}")
+                    if dtype == "float32":
+                        t0 = time.perf_counter()
+                        c = cfg.with_(router="potus")
+                        ms, items, _ = device_items(lambda: moe_ffn_ep(moe, x, c, mesh, rs_ep), 20)
+                        ms_ffn, items_ffn, _ = device_items(lambda: moe_ffn(moe, x, c, rs), 20)
+                        print(f"  device ms per call N={n_tokens} f32: moe_ffn_ep {ms:.4f} "
+                              f"({items:.1f} device items), moe_ffn {ms_ffn:.4f} "
+                              f"({items_ffn:.1f}); profiled in {time.perf_counter() - t0:.1f} s "
+                              f"[{card}]")
+        finally:
+            dist.destroy_process_group()
+
+
+def o2_rank(cases, device):
+    """One rank of O2: for each (name, cfg, mesh shape) the layer drawn from
+    seed 0 on the card (every rank draws the same), ``moe_ffn_ep`` on
+    ``EP_CALLS`` inputs with POTUS's state carried, on the card and on this
+    rank's CPU, then ``EP_TIMED`` calls on the card timed."""
+    import torch
+
+    from repro_torch.models.moe import init_router_state
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo as pz
+    from repro_torch.models.moe import MoE
+
+    ex = ep_examples()
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        layer = MoE(cases[0][1])
+    layer = pz.fill_(layer.to_empty(device=device), torch.Generator(device=device).manual_seed(0))
+    state = {k: v.cpu() for k, v in layer.state_dict().items()}
+    del layer
+    meshes = {shape: make_host_mesh(*shape) for shape in dict.fromkeys(c[2] for c in cases)}
+    out = {"setup_s": time.perf_counter() - t0}
+    for name, cfg, shape in cases:
+        xs = moe_inputs(cfg, 512, EP_CALLS, "cpu")
+        rs = init_router_state(cfg)
+        card = ex.layer_rank(cfg, meshes[shape], state, xs, rs, device=device)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)  # the four ranks' CPU runs share 8 cores
+        try:
+            cpu = ex.layer_rank(cfg, meshes[shape], state, xs, rs, device="cpu")
+        finally:
+            torch.set_num_threads(threads)
+        timed = ex.layer_rank(cfg, meshes[shape], state, xs[-1:] * EP_TIMED, rs, device=device)
+        out[name] = dict(card=card, cpu=cpu, timed=[(c["wall_s"], c["collective_s"],
+                                                     c["elements"]) for c in timed])
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def ep_layer_cases():
+    """O2's cases: (name, cfg, mesh shape), granite-moe-1b's MoE layer in f32
+    with POTUS, meshes 4x1 and 2x2, capacity factors 1.25 and 4.0."""
+    from repro_torch.configs import get_config
+
+    base = get_config(MOE_ARCH).with_(param_dtype="float32", compute_dtype="float32",
+                                      router="potus")
+    return [(f"{m[0]}x{m[1]} cf {cf}", base.with_(capacity_factor=cf), m)
+            for m in EP_MESHES for cf in EP_CAPACITY]
+
+
+def ep_layers(card, cases, outs):
+    """O2's checks on each rank's results (``o2_rank``): ``moe_ffn_ep`` at
+    granite-moe-1b's widths, N=512, f32, POTUS with its state carried, on
+    four gloo ranks sharing the card. Each rank's card result against its
+    own CPU run: loads, drops and router states exactly, y within 1e-5 of
+    max |y|; every rank's y the same; the ``"ep"`` payload per call, the
+    wall ms per call and its share in collectives."""
+    for name, cfg, _ in cases:
+        worst = 0.0
+        for r, out in enumerate(outs):
+            for step, (g, w) in enumerate(zip(out[name]["card"], out[name]["cpu"])):
+                exact = all(np.array_equal(g[k].numpy(), w[k].numpy())
+                            for k in ("load", "dropped_frac", "router_state"))
+                check(exact, f"O2 {name} rank {r} call {step}: load, drop or state differs "
+                             "from the CPU")
+                worst = max(worst, float((g["y"] - w["y"]).abs().max() / w["y"].abs().max()))
+                check(np.array_equal(g["y"].numpy(), outs[0][name]["card"][step]["y"].numpy()),
+                      f"O2 {name} rank {r} call {step}: y differs from rank 0's")
+        check(worst <= 1e-5, f"O2 {name}: card vs CPU y gap {worst}")
+        first = outs[0][name]["card"]
+        walls = [np.median([t[0] for t in out[name]["timed"][1:]]) * 1e3 for out in outs]
+        shares = [np.median([t[1] / t[0] for t in out[name]["timed"][1:]]) for out in outs]
+        elements = outs[0][name]["timed"][0][2]
+        print(f"O2 {name} on {EP_RANKS} gloo ranks, N=512 f32 potus ({EP_CALLS} calls): each "
+              f"rank's card = its CPU run in loads, dropped_frac ({float(first[0]['dropped_frac']):.6f}, "
+              f"{float(first[-1]['dropped_frac']):.6f}) and router states; y max gap {worst:.3e} "
+              f"of max |y| (limit 1e-5); every rank's y identical; \"ep\" payload "
+              f"{elements} elements per call; wall ms per call per rank "
+              + ", ".join(f"{w:.3f}" for w in walls) + "; share in collectives "
+              + ", ".join(f"{x:.3f}" for x in shares) + f" [{card}]")
+
+
+def ep_prompts(cfg):
+    """O3's prompts: numpy seed 0, lengths from ``EP_PROMPT_LENS``."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, int(rng.choice(EP_PROMPT_LENS)))
+            for _ in range(EP_REQUESTS)]
+
+
+def ep_teacher_inputs(cfg):
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, EP_TF_SHAPE)
+    fed = list(rng.integers(0, cfg.vocab_size, (EP_TF_STEPS, EP_TF_SHAPE[0], 1)))
+    return toks, fed
+
+
+def o3_rank(cfgs, mesh_shape, device):
+    """One rank of O3: for each (tag, cfg) the served run of ``serve_rank``
+    on the card with its launches counted, then the f32 model's
+    teacher-forced logits (``model_rank``)."""
+    ex = ep_examples()
+    t0 = time.perf_counter()
+    out = {}
+    for tag, cfg in cfgs:
+        reset_counts()
+        run = ex.serve_rank(cfg, mesh_shape, ep_prompts(cfg), EP_MAX_NEW, rates=EP_RATES,
+                            device=device)
+        run["launches"] = read_counts()
+        out[tag] = run
+    cfg = dict(cfgs)["f32"]
+    toks, fed = ep_teacher_inputs(cfg)
+    out["teacher"] = ex.model_rank(cfg, mesh_shape, None, toks, EP_TF_SHAPE[1] + EP_TF_STEPS + 1,
+                                   fed, device=device)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def ep_served_cfgs():
+    """O3's (tag, cfg): granite-moe-1b at ``EP_LAYERS`` layers with
+    ``moe_ep_shardmap``, f32 at capacity factor 4.0 and bf16 as published."""
+    from repro_torch.configs import get_config
+
+    base = get_config(MOE_ARCH).with_(n_layers=EP_LAYERS, moe_ep_shardmap=True)
+    return [("f32", base.with_(param_dtype="float32", compute_dtype="float32",
+                               capacity_factor=4.0)), ("bf16", base)]
+
+
+def ep_served(card, cuda, cfgs, outs):
+    """O3's checks on each rank's results (``o3_rank``): granite-moe-1b at
+    full width, ``EP_LAYERS`` of its 24 layers, ``moe_ep_shardmap``, served
+    on the 4x1 mesh of four gloo ranks (each holding 8 of the 32 experts):
+    in f32 at capacity factor 4.0, where neither stage drops (cap_loc = N,
+    cap_send = N_loc*k), the tokens equal a one-rank run without a mesh and
+    the teacher-forced logits are within 1e-4 of its; in bf16 at granite's
+    1.25 the tokens are recorded. Every rank's tokens identical; kernel 5
+    once per prefill and layer, kernel 6 once per decode round and layer,
+    kernel 2 once per slot, on every rank. Returns rank 0's launches of the
+    bf16 run."""
+    ex = ep_examples()
+    cfg32 = dict(cfgs)["f32"]
+    one = ex.serve_rank(cfg32, None, ep_prompts(cfg32), EP_MAX_NEW, rates=EP_RATES, device=cuda)
+    toks, fed = ep_teacher_inputs(cfg32)
+    one_tf = ex.model_rank(cfg32, None, None, toks, EP_TF_SHAPE[1] + EP_TF_STEPS + 1, fed,
+                           device=cuda)
+    for tag, cfg in cfgs:
+        runs = [out[tag] for out in outs]
+        same = all(r["tokens"] == runs[0]["tokens"] for r in runs[1:])
+        check(same, f"O3 {tag}: the ranks' tokens differ")
+        for r, run in enumerate(runs):
+            want = dict(ZERO_COUNTS, flash_attention=EP_LAYERS * EP_REQUESTS,
+                        decode_attention=EP_LAYERS * run["rounds"], potus_schedule=run["slots"])
+            check(run["launches"] == want, f"O3 {tag} rank {r}: launches {run['launches']}, "
+                                           f"expected {want}")
+            check(all(len(t) == EP_MAX_NEW for t in run["tokens"].values()),
+                  f"O3 {tag} rank {r}: a request did not get {EP_MAX_NEW} tokens")
+        r0 = runs[0]
+        line = (f"O3 {cfg.name} {EP_LAYERS} of 24 layers {tag} capacity factor "
+                f"{cfg.capacity_factor}, 4x1 mesh of {EP_RANKS} gloo ranks (8 experts each): "
+                f"{EP_REQUESTS} requests, {r0['slots']} slots, {r0['rounds']} decode rounds; every "
+                f"rank's tokens identical: {same}")
+        if tag == "f32":
+            equal = r0["tokens"] == one["tokens"]
+            line += f"; = the one-rank run without a mesh: {equal}"
+            check(equal, "O3 f32: the tokens differ from the one-rank run without a mesh")
+        else:
+            line += f" (recorded: request 0 {r0['tokens'][0]})"
+        print(line + f" [{card}]")
+        print(f"  decode round median ms per rank "
+              + ", ".join(f"{np.median(r['round_ms']):.3f}" for r in runs)
+              + "; wall s " + ", ".join(f"{r['wall_s']:.3f}" for r in runs)
+              + "; share in collectives " + ", ".join(f"{r['collective_s'] / r['wall_s']:.3f}"
+                                                      for r in runs)
+              + f"; \"ep\" payload {r0['elements']} elements; launches "
+              + " ".join(f"{k}={v}" for k, v in r0["launches"].items() if v) + f" [{card}]")
+    print(f"  one-rank run without a mesh, f32: decode round median "
+          f"{np.median(one['round_ms']):.3f} ms, {one['rounds']} rounds [{card}]")
+    worst = 0.0
+    for r, out in enumerate(outs):
+        got = out["teacher"]
+        check(got["elements"] > 0, f"O3 rank {r}: the teacher-forced run moved no ep payload")
+        for key in ("forward", "prefill", "decode"):
+            worst = max(worst, float(np.abs(got[key] - one_tf[key]).max()
+                                     / np.abs(one_tf[key]).max()))
+    print(f"O3 teacher-forced f32, forward and prefill of {EP_TF_SHAPE} and {EP_TF_STEPS} decode "
+          f"steps, 4 ranks vs one rank without a mesh: max |dlogit| {worst:.3e} of max |logit| "
+          f"(limit 1e-4) [{card}]")
+    check(worst <= 1e-4, f"O3 teacher-forced gap {worst}")
+    return outs[0]["bf16"]["launches"]
+
+
+def ep_world_calls(cuda):
+    """O2's and O3's calls for each rank of a world of ``EP_RANKS`` gloo
+    ranks sharing the card (``spawn_world(call_each, ...)``)."""
+    return [(o2_rank, (ep_layer_cases(), str(cuda)), {}),
+            (o3_rank, (ep_served_cfgs(), (EP_RANKS, 1), str(cuda)), {})]
+
+
+def moe_ep_path(card, cuda, world=None):
+    """Phase O, expert-parallel MoE serving (``models/moe_ep.py``): O1 one
+    NCCL rank, O2 four gloo ranks on ``moe_ffn_ep`` alone, O3 granite-moe-1b
+    served on four gloo ranks. ``world``: each rank's results of
+    :func:`ep_world_calls` where another phase's world ran them (phase N's,
+    in a whole run), else O2 and O3 start a world of their own. Callable
+    alone after ``card_setup`` and ``build_kernels`` (kernels 2, 5 and 6);
+    the children re-import ``chip_smoke``. Returns rank 0's launches of
+    O3's bf16 served run."""
+    from repro_torch.distributed import call_each, spawn_world
+
+    t_phase = time.perf_counter()
+    ep_one_rank(card, cuda)
+    print(f"  O1 {time.perf_counter() - t_phase:.1f} s [{card}]")
+    where = "phase N's world"
+    if world is None:
+        t0 = time.perf_counter()
+        world = spawn_world(call_each, EP_RANKS, "gloo", EP_TIMEOUT_S, (ep_world_calls(cuda),))
+        where = f"a world of their own, {time.perf_counter() - t0:.1f} s"
+    print(f"  O2 and O3 on {EP_RANKS} gloo ranks in {where}; on rank 0 O2 "
+          f"{world[0][0]['wall_s']:.1f} s (the layer drawn and the meshes built in "
+          f"{world[0][0]['setup_s']:.1f}), O3 {world[0][1]['wall_s']:.1f} s [{card}]")
+    ep_layers(card, ep_layer_cases(), [out[0] for out in world])
+    launches = ep_served(card, cuda, ep_served_cfgs(), [out[1] for out in world])
+    print(f"  phase O {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
 
 
 def slot_kernel(card, cuda):
@@ -4392,7 +4764,7 @@ def card_setup():
     power limit (``nvidia-smi``) and the device. A section called alone
     (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``,
     ``sweep_path``, ``obs_path``, ``oracle_path``, ``moe_path``,
-    ``training_path``, ``sharded_path``) starts with this and
+    ``training_path``, ``sharded_path``, ``moe_ep_path``) starts with this and
     :func:`build_kernels`."""
     import torch
 
@@ -4487,10 +4859,18 @@ def run_phases(pt, cf, card, cuda) -> int:
     bwd_kernel, flash_train = training_path(card, cuda)
     attention_kernels[0].update(flash_train)
 
-    # -- 13. phase N: the instance-sharded engines (kernel 1 on one rank) ------------
-    slot.row["sharded_launches"] = sharded_path(card, cuda, slot.fleet)
+    # -- 13. phase N: the instance-sharded engines (kernel 1 on one rank); its world of
+    # four gloo ranks then runs phase O's O2 and O3 (one start-up for both) --------------
+    slot.row["sharded_launches"], ep_world = sharded_path(card, cuda, slot.fleet,
+                                                          also=ep_world_calls(cuda))
 
-    # -- 14. the kernels line, 15. the last line ---------------------------------
+    # -- 14. phase O: expert-parallel MoE serving (kernels 2, 5 and 6 on every rank) ----
+    ep = moe_ep_path(card, cuda, world=ep_world)
+    for row in (*scan_kernels, *attention_kernels):
+        if row["name"] in ("potus_schedule", "flash_attention", "decode_attention"):
+            row["ep_launches"] = ep[row["name"]]
+
+    # -- 15. the kernels line, 16. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel, bwd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -43,7 +43,8 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
-from ..distributed.context import PAYLOAD, SOLO, Axis, all_gather, psum, rank_device
+from ..distributed.context import (PAYLOAD, SOLO, Axis, all_gather, grid_axes, psum,
+                                   rank_device)
 from ..obs.metrics import build_frame, compute_scan_streams, scan_stream_names
 from ..obs.trace import span as obs_span
 from .compact import _rows_add
@@ -135,26 +136,10 @@ class Mesh:
 
 def _mesh_of(n_batch_ranks: int, n_inst_ranks: int) -> Mesh:
     """The mesh over the first ``nb * ni`` ranks of the default group, rank
-    ``r`` at (r // ni, r % ni); every rank of the group calls this, in the
-    same order, since each subgroup is made by all of them."""
-    world = dist.get_world_size()
-    me = dist.get_rank()
-    nb, ni = n_batch_ranks, n_inst_ranks
-    used = list(range(nb * ni))
-
-    def axis(members: list[int]) -> Axis | None:
-        if len(members) == world:
-            group = dist.group.WORLD
-        else:
-            group = dist.new_group(members) if len(members) > 1 else None
-        return Axis(group, len(members), members.index(me)) if me in members else None
-
-    i_axis = b_axis = None
-    for r in range(nb):
-        i_axis = axis(used[r * ni:(r + 1) * ni]) or i_axis
-    for c in range(ni):
-        b_axis = axis(used[c::ni]) or b_axis
-    return Mesh(i=i_axis or SOLO, b=b_axis or SOLO, member=me < nb * ni, idle=nb * ni < world)
+    ``r`` at (r // ni, r % ni) (``distributed.grid_axes``)."""
+    b, i, member = grid_axes(n_batch_ranks, n_inst_ranks)
+    idle = n_batch_ranks * n_inst_ranks < dist.get_world_size()
+    return Mesh(i=i, b=b, member=member, idle=idle)
 
 
 def instance_mesh(n_instances: int) -> Mesh:

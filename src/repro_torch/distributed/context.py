@@ -7,7 +7,7 @@ The reference is one controller over many devices; the port is SPMD, one
 process per rank, every rank calling the same entry point. An :class:`Axis`
 is one axis of a mesh: the process group whose ranks fold together, their
 count and this rank's position. ``Axis()`` (:data:`SOLO`) is a world of one:
-every collective is the identity and launches nothing. The three
+every collective is the identity and launches nothing. The four
 collectives map as:
 
 * a tiled ``all_gather`` (:func:`all_gather`) →
@@ -16,18 +16,28 @@ collectives map as:
 * ``psum`` (:func:`psum`) → ``all_reduce(SUM)``;
 * ``pmin`` (:func:`pmin`) → ``all_reduce(MIN)``, which selects an element, so
   a (value, global instance id) pair folded with two of them keeps the
-  dense engine's lowest-index tie-break bitwise (DESIGN.md §13.2).
+  dense engine's lowest-index tie-break bitwise (DESIGN.md §13.2);
+* an untiled ``all_to_all`` over dim 0 (:func:`all_to_all`) →
+  ``dist.all_to_all_single`` with equal blocks (the expert-parallel MoE
+  dispatch, ``models.moe_ep``).
 
 Each call adds the elements it moves to :data:`PAYLOAD` under a tag:
 ``"step"`` for the slot dynamics (the ``payload`` metric stream reads it),
 ``"obs"`` for what only the metric streams need, ``"out"`` for replicating a
-result at the end of a run. An all-reduce of n elements moves n; a tiled
-all-gather moves the n of its output. On one rank nothing is counted.
+result at the end of a run, ``"ep"`` for the expert-parallel MoE layers. An
+all-reduce of n elements moves n; a tiled all-gather and an all-to-all move
+the n of their output. On one rank nothing is counted.
 
 Gloo stages CUDA tensors through the host (ranks sharing a card), so the
 host waits for the producing kernels in any case; :func:`_collective`
-synchronises the card first, so that the seconds it counts are the
-collective's own.
+synchronises the card first, so that under gloo the seconds it counts are
+the collective's own. NCCL returns to the host once the exchange is queued
+on the card, so under NCCL they are the host's time to enqueue it, and the
+exchange itself is waited for by the next synchronise, outside the count.
+
+:func:`set_mesh` and :func:`get_mesh` hold the ambient model mesh
+(``launch.mesh.ModelMesh``) that the MoE blocks read to choose the
+expert-parallel dispatch, the counterparts of the reference's.
 """
 from __future__ import annotations
 
@@ -39,8 +49,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-__all__ = ["Axis", "SOLO", "PAYLOAD", "PayloadCounter", "all_gather", "psum", "pmin",
-           "rank_device", "require_one_rank"]
+__all__ = ["Axis", "SOLO", "PAYLOAD", "PayloadCounter", "all_gather", "all_to_all", "psum",
+           "pmin", "grid_axes", "rank_device", "require_one_rank", "set_mesh", "get_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,9 +67,37 @@ class Axis:
 SOLO = Axis()
 
 
+def grid_axes(n_outer: int, n_inner: int) -> tuple[Axis, Axis, bool]:
+    """The two axes of an ``n_outer x n_inner`` grid over the first
+    ``n_outer * n_inner`` ranks of the default group, rank ``r`` at
+    ``(r // n_inner, r % n_inner)``: (``outer``, the ranks that share this
+    rank's inner index; ``inner``, those that share its outer index;
+    whether this rank is on the grid). A rank off the grid gets
+    :data:`SOLO` for both. Every rank of the group calls this, in the same
+    order, since each subgroup is made by all of them."""
+    world = dist.get_world_size()
+    me = dist.get_rank()
+    used = list(range(n_outer * n_inner))
+
+    def axis(members: list[int]) -> Axis | None:
+        if len(members) == world:
+            group = dist.group.WORLD
+        else:
+            group = dist.new_group(members) if len(members) > 1 else None
+        return Axis(group, len(members), members.index(me)) if me in members else None
+
+    inner = outer = None
+    for r in range(n_outer):
+        inner = axis(used[r * n_inner:(r + 1) * n_inner]) or inner
+    for c in range(n_inner):
+        outer = axis(used[c::n_inner]) or outer
+    return outer or SOLO, inner or SOLO, me < n_outer * n_inner
+
+
 class PayloadCounter:
     """Elements the collectives moved, by tag, since the last reset; the
-    calls that moved them and the host seconds they took."""
+    calls that moved them and the host seconds they took (under NCCL, the
+    seconds to enqueue them: see :func:`_collective`)."""
 
     def __init__(self) -> None:
         self.reset()
@@ -84,9 +122,10 @@ PAYLOAD = PayloadCounter()
 
 def _collective(run, x: torch.Tensor, tag: str) -> torch.Tensor:
     """``run`` on ``x`` made contiguous, counted under ``tag``. The card is
-    synchronised first, so that the seconds counted are the exchange's own
-    (gloo stages a CUDA tensor through the host and waits for the kernels
-    that produce it in any case)."""
+    synchronised first, so that under gloo (which stages a CUDA tensor
+    through the host and waits for the kernels that produce it in any case)
+    the seconds counted are the exchange's own; under NCCL they are the
+    time to enqueue it."""
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
     t0 = time.perf_counter()
@@ -129,10 +168,29 @@ def all_gather(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
     return _collective(run, x, tag)
 
 
+def all_to_all(x: torch.Tensor, axis: Axis, tag: str = "ep") -> torch.Tensor:
+    """``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)`` on
+    ``x`` cut into ``axis.size`` equal blocks along dim 0: block j goes to
+    rank j of ``axis``, and block j of the result came from rank j. Gloo
+    moves host memory, so under gloo a CUDA block is copied to the host and
+    the result back to the card; NCCL exchanges the card's memory directly."""
+    if axis.size == 1:
+        return x
+    if x.shape[0] % axis.size:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} is not {axis.size} equal blocks")
+
+    def run(buf):
+        staged = buf.cpu() if buf.is_cuda and dist.get_backend(axis.group) == "gloo" else buf
+        out = torch.empty_like(staged)
+        dist.all_to_all_single(out, staged, group=axis.group)
+        return out.to(buf.device)
+    return _collective(run, x, tag)
+
+
 def require_one_rank(what: str) -> None:
     """Raise when ``what`` runs in a world of more than one rank: the
-    expert-parallel MoE dispatch and the data-parallel training layouts
-    (``grad_specs``, the ZeRO-1 moments) are not ported yet."""
+    data-parallel training layouts (``grad_specs``, the ZeRO-1 moments) are
+    not ported yet."""
     if dist.is_initialized() and dist.get_world_size() > 1:
         raise NotImplementedError(
             f"{what} across {dist.get_world_size()} ranks is not ported yet (ROADMAP.md, "
@@ -155,3 +213,19 @@ def rank_device(device: torch.device) -> torch.device:
             "machine) and NCCL refuses two ranks on one device; start one rank per card, or "
             "use the gloo backend to share a card")
     return torch.device("cuda", local % n)
+
+
+_MESH = None
+
+
+def set_mesh(mesh) -> None:
+    """Make ``mesh`` (a ``launch.mesh.ModelMesh``, or None) the ambient model
+    mesh of this process; place the model's experts on it first
+    (``models.moe_ep.place_``)."""
+    global _MESH
+    _MESH = mesh
+
+
+def get_mesh():
+    """The ambient model mesh, None unless :func:`set_mesh` set one."""
+    return _MESH

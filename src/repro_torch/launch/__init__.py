@@ -1,0 +1,6 @@
+"""Meshes of ranks for the model half of the multi-rank port: :mod:`.mesh`
+builds the ``("data", "model")`` model mesh that the expert-parallel MoE
+layers (``models.moe_ep``) run on."""
+from .mesh import ModelMesh, make_host_mesh, make_mesh_shape, make_production_mesh
+
+__all__ = ["ModelMesh", "make_host_mesh", "make_mesh_shape", "make_production_mesh"]

@@ -46,10 +46,12 @@ state with the sum of the layers' ``aux_loss``; ``prefill`` and
 
 ``decode_step`` updates the cache in place and returns it (the reference
 returns a new one). The reference's ``_constrain_cache`` is a GSPMD sharding
-hint and ``moe_ep_shardmap`` picks its expert-parallel dispatch under a
-device mesh. In a world of one rank the port runs ``moe_ffn``, as the
-reference does without a mesh; across ranks ``moe_ep_shardmap`` raises
-(the expert-parallel dispatch is not ported yet).
+hint. ``moe_ep_shardmap`` picks the expert-parallel dispatch
+(``models.moe_ep.moe_ffn_ep``) when a model mesh is set
+(``distributed.context.set_mesh``, the model's experts placed on it by
+``moe_ep.place_``), as the reference's ``_moe_dispatch`` does; without a
+mesh every rank runs ``moe_ffn`` and computes the same result. Under a
+mesh the ranks run every entry point together (SPMD), on the same inputs.
 """
 from __future__ import annotations
 
@@ -63,11 +65,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..distributed.context import require_one_rank
+from ..distributed.context import get_mesh
 from .common import DTYPES, MLP, Attention, RMSNorm
 from .mamba import (Mamba2Block, mamba_block, mamba_cache_spec, mamba_decode_step,
                     ssd_chunked_with_state)
 from .moe import MoE, init_router_state, moe_ffn
+from .moe_ep import moe_ffn_ep
 
 __all__ = ["DenseDecoder", "SSMDecoder", "is_moe_layer", "init", "fill_", "forward", "prefill",
            "decode_step", "cache_spec", "init_cache", "check_supported",
@@ -114,9 +117,11 @@ class Block(nn.Module):
         h_in = self.ln2(x)
         if self.moe is None:
             return x + self.mlp(h_in), router_state, None
-        if cfg.moe_ep_shardmap:
-            require_one_rank("the expert-parallel MoE dispatch (cfg.moe_ep_shardmap)")
-        h, aux = moe_ffn(self.moe, h_in, cfg, router_state)
+        mesh = get_mesh() if cfg.moe_ep_shardmap else None
+        if mesh is not None:
+            h, aux = moe_ffn_ep(self.moe, h_in, cfg, mesh, router_state)
+        else:
+            h, aux = moe_ffn(self.moe, h_in, cfg, router_state)
         rs = aux["router_state"] if aux["router_state"] is not None else router_state
         return x + h, rs, aux["aux_loss"]
 

@@ -458,19 +458,13 @@ def test_payload_counter_counts_nothing_on_one_rank():
 
 def test_item_5b_raises_across_ranks(monkeypatch):
     """What the multi-rank model half still lacks raises across ranks, naming
-    item 5b: the expert-parallel MoE dispatch and data-parallel training."""
+    item 5b: data-parallel training. (The MoE block across ranks runs the
+    expert-parallel dispatch under a mesh: ``tests/test_torch_moe_ep.py``.)"""
     from repro_torch.configs import get_config
-    from repro_torch.models import model_zoo
     from repro_torch.training import train_loop as ptl
 
     cfg = get_config("granite_moe_1b").reduced().with_(moe_ep_shardmap=True)
-    model = model_zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    block = next(b for b in model.blocks if b.moe is not None)
-    x = torch.zeros((1, 4, cfg.d_model))
-    block.ffn(x, cfg)  # a world of one runs moe_ffn, as the reference without a mesh
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 4)
-    with pytest.raises(NotImplementedError, match="module item 5b"):
-        block.ffn(x, cfg)
     with pytest.raises(NotImplementedError, match="module item 5b"):
         ptl.make_train_step(cfg, ptl.TrainConfig())
