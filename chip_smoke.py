@@ -128,7 +128,23 @@ I=16384 serving fleet, counting the kernel launches of each:
   (``examples/torch_moe_ep.py``'s ``serve_rank``) in f32 against a
   one-rank run without a mesh and in bf16, kernels 5, 6 and 2 counted on
   every rank. O2 and O3 run in phase N's world of four gloo ranks, after
-  N2's cases (one start-up for both phases).
+  N2's cases (one start-up for both phases);
+* phase P, data-parallel training (``training.make_train_step`` under a
+  model mesh, ``distributed/sharding.py``, the elastic checkpoint,
+  ``distributed/pipeline.py``): P1 one NCCL rank in this process,
+  internvl2-1b at full width, 2 of its 24 layers, bf16, two steps on a
+  1x1 mesh with ZeRO-1 moments and ``grad_specs`` bitwise the meshless
+  steps (phase M's), kernels 5 and 5b once per layer a step; P2 four gloo
+  ranks sharing the card on a 4x1 mesh in f32, two steps on a global
+  batch of 8 against the one-rank f32 steps on the card (loss and grad
+  norm within rel 1e-5, after the first step the parameters within the
+  ``_param_bound`` rule of ``tests/test_torch_training.py`` and each rank's
+  moment blocks within 1e-5 of scale), kernels 5 and 5b on every rank, the
+  state saved across the ranks and restored onto one rank bitwise; P3
+  ``pipeline_apply`` over the four ranks, one full-width block a stage
+  (kernel 5 in each), against the blocks in turn within 1e-5. P1 and
+  P2's one-rank reference run after phase M, P2 and P3 in phase N's world
+  after O2 and O3.
 
 It checks the results and prints:
 
@@ -175,6 +191,10 @@ It checks the results and prints:
   one rank, and per mesh and rank its ``"ep"`` payload, wall ms per call
   and share in collectives; per served run its slots, decode rounds, the
   decode rounds' median ms, the share in collectives and the launches;
+* for phase P, P1's step wall ms with and without the mesh in turns, and
+  per P2 step each rank's wall ms, share in collectives and ``"dp"``
+  elements beside the one-rank step's wall ms, the checkpoint's save and
+  restore seconds, and P3's wall ms per rank and ``"pp"`` elements;
 * one JSON line ``{"kernels": [...]}`` (eight kernels: the seven TPU
   kernels' counterparts and the flash attention backward; the slot
   kernel's row carries its batched entry under ``"batched"`` and its
@@ -184,7 +204,9 @@ It checks the results and prints:
   5 and 6 their launches on phase L's served run under ``"moe_launches"``,
   rows 2, 5 and 6 their launches on phase O's bf16 served run (rank 0) under
   ``"ep_launches"``, row 5 its launches on phase M's M2 and M3 steps under
-  ``"train_launches"`` and ``"encoder_launches"``, the backward's row its
+  ``"train_launches"`` and ``"encoder_launches"``, rows 5 and 5b their
+  launches on rank 0's P2 steps under ``"dp_launches"``, row 5 its P3
+  launches under ``"pipeline_launches"``, the backward's row its
   M3 launches under ``"encoder_launches"``, its route under
   ``"kernel_route"`` and its passes' ms under ``"passes_ms"``), then, last,
   ``{"ok": true, "device": {...}}``.
@@ -1342,11 +1364,16 @@ def read_counts():
     return {name: c.n for name, c in counters().items()}
 
 
+# phase E's dyadic runs under events: the restart (slots 10-42) and the k-failure (20-49)
+# fall inside T=60 (cut from 120 to make room for phase P)
+DYADIC_EVENTS_T = 60
+
+
 def dyadic_events_card_vs_cpu(pt, cf, cuda):
     """Both routes under events on the dyadic system (tests/test_torch_cohort_events.py):
     every sum is exact, so the card's run equals the port's run on the CPU
     bitwise, for every scheduler, under a rolling restart and a k-failure."""
-    T, W = 120, 2
+    T, W = DYADIC_EVENTS_T, 2
     topo, net, placement, arr = dyadic_system(pt, T + 13, W)
     pairs = [int(i) for i in range(topo.n_instances)
              if topo.comp_parallelism[topo.inst_comp[i]] == 2]
@@ -1364,7 +1391,7 @@ def dyadic_events_card_vs_cpu(pt, cf, cuda):
                                           device="cpu", events=ev, **kw)
             check(same_result(a, b) and a.completed_mass > 0,
                   f"dyadic {sched} {name}: the card's run differs from the CPU's")
-    print("dyadic system T=120 under a rolling restart and a k-failure: card equals CPU "
+    print(f"dyadic system T={T} under a rolling restart and a k-failure: card equals CPU "
           "bitwise for potus, shuffle, jsq and potus-loop")
 
 
@@ -4153,7 +4180,7 @@ def n2_rank(cases, fleet_spec):
     return out
 
 
-def sharded_path(card, cuda, fleet=None, also=()):
+def sharded_path(card, cuda, fleet=None, also=(), also_timeout_s=None):
     """Phase N, the instance-sharded engines (``core/sharded.py``): N1 one
     NCCL rank in this process, ``sharded=True`` with ``use_pallas`` on the
     I=16384 fleet (T=128): the slot kernel's route, bitwise path 1, kernel 1
@@ -4166,8 +4193,10 @@ def sharded_path(card, cuda, fleet=None, also=()):
     share. Callable alone after ``card_setup`` and ``build_kernels``
     (kernel 1); builds the fleet itself when not given. ``also``: more
     ``(fn, args, kwargs)`` calls for N2's ranks to run after theirs, in the
-    same world (one start-up). Returns ``{"1": N1's kernel 1 launches, "4":
-    N2's}`` and each rank's results of ``also``."""
+    same world (one start-up), within ``also_timeout_s`` more seconds
+    (phase O's ``EP_TIMEOUT_S`` unless given).
+    Returns ``{"1": N1's kernel 1 launches, "4": N2's}`` and each rank's
+    results of ``also``."""
     import torch
     import torch.distributed as dist
 
@@ -4219,7 +4248,8 @@ def sharded_path(card, cuda, fleet=None, also=()):
     fleet_dense = pt.simulate(dense_twin(fleet_spec))
     torch.cuda.synchronize()
     t0, started = time.perf_counter(), time.time()
-    timeout = SHARD_TIMEOUT_S + (EP_TIMEOUT_S if also else 0)
+    timeout = SHARD_TIMEOUT_S + (0 if not also else EP_TIMEOUT_S if also_timeout_s is None
+                                 else also_timeout_s)
     world = spawn_world(call_each, SHARD_RANKS, "gloo", timeout,
                         ([(n2_rank, (cases, fleet_spec), {}), *also],))
     world_s = time.perf_counter() - t0
@@ -4270,7 +4300,7 @@ def sharded_path(card, cuda, fleet=None, also=()):
           f"{formula - C}), {stats[0]['calls'] / SHARD_FLEET_T:.0f} collectives a slot")
     print(f"  wall ms/slot per rank: " + ", ".join(f"{w:.3f}" for w in wall_ms)
           + "; share in collectives: " + ", ".join(f"{x:.3f}" for x in share)
-          + f"; the world {world_s:.1f} s" + (" (with phase O's calls)" if also else "")
+          + f"; the world {world_s:.1f} s" + (" (with phases O's and P's calls)" if also else "")
           + ": the ranks up after "
           + ", ".join(f"{s['entered'] - started:.1f}" for s in stats) + " s, the dyadic cases "
           + ", ".join(f"{s['cases_s']:.1f}" for s in stats) + f" s [{card}]")
@@ -4619,6 +4649,458 @@ def moe_ep_path(card, cuda, world=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase P: data-parallel training across ranks (training.make_train_step under a model mesh,
+# distributed/sharding.py, the elastic checkpoint, distributed/pipeline.py)
+# ---------------------------------------------------------------------------
+
+# internvl2-1b at full width cut to DP_LAYERS of its 24 layers: P1 one NCCL rank in bf16
+# (TRAIN_B x TRAIN_S, phase M's batch), P2 four gloo ranks sharing the card on a 4x1 mesh in
+# f32, DP_STEPS steps on a global batch of DP_B x TRAIN_S, ZeRO-1 moments and grad_specs; P3
+# pipeline_apply over the four ranks, one full-width block a stage, PIPE_MICRO microbatches of
+# one PIPE_S-token row
+DP_ARCH, DP_LAYERS, DP_RANKS, DP_TIMEOUT_S = "internvl2_1b", 2, 4, 300
+DP_STEPS, DP_B, DP_TURNS = 2, 8, ("meshless", "mesh", "mesh", "meshless")
+PIPE_MICRO, PIPE_S = 4, 512
+
+
+def dp_cfg(dtype):
+    from repro_torch.configs import get_config
+
+    return get_config(DP_ARCH).with_(n_layers=DP_LAYERS, param_dtype=dtype, compute_dtype=dtype)
+
+
+def dp_tcfg():
+    """AdamW as phase M's, ZeRO-1 on (``OptConfig``'s default)."""
+    from repro_torch.training import train_loop as ptl
+    from repro_torch.training.optimizer import OptConfig
+
+    return ptl.TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=100))
+
+
+def dp_batch(cfg, B, device):
+    """``TokenPipeline(cfg, B, TRAIN_S, seed 0)``'s first batch on ``device``."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.specs import as_tensors
+
+    return as_tensors(TokenPipeline(cfg, batch=B, seq=TRAIN_S, seed=0).next_batch(), cfg, device)
+
+
+def dp_stepper(cfg, tcfg, mesh, device):
+    """(state, step): the state drawn from seed 0 on ``device`` (every rank
+    draws the same), under ``mesh`` (None: none) cut to this rank's ZeRO-1
+    blocks, and ``make_train_step`` with ``grad_specs`` from the ZeRO rules."""
+    import torch
+
+    from repro_torch.distributed import set_mesh
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model_zoo as pz
+    from repro_torch.training import train_loop as ptl
+
+    state = ptl.init_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0),
+                                 device)
+    specs = None
+    if mesh is not None:
+        ptl.shard_train_state(state, shd.train_state_shardings(cfg, mesh, tcfg))
+        specs = shd.specs_for_template(pz.template(cfg), shd.zero_rules(mesh), mesh)
+    set_mesh(mesh)
+    try:
+        return state, ptl.make_train_step(cfg, tcfg, specs)
+    finally:
+        set_mesh(None)
+
+
+def timed_step(step, state, batch):
+    """One step, synchronised: (state, metrics as floats, wall s, the "dp"
+    elements, collective s and calls, the launches)."""
+    import torch
+
+    from repro_torch.distributed import PAYLOAD
+
+    reset_counts()
+    PAYLOAD.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, dict(metrics={k: float(v) for k, v in met.items()}, wall_s=wall,
+                       elements=PAYLOAD.n("dp"), collective_s=PAYLOAD.seconds,
+                       calls=PAYLOAD.calls, launches=read_counts())
+
+
+def leaf_prints(state, shardings=None):
+    """Two exact fingerprints of each leaf's bits (``checkpoint.flatten_state``
+    keys), of this rank's block where ``shardings`` cuts it, computed on the
+    leaf's device: the wrapping int64 sums of its bit patterns, plain and
+    weighted by an odd multiplier per position. Equal leaves give equal
+    prints; any one differing element changes the plain sum."""
+    import torch
+
+    from repro_torch.training import checkpoint as ck
+
+    sh = {} if shardings is None else ck.flatten_state(shardings)
+    bits_of = {4: torch.int32, 2: torch.int16, 1: torch.int8, 8: torch.int64}
+    out = {}
+    for key, leaf in ck.flatten_state(state).items():
+        t = sh[key].local(leaf) if key in sh else leaf
+        t = t.detach().contiguous().reshape(-1)
+        bits = t.view(bits_of[t.element_size()]).to(torch.int64)
+        w = torch.arange(bits.numel(), dtype=torch.int64, device=bits.device) * 2654435761 + 1
+        out[key] = (int(bits.sum()), int((bits * w).sum()))
+    return out
+
+
+def dp_one_rank(card, cuda):
+    """P1: one NCCL rank in this process, ``DP_ARCH`` at full width and
+    ``DP_LAYERS`` layers in bf16 on phase M's batch: ``DP_STEPS`` steps on a
+    1x1 mesh with ZeRO-1 moments and ``grad_specs`` against the same steps
+    without a mesh (phase M's step): bitwise, kernels 5 and 5b once per
+    layer a step; then one step of each timed in turns."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import checkpoint as ck
+
+    cfg, tcfg = dp_cfg("bfloat16"), dp_tcfg()
+    batch = dp_batch(cfg, TRAIN_B, cuda)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            runs = {}
+            for name, mesh in (("meshless", None), ("mesh", make_host_mesh(1, 1))):
+                state, step = dp_stepper(cfg, tcfg, mesh, cuda)
+                stats = []
+                for _ in range(DP_STEPS):
+                    state, st = timed_step(step, state, batch)
+                    stats.append(st)
+                runs[name] = [state, step, stats]
+            a, b = (ck.flatten_state(runs[n][0]) for n in ("meshless", "mesh"))
+            same = list(a) == list(b) and all(torch.equal(a[k].detach(), b[k].detach())
+                                              for k in a)
+            same = same and all(x["metrics"] == y["metrics"]
+                                for x, y in zip(runs["meshless"][2], runs["mesh"][2]))
+            turns = {"meshless": [], "mesh": []}
+            for name in DP_TURNS:
+                runs[name][0], st = timed_step(runs[name][1], runs[name][0], batch)
+                turns[name].append(st)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    want = dict(ZERO_COUNTS, flash_attention=DP_LAYERS, flash_attention_bwd=DP_LAYERS)
+    for name, (_, _, stats) in runs.items():
+        for i, st in enumerate(stats):
+            check(st["launches"] == want, f"P1 {name} step {i}: launches {st['launches']}")
+            check(np.isfinite(st["metrics"]["loss"]), f"P1 {name} step {i}: loss not finite")
+    print(f"P1 one {backend} rank, {cfg.name} d_model {cfg.d_model}, {DP_LAYERS} of 24 layers, "
+          f"bf16, batch {TRAIN_B} x {TRAIN_S}: {DP_STEPS} steps on a 1x1 mesh (ZeRO-1 moments, "
+          f"grad_specs) = the steps without a mesh bitwise: {same}; losses "
+          + ", ".join(f"{st['metrics']['loss']:.6f}" for st in runs["mesh"][2])
+          + f"; launches a step flash_attention={DP_LAYERS} flash_attention_bwd={DP_LAYERS}")
+    check(same, "P1: the 1x1-mesh steps differ from the meshless steps")
+    for name, sts in turns.items():
+        print(f"  P1 {name} step wall ms in turns ({', '.join(DP_TURNS)}): "
+              + ", ".join(f"{st['wall_s'] * 1e3:.2f}" for st in sts)
+              + f"; share in collectives {sum(s['collective_s'] for s in sts) / sum(s['wall_s'] for s in sts):.4f}"
+              + f"; \"dp\" elements a step {sts[0]['elements']} [{card}]")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def dp_reference(card, cuda, tmp):
+    """P2's reference: the one-rank f32 steps without a mesh on the card from
+    the seed and batch P2's ranks use; writes the parameters and the first
+    moments after the first step to ``tmp/reference.pt`` for the ranks.
+    Returns each step's stats."""
+    import torch
+
+    cfg, tcfg = dp_cfg("float32"), dp_tcfg()
+    state, step = dp_stepper(cfg, tcfg, None, cuda)
+    batch = dp_batch(cfg, DP_B, cuda)
+    stats = []
+    for i in range(DP_STEPS):
+        state, st = timed_step(step, state, batch)
+        stats.append(st)
+        if i == 0:
+            torch.save({"params": {n: p.detach().cpu() for n, p in
+                                   state["params"].named_parameters()},
+                        "m": {n: t.cpu() for n, t in state["opt"]["m"].items()},
+                        "lr": st["metrics"]["lr"]}, Path(tmp) / "reference.pt")
+    print(f"P2 reference: one rank, {cfg.name} {DP_LAYERS} layers f32, global batch {DP_B} x "
+          f"{TRAIN_S}: step wall ms " + ", ".join(f"{s['wall_s'] * 1e3:.2f}" for s in stats)
+          + "; losses " + ", ".join(f"{s['metrics']['loss']:.6f}" for s in stats) + f" [{card}]")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return stats
+
+
+def dp_gaps(state, ref_path, shardings, b1, device):
+    """P2's gaps after the first step against the one-rank reference: the
+    largest excess of a parameter's gap over the ``_param_bound`` rule of
+    ``tests/test_torch_training.py`` (the gradient within 1e-4 of its
+    leaf's scale; the bound is invariant to the gradient's scale, so the
+    reference's first moment stands for it), and the largest gap of a
+    moment block to the reference's block, of the reference moment's scale."""
+    import torch
+
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    lr = ref["lr"]
+    excess, m_gap = -float("inf"), 0.0
+    for n, p in state["params"].named_parameters():
+        w, m_ref = ref["params"][n].to(device), ref["m"][n].to(device)
+        g = m_ref / (1 - b1)
+        delta = 1e-4 * g.abs().max()
+        bound = lr * torch.clamp(4 * delta / g.abs().clamp_min(1e-30), max=2.0) + 2e-7
+        excess = max(excess, float(((p.detach() - w).abs() - bound).max()))
+        blk = shardings["opt"]["m"][n].local(m_ref)
+        m_gap = max(m_gap, float((state["opt"]["m"][n] - blk).abs().max())
+                    / max(float(m_ref.abs().max()), 1e-30))
+    return dict(param_excess=excess, m_gap=m_gap)
+
+
+def p2_rank(tmp, device):
+    """One rank of P2: the 4x1 mesh, the state cut to its ZeRO-1 blocks,
+    ``DP_STEPS`` steps timed and counted, the gaps after the first against
+    the reference, the state saved across the ranks to ``tmp/ckpt`` and the
+    fingerprints of this rank's leaves (:func:`leaf_prints`)."""
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import checkpoint as ck
+
+    t0 = time.perf_counter()
+    cfg, tcfg = dp_cfg("float32"), dp_tcfg()
+    mesh = make_host_mesh(DP_RANKS, 1)
+    shardings = shd.train_state_shardings(cfg, mesh, tcfg)
+    state, step = dp_stepper(cfg, tcfg, mesh, device)
+    batch = dp_batch(cfg, DP_B, device)
+    out = dict(setup_s=time.perf_counter() - t0, steps=[])
+    for i in range(DP_STEPS):
+        state, st = timed_step(step, state, batch)
+        out["steps"].append(st)
+        if i == 0:
+            out["gaps"] = dp_gaps(state, Path(tmp) / "reference.pt", shardings, tcfg.opt.b1,
+                                  device)
+    t1 = time.perf_counter()
+    ck.save_checkpoint(Path(tmp) / "ckpt", DP_STEPS, state, extra=dict(batch_seed=0),
+                       shardings=shardings)
+    out["save_s"] = time.perf_counter() - t1
+    out["prints"] = leaf_prints(state)
+    out["wall_s"] = time.perf_counter() - t0
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_blocks(cfg, device):
+    """P3's ``PIPE`` stages: ``DP_RANKS`` blocks of ``cfg`` drawn in turn from
+    one generator of seed 0 on ``device``, and their parameters stacked
+    (n_stages, ...)."""
+    import torch
+
+    from repro_torch.models import model_zoo as pz
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    blocks = []
+    for _ in range(DP_RANKS):
+        with torch.device("meta"):
+            b = pz.Block(cfg, dtype=torch.float32)
+        blocks.append(pz.fill_(b.to_empty(device=device), gen).requires_grad_(False))
+    names = [n for n, _ in blocks[0].named_parameters()]
+    return blocks, {n: torch.stack([dict(b.named_parameters())[n] for b in blocks])
+                    for n in names}
+
+
+def pipe_input(cfg, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    return torch.randn((PIPE_MICRO, 1, PIPE_S, cfg.d_model), generator=gen, device=device)
+
+
+def pipe_stage(block, p, h):
+    """One stage: ``block`` with the parameters ``p`` on ``h`` (1, S, D)."""
+    import torch
+
+    positions = torch.arange(h.shape[1], device=h.device)
+    return torch.func.functional_call(block, p, (h, positions))[0]
+
+
+def p3_rank(device):
+    """One rank of P3: ``pipeline_apply`` of the four blocks over a "stage"
+    axis of the four ranks, timed and counted."""
+    import torch
+
+    from repro_torch.distributed import PAYLOAD
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_axis_mesh
+
+    cfg = dp_cfg("float32")
+    blocks, params = pipe_blocks(cfg, device)
+    x = pipe_input(cfg, device)
+    mesh = make_axis_mesh(DP_RANKS, "stage")
+    reset_counts()
+    PAYLOAD.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = pipeline_apply(partial(pipe_stage, blocks[0]), params, x, mesh, axis="stage")
+    torch.cuda.synchronize()
+    return dict(out=out.cpu(), wall_s=time.perf_counter() - t0, launches=read_counts(),
+                elements=PAYLOAD.n("pp"), collective_s=PAYLOAD.seconds)
+
+
+def dp_prepare(card, cuda):
+    """Phase P's parts in this process before the world of ranks: P1, and
+    P2's one-rank reference in a temporary directory. Returns (the
+    directory, the reference's stats)."""
+    t0 = time.perf_counter()
+    dp_one_rank(card, cuda)
+    print(f"  P1 {time.perf_counter() - t0:.1f} s [{card}]")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    return tmp, dp_reference(card, cuda, tmp)
+
+
+def dp_world_calls(cuda, prepared):
+    """P2's and P3's calls for each rank of a world of ``DP_RANKS`` gloo
+    ranks sharing the card (``spawn_world(call_each, ...)``)."""
+    return [(p2_rank, (prepared[0], str(cuda)), {}), (p3_rank, (str(cuda),), {})]
+
+
+def dp_train_path(card, cuda, prepared=None, world=None):
+    """Phase P, data-parallel training (``make_train_step`` under a model
+    mesh): P1 (:func:`dp_one_rank`); P2 four gloo ranks sharing the card on
+    a 4x1 mesh, f32, ZeRO-1 moments and ``grad_specs``: each step's loss and
+    grad norm within rel 1e-5 of the one-rank f32 steps on the card and the
+    same on every rank, after the first step the parameters within the
+    ``_param_bound`` rule and each rank's moment blocks within 1e-5 of scale
+    of the reference's blocks, kernels 5 and 5b once per layer a step on
+    every rank, the step walls, their share in collectives and the "dp"
+    payload; the state saved across the ranks and restored onto one rank
+    here, bitwise every rank's blocks; P3 ``pipeline_apply`` over the four
+    ranks, one full-width block a stage (kernel 5 in every stage), against
+    the blocks applied in turn on the card within 1e-5 of scale.
+    ``prepared``: :func:`dp_prepare`'s result, ``world``: each rank's
+    results of :func:`dp_world_calls` where another phase's world ran them
+    (phase N's, in a whole run); else they run here. Callable alone after
+    ``card_setup`` and ``build_kernels`` (kernels 5 and 5b). Returns rank 0's
+    launches of kernels 5 and 5b on P2's steps and kernel 5's in P3."""
+    import shutil
+
+    import torch
+
+    from repro_torch.distributed import call_each, spawn_world
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import ModelMesh
+    from repro_torch.distributed.context import Axis
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training import train_loop as ptl
+
+    t_phase = time.perf_counter()
+    if prepared is None:
+        prepared = dp_prepare(card, cuda)
+    tmp, ref = prepared
+    try:
+        if world is None:
+            t0 = time.perf_counter()
+            world = spawn_world(call_each, DP_RANKS, "gloo", DP_TIMEOUT_S,
+                                (dp_world_calls(cuda, prepared),))
+            print(f"  P2 and P3 in a world of their own, {time.perf_counter() - t0:.1f} s "
+                  f"[{card}]")
+        p2, p3 = [w[0] for w in world], [w[1] for w in world]
+        cfg, tcfg = dp_cfg("float32"), dp_tcfg()
+        # -- P2: the steps against the one-rank reference ------------------------------
+        want = dict(ZERO_COUNTS, flash_attention=DP_LAYERS, flash_attention_bwd=DP_LAYERS)
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        for r, out in enumerate(p2):
+            for i, st in enumerate(out["steps"]):
+                check(st["launches"] == want, f"P2 rank {r} step {i}: launches {st['launches']}")
+                check(st["metrics"] == p2[0]["steps"][i]["metrics"],
+                      f"P2 step {i}: rank {r}'s metrics differ from rank 0's")
+                for key in worst:
+                    worst[key] = max(worst[key], rel_diff(st["metrics"][key],
+                                                          ref[i]["metrics"][key]))
+        gaps = [out["gaps"] for out in p2]
+        excess = max(g["param_excess"] for g in gaps)
+        m_gap = max(g["m_gap"] for g in gaps)
+        same_params = all(
+            all(out["prints"][k] == p2[0]["prints"][k] for k in out["prints"]
+                if k.startswith("params/")) for out in p2[1:])
+        print(f"P2 {DP_RANKS} gloo ranks on the card, 4x1 mesh, {cfg.name} {DP_LAYERS} of 24 "
+              f"layers f32, global batch {DP_B} x {TRAIN_S} ({DP_B // DP_RANKS} rows a rank), "
+              f"ZeRO-1 moments, grad_specs, {DP_STEPS} steps: losses "
+              + ", ".join(f"{st['metrics']['loss']:.6f}" for st in p2[0]["steps"])
+              + f"; against the one-rank f32 steps: loss rel {worst['loss']:.3e}, grad norm rel "
+              f"{worst['grad_norm']:.3e} (limit 1e-5); after step 1 the parameters' largest "
+              f"excess over the _param_bound rule {excess:.3e} (held <= 0), the moment blocks "
+              f"{m_gap:.3e} of scale (limit 1e-5); every rank's parameters identical: "
+              f"{same_params}; launches a step on every rank flash_attention={DP_LAYERS} "
+              f"flash_attention_bwd={DP_LAYERS} [{card}]")
+        check(max(worst.values()) <= 1e-5, f"P2: loss/grad norm beyond rel 1e-5: {worst}")
+        check(excess <= 0.0, f"P2: a parameter beyond the _param_bound rule by {excess}")
+        check(m_gap <= 1e-5, f"P2: moment blocks {m_gap} of scale from the reference's")
+        check(same_params, "P2: the ranks' parameters differ")
+        for i in range(DP_STEPS):
+            sts = [out["steps"][i] for out in p2]
+            print(f"  P2 step {i} wall ms per rank "
+                  + ", ".join(f"{s['wall_s'] * 1e3:.2f}" for s in sts)
+                  + "; share in collectives " + ", ".join(f"{s['collective_s'] / s['wall_s']:.3f}"
+                                                          for s in sts)
+                  + f"; \"dp\" elements {sts[0]['elements']} in {sts[0]['calls']} collectives; "
+                  f"one rank without a mesh {ref[i]['wall_s'] * 1e3:.2f} ms [{card}]")
+        # -- P2: the 4-rank checkpoint restored onto one rank ---------------------------
+        t0 = time.perf_counter()
+        fresh = ptl.init_train_state(cfg, tcfg, torch.Generator(device=cuda).manual_seed(1),
+                                     cuda)
+        restored, extra = ck.restore_checkpoint(Path(tmp) / "ckpt", DP_STEPS, fresh)
+        load_s = time.perf_counter() - t0
+        bitwise = extra == dict(batch_seed=0)
+        for r, out in enumerate(p2):
+            mesh = ModelMesh((("data", Axis(None, DP_RANKS, r)), ("model", Axis(None, 1, 0))))
+            bitwise = bitwise and leaf_prints(
+                restored, shd.train_state_shardings(cfg, mesh, tcfg)) == out["prints"]
+        print(f"P2 checkpoint saved across the {DP_RANKS} ranks in "
+              + ", ".join(f"{out['save_s']:.2f}" for out in p2)
+              + f" s, restored onto one rank in {load_s:.2f} s: every rank's blocks bitwise "
+              f"(two exact fingerprints of each leaf's bits): {bitwise} [{card}]")
+        check(bitwise, "P2: the state restored onto one rank differs from the ranks' blocks")
+        del fresh, restored
+        torch.cuda.empty_cache()
+        # -- P3: the pipeline against the blocks in turn ---------------------------------
+        blocks, _ = pipe_blocks(cfg, cuda)
+        x = pipe_input(cfg, cuda)
+        with torch.no_grad():
+            seq = []
+            for m in range(PIPE_MICRO):
+                h = x[m]
+                for b in blocks:
+                    h = pipe_stage(b, dict(b.named_parameters()), h)
+                seq.append(h)
+            seq = torch.stack(seq).cpu()
+        gap = max(float((out["out"] - seq).abs().max()) for out in p3) / float(seq.abs().max())
+        print(f"P3 pipeline_apply over {DP_RANKS} gloo ranks, one {cfg.name} block (full width, "
+              f"f32) a stage, {PIPE_MICRO} microbatches of 1 x {PIPE_S}: max gap to the blocks "
+              f"in turn {gap:.3e} of scale (limit 1e-5); kernel 5 launches per rank "
+              + ", ".join(str(out["launches"]["flash_attention"]) for out in p3)
+              + "; wall ms per rank " + ", ".join(f"{out['wall_s'] * 1e3:.1f}" for out in p3)
+              + f", share in its hand-offs {p3[0]['collective_s'] / p3[0]['wall_s']:.3f}, "
+              f"\"pp\" elements {p3[0]['elements']} [{card}]")
+        check(gap <= 1e-5, f"P3: pipeline vs the blocks in turn {gap}")
+        check(all(out["launches"] == dict(ZERO_COUNTS, flash_attention=PIPE_MICRO)
+                  for out in p3), f"P3 launches {[out['launches'] for out in p3]}")
+        del blocks, x
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase P {time.perf_counter() - t_phase:.1f} s [{card}]")
+    steps = p2[0]["steps"]
+    return {"flash_attention": sum(s["launches"]["flash_attention"] for s in steps),
+            "flash_attention_bwd": sum(s["launches"]["flash_attention_bwd"] for s in steps),
+            "pipeline": p3[0]["launches"]["flash_attention"]}
+
+
 def slot_kernel(card, cuda):
     """Section 2: the slot kernel against its plain version on the card: the
     dyadic system bitwise (potus, shuffle, jsq; K=1 and 8), the I=16384
@@ -4764,8 +5246,8 @@ def card_setup():
     power limit (``nvidia-smi``) and the device. A section called alone
     (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``,
     ``sweep_path``, ``obs_path``, ``oracle_path``, ``moe_path``,
-    ``training_path``, ``sharded_path``, ``moe_ep_path``) starts with this and
-    :func:`build_kernels`."""
+    ``training_path``, ``sharded_path``, ``moe_ep_path``,
+    ``dp_train_path``) starts with this and :func:`build_kernels`."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4859,18 +5341,32 @@ def run_phases(pt, cf, card, cuda) -> int:
     bwd_kernel, flash_train = training_path(card, cuda)
     attention_kernels[0].update(flash_train)
 
-    # -- 13. phase N: the instance-sharded engines (kernel 1 on one rank); its world of
-    # four gloo ranks then runs phase O's O2 and O3 (one start-up for both) --------------
-    slot.row["sharded_launches"], ep_world = sharded_path(card, cuda, slot.fleet,
-                                                          also=ep_world_calls(cuda))
+    # -- 13. phase P's parts in this process: P1 (one NCCL rank) and P2's one-rank
+    # reference, before the world of ranks --------------------------------------------
+    t_phase = time.perf_counter()
+    dp_prepared = dp_prepare(card, cuda)
+    print(f"  P1 and P2's reference {time.perf_counter() - t_phase:.1f} s [{card}]")
 
-    # -- 14. phase O: expert-parallel MoE serving (kernels 2, 5 and 6 on every rank) ----
-    ep = moe_ep_path(card, cuda, world=ep_world)
+    # -- 14. phase N: the instance-sharded engines (kernel 1 on one rank); its world of
+    # four gloo ranks then runs phase O's O2 and O3 and phase P's P2 and P3 (one
+    # start-up for all) ------------------------------------------------------------------
+    slot.row["sharded_launches"], world = sharded_path(
+        card, cuda, slot.fleet, also=ep_world_calls(cuda) + dp_world_calls(cuda, dp_prepared),
+        also_timeout_s=EP_TIMEOUT_S + DP_TIMEOUT_S)
+
+    # -- 15. phase O: expert-parallel MoE serving (kernels 2, 5 and 6 on every rank) ----
+    ep = moe_ep_path(card, cuda, world=[out[:2] for out in world])
     for row in (*scan_kernels, *attention_kernels):
         if row["name"] in ("potus_schedule", "flash_attention", "decode_attention"):
             row["ep_launches"] = ep[row["name"]]
 
-    # -- 15. the kernels line, 16. the last line ---------------------------------
+    # -- 16. phase P: data-parallel training (kernels 5 and 5b on every rank) -----------
+    dp = dp_train_path(card, cuda, dp_prepared, world=[out[2:] for out in world])
+    attention_kernels[0]["dp_launches"] = dp["flash_attention"]
+    attention_kernels[0]["pipeline_launches"] = dp["pipeline"]
+    bwd_kernel["dp_launches"] = dp["flash_attention_bwd"]
+
+    # -- 17. the kernels line, 18. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel, bwd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

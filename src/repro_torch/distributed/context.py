@@ -19,14 +19,23 @@ collectives map as:
   dense engine's lowest-index tie-break bitwise (DESIGN.md §13.2);
 * an untiled ``all_to_all`` over dim 0 (:func:`all_to_all`) →
   ``dist.all_to_all_single`` with equal blocks (the expert-parallel MoE
-  dispatch, ``models.moe_ep``).
+  dispatch, ``models.moe_ep``);
+* a tiled ``psum_scatter`` (:func:`psum_scatter`) →
+  ``dist.reduce_scatter_single`` (``reduce_scatter_tensor`` where the
+  installed torch lacks it) over the dim moved to the front, through the
+  host under gloo (the data-parallel gradients' reduce-scatter onto the
+  ZeRO-1 blocks);
+* ``pmax`` (:func:`pmax`) → ``all_reduce(MAX)``.
 
 Each call adds the elements it moves to :data:`PAYLOAD` under a tag:
 ``"step"`` for the slot dynamics (the ``payload`` metric stream reads it),
 ``"obs"`` for what only the metric streams need, ``"out"`` for replicating a
-result at the end of a run, ``"ep"`` for the expert-parallel MoE layers. An
-all-reduce of n elements moves n; a tiled all-gather and an all-to-all move
-the n of their output. On one rank nothing is counted.
+result at the end of a run, ``"ep"`` for the expert-parallel MoE layers,
+``"dp"`` for data-parallel training (the gradients' reductions, the token
+count and the norm, the parameters' all-gathers, checkpoints' gathers) and
+``"pp"`` for the pipeline's hand-offs. An all-reduce of n elements moves n;
+a tiled all-gather and an all-to-all move the n of their output, a
+reduce-scatter the n of its input. On one rank nothing is counted.
 
 Gloo stages CUDA tensors through the host (ranks sharing a card), so the
 host waits for the producing kernels in any case; :func:`_collective`
@@ -37,7 +46,10 @@ exchange itself is waited for by the next synchronise, outside the count.
 
 :func:`set_mesh` and :func:`get_mesh` hold the ambient model mesh
 (``launch.mesh.ModelMesh``) that the MoE blocks read to choose the
-expert-parallel dispatch, the counterparts of the reference's.
+expert-parallel dispatch and ``training.make_train_step`` reads for its
+data-parallel layout, the counterparts of the reference's;
+:func:`set_cache_specs` and :func:`get_cache_specs` hold the decode cache's
+specs (``distributed.sharding.decode_shardings``).
 """
 from __future__ import annotations
 
@@ -50,7 +62,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Axis", "SOLO", "PAYLOAD", "PayloadCounter", "all_gather", "all_to_all", "psum",
-           "pmin", "grid_axes", "rank_device", "require_one_rank", "set_mesh", "get_mesh"]
+           "pmin", "pmax", "psum_scatter", "grid_axes", "rank_device", "require_one_rank",
+           "set_mesh", "get_mesh", "set_cache_specs", "get_cache_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,17 +133,18 @@ class PayloadCounter:
 PAYLOAD = PayloadCounter()
 
 
-def _collective(run, x: torch.Tensor, tag: str) -> torch.Tensor:
-    """``run`` on ``x`` made contiguous, counted under ``tag``. The card is
-    synchronised first, so that under gloo (which stages a CUDA tensor
-    through the host and waits for the kernels that produce it in any case)
-    the seconds counted are the exchange's own; under NCCL they are the
-    time to enqueue it."""
+def _collective(run, x: torch.Tensor, tag: str, count: int | None = None) -> torch.Tensor:
+    """``run`` on ``x`` made contiguous, counted under ``tag`` (the output's
+    elements unless ``count`` says otherwise). The card is synchronised
+    first, so that under gloo (which stages a CUDA tensor through the host
+    and waits for the kernels that produce it in any case) the seconds
+    counted are the exchange's own; under NCCL they are the time to
+    enqueue it."""
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
     t0 = time.perf_counter()
     out = run(x.contiguous())
-    PAYLOAD.add(tag, out.numel(), time.perf_counter() - t0)
+    PAYLOAD.add(tag, out.numel() if count is None else count, time.perf_counter() - t0)
     return out
 
 
@@ -153,6 +167,40 @@ def psum(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
 def pmin(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
     """Elementwise minimum of ``x`` over the ranks of ``axis``, on every rank."""
     return _all_reduce(x, axis, dist.ReduceOp.MIN, tag)
+
+
+def pmax(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
+    """Elementwise maximum of ``x`` over the ranks of ``axis``, on every rank."""
+    return _all_reduce(x, axis, dist.ReduceOp.MAX, tag)
+
+
+def _staged(buf: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``buf`` where the backend of ``axis`` takes it: gloo's collectives
+    other than all-reduce and all-gather move host memory, so a CUDA
+    tensor goes through the host under gloo."""
+    return buf.cpu() if buf.is_cuda and dist.get_backend(axis.group) == "gloo" else buf
+
+
+def psum_scatter(x: torch.Tensor, axis: Axis, dim: int = 0, tag: str = "dp") -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, scatter_dimension=dim, tiled=True)``: the
+    sum of ``x`` over the ranks of ``axis``, cut into ``axis.size`` equal
+    blocks along ``dim``, rank i keeping block i."""
+    if axis.size == 1:
+        return x
+    if x.shape[dim] % axis.size:
+        raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} is not {axis.size} "
+                         "equal blocks")
+
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+    def run(buf):
+        staged = _staged(buf, axis)
+        out = staged.new_empty((staged.shape[0] // axis.size, *staged.shape[1:]))
+        scatter(out, staged, dist.ReduceOp.SUM, group=axis.group)
+        return out.to(buf.device)
+
+    out = _collective(run, x.movedim(dim, 0), tag, count=x.numel())
+    return out.movedim(0, dim)
 
 
 def all_gather(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
@@ -180,7 +228,7 @@ def all_to_all(x: torch.Tensor, axis: Axis, tag: str = "ep") -> torch.Tensor:
         raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} is not {axis.size} equal blocks")
 
     def run(buf):
-        staged = buf.cpu() if buf.is_cuda and dist.get_backend(axis.group) == "gloo" else buf
+        staged = _staged(buf, axis)
         out = torch.empty_like(staged)
         dist.all_to_all_single(out, staged, group=axis.group)
         return out.to(buf.device)
@@ -188,9 +236,9 @@ def all_to_all(x: torch.Tensor, axis: Axis, tag: str = "ep") -> torch.Tensor:
 
 
 def require_one_rank(what: str) -> None:
-    """Raise when ``what`` runs in a world of more than one rank: the
-    data-parallel training layouts (``grad_specs``, the ZeRO-1 moments) are
-    not ported yet."""
+    """Raise when ``what`` runs in a world of more than one rank: training
+    an MoE model across ranks (its router's capacity, positions, loads and
+    state are sums over the global batch) is not ported yet."""
     if dist.is_initialized() and dist.get_world_size() > 1:
         raise NotImplementedError(
             f"{what} across {dist.get_world_size()} ranks is not ported yet (ROADMAP.md, "
@@ -229,3 +277,18 @@ def set_mesh(mesh) -> None:
 def get_mesh():
     """The ambient model mesh, None unless :func:`set_mesh` set one."""
     return _MESH
+
+
+_CACHE_SPECS = None
+
+
+def set_cache_specs(specs) -> None:
+    """The decode cache's specs (``{name: PartitionSpec}``, from
+    ``distributed.sharding.decode_shardings``), or None."""
+    global _CACHE_SPECS
+    _CACHE_SPECS = specs
+
+
+def get_cache_specs():
+    """The decode cache's specs, None unless :func:`set_cache_specs` set them."""
+    return _CACHE_SPECS

@@ -7,9 +7,10 @@ rank sees it: an :class:`~repro_torch.distributed.context.Axis` per name.
 Rank ``r`` of an ``n_data x n_model`` mesh sits at ``(r // n_model,
 r % n_model)``, where ``jax.devices()[:n].reshape(n_data, n_model)`` puts
 device ``r``; the subgroups come from ``distributed.grid_axes``, whose
-outer axis plays ``"data"`` and inner axis ``"model"``. Building a mesh
-makes process subgroups, so every rank of the default group builds it, in
-the same order.
+outer axis plays ``"data"`` and inner axis ``"model"``.
+:func:`make_axis_mesh` builds a mesh of one named axis (the pipeline's
+``"stage"``). Building a mesh makes process subgroups, so every rank of the
+default group builds it, in the same order.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import torch.distributed as dist
 
 from ..distributed.context import SOLO, Axis, grid_axes
 
-__all__ = ["ModelMesh", "make_production_mesh", "make_mesh_shape", "make_host_mesh"]
+__all__ = ["ModelMesh", "make_production_mesh", "make_mesh_shape", "make_host_mesh",
+           "make_axis_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +45,21 @@ class ModelMesh:
 
     def axis(self, name: str) -> Axis:
         return dict(self.axes)[name]
+
+    @property
+    def idle(self) -> bool:
+        """Whether some ranks of the world are off the mesh."""
+        return _world_size() > int(np.prod(list(self.shape.values())))
+
+    def share(self, obj):
+        """``obj`` of the mesh's first rank (rank 0 of the world) on every
+        rank: one broadcast when some ranks are off the mesh, else ``obj``
+        itself. Every rank of the world calls it."""
+        if not self.idle:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
 
 
 def make_mesh_shape(*, multi_pod: bool = False):
@@ -80,3 +97,14 @@ def make_host_mesh(n_data: int = 1, n_model: int = 1) -> ModelMesh:
         return ModelMesh()
     data, model, member = grid_axes(n_data, n_model)
     return ModelMesh((("data", data), ("model", model)), member=member)
+
+
+def make_axis_mesh(n: int, name: str = "stage") -> ModelMesh:
+    """A mesh of one axis named ``name`` over the first ``n`` ranks (a
+    pipeline's stages); without a process group a mesh of one."""
+    if n < 1 or n > _world_size():
+        raise ValueError(f"need {n} ranks for a {name!r} axis of {n}, found {_world_size()}")
+    if not dist.is_initialized():
+        return ModelMesh(((name, SOLO),))
+    axis, _, member = grid_axes(n, 1)
+    return ModelMesh(((name, axis),), member=member)

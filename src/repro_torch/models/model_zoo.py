@@ -11,6 +11,7 @@ Zamba2-style).
   prefill(model, cfg, batch, max_len)           -> (logits (B, 1, V), cache)
   decode_step(model, cfg, token, pos, cache)    -> (logits (B, 1, V), cache)
   cache_spec(cfg, batch, max_len) / init_cache(cfg, batch, max_len, device)
+  template(cfg) / axes(cfg)                     -> each parameter's logical axes
 
 A batch holds ``tokens`` (B, S) for a decoder; ``patches`` (B, Np, D) and
 ``tokens`` (B, S - Np) for a ``vision_stub`` config; ``embeddings``
@@ -55,6 +56,7 @@ mesh the ranks run every entry point together (SPMD), on the same inputs.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from functools import partial
 
@@ -72,9 +74,9 @@ from .mamba import (Mamba2Block, mamba_block, mamba_cache_spec, mamba_decode_ste
 from .moe import MoE, init_router_state, moe_ffn
 from .moe_ep import moe_ffn_ep
 
-__all__ = ["DenseDecoder", "SSMDecoder", "is_moe_layer", "init", "fill_", "forward", "prefill",
-           "decode_step", "cache_spec", "init_cache", "check_supported",
-           "ssd_chunked_with_state", "REMAT_POLICIES"]
+__all__ = ["DenseDecoder", "SSMDecoder", "Leaf", "is_moe_layer", "init", "fill_", "template",
+           "axes", "forward", "prefill", "decode_step", "cache_spec", "init_cache",
+           "check_supported", "ssd_chunked_with_state", "REMAT_POLICIES"]
 
 FRONTENDS = (None, "vision_stub", "audio_stub")
 
@@ -232,6 +234,78 @@ def init(cfg, generator: torch.Generator, device="cuda", *, requires_grad: bool 
     with torch.device("meta"):
         model = (SSMDecoder if cfg.ssm else DenseDecoder)(cfg)
     return fill_(model.to_empty(device=device), generator).requires_grad_(requires_grad)
+
+
+# ---------------------------------------------------------------------------
+# Templates: the logical axes of every parameter (the sharding rules read them)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """One parameter's template: ``shape`` and logical ``axes`` in the
+    reference leaf's dim order, its stacked ``"layers"`` axis dropped, and
+    ``perm``, the reference dim that each of the port tensor's dims is
+    (``(1, 0)`` for an ``nn.Linear`` weight, the reference's (in, out)
+    matrix transposed)."""
+
+    shape: tuple
+    axes: tuple
+    perm: tuple
+
+    @property
+    def port_axes(self) -> tuple:
+        return tuple(self.axes[d] for d in self.perm)
+
+
+_MLP_AXES = {"w_gate.weight": ("embed", "ff"), "w_up.weight": ("embed", "ff"),
+             "w_in.weight": ("embed", "ff"), "w_out.weight": ("ff", "embed")}
+#: the reference leaf's logical axes of each parameter, by its name within a block (or at
+#: the top of the model); the ``nn.Linear`` weights among them are stored transposed
+_AXES = {
+    "embed": ("vocab", "embed"), "lm_head.weight": ("embed", "vocab"),
+    "final_norm.weight": ("embed",), "ln1.weight": ("embed",), "ln2.weight": ("embed",),
+    "attn.wq.weight": ("embed", "heads"), "attn.wk.weight": ("embed", "kv"),
+    "attn.wv.weight": ("embed", "kv"), "attn.wo.weight": ("heads", "embed"),
+    "attn.wq.bias": ("heads",), "attn.wk.bias": ("kv",), "attn.wv.bias": ("kv",),
+    **{f"mlp.{k}": v for k, v in _MLP_AXES.items()},
+    **{f"moe.shared.{k}": v for k, v in _MLP_AXES.items()},
+    # the router and the experts keep the reference's layout
+    "moe.router": ("embed", "experts"), "moe.w_gate": ("experts", "embed", "ff"),
+    "moe.w_up": ("experts", "embed", "ff"), "moe.w_down": ("experts", "ff", "embed"),
+    # Mamba2 (the conv weight (K, channels) is not a linear map: kept as it is)
+    "norm.weight": ("embed",), "in_proj.weight": ("embed", "ff"), "conv_w": (None, "ff"),
+    "conv_b": ("ff",), "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
+    "gate_norm.weight": ("ff",), "out_proj.weight": ("ff", "embed"),
+}
+_LINEAR_WEIGHTS = {"lm_head.weight", "in_proj.weight", "out_proj.weight",
+                   *(f"attn.w{x}.weight" for x in "qkvo"),
+                   *(f"mlp.{k}" for k in _MLP_AXES), *(f"moe.shared.{k}" for k in _MLP_AXES)}
+
+
+def _leaf(name: str, p: torch.Tensor) -> Leaf:
+    parts = name.split(".")
+    key = ".".join(parts[2:]) if parts[0] in ("blocks", "shared_attn") else name
+    if key not in _AXES:
+        raise KeyError(f"no logical axes for parameter {name!r}")
+    if key in _LINEAR_WEIGHTS:
+        return Leaf(tuple(reversed(p.shape)), _AXES[key], (1, 0))
+    return Leaf(tuple(p.shape), _AXES[key], tuple(range(p.dim())))
+
+
+def template(cfg) -> dict:
+    """``{parameter name: Leaf}`` of the model :func:`init` builds for
+    ``cfg``, the counterpart of the reference's ``template`` (built on the
+    meta device: no memory, at any size)."""
+    with torch.device("meta"):
+        model = (SSMDecoder if cfg.ssm else DenseDecoder)(cfg)
+    return {name: _leaf(name, p) for name, p in model.named_parameters()}
+
+
+def axes(cfg) -> dict:
+    """``{parameter name: logical axes}`` in the port's layout: the
+    reference's per-dim axes without the stacked ``"layers"`` axis, an
+    ``nn.Linear`` weight's two reversed."""
+    return {name: leaf.port_axes for name, leaf in template(cfg).items()}
 
 
 def _hybrid_groups(cfg) -> list[tuple[int, int, bool]]:

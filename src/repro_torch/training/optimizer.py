@@ -7,6 +7,17 @@ reference returns new trees), so the card holds one copy of the weights.
 The moments are kept in ``cfg.state_dtype`` (float32 by default) and every
 update is computed in float32 and cast back to the parameter's type.
 
+With ``zero_sharding`` (ZeRO-1, the default as in the reference) the
+training state's moments are cut over the mesh's ``"data"`` axis by
+``distributed.sharding.zero_rules`` (``train_state_shardings`` reads the
+field; without it they take the parameters' layout). Given the moments'
+shardings, :func:`adamw_update` updates this rank's block of each cut
+parameter from its block of the gradient and moments, by the same
+per-element arithmetic, then all-gathers the parameter back to replicated;
+:func:`global_norm` sums the squares of the cut leaves' blocks over
+``"data"`` and adds each replicated leaf once. On a mesh of one rank (or
+without shardings) both are the one-rank update, bitwise.
+
 Weight decay is decoupled and falls on the tensors the reference decays:
 its leaves of two or more axes. The reference stacks each block's leaves
 along a leading layer axis, so every parameter under ``blocks.`` or
@@ -21,6 +32,7 @@ import math
 
 import torch
 
+from ..distributed.context import psum
 from ..models.common import DTYPES
 
 __all__ = ["OptConfig", "init_opt_state", "adamw_update", "lr_at", "global_norm", "decays"]
@@ -38,6 +50,7 @@ class OptConfig:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     state_dtype: str = "float32"
+    zero_sharding: bool = True
 
 
 def lr_at(cfg: OptConfig, step) -> torch.Tensor:
@@ -60,9 +73,35 @@ def init_opt_state(params: dict, cfg: OptConfig) -> dict:
                 step=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """The l2 norm over every tensor of ``tree``, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree.values()))
+def _cut(shardings: dict | None, name: str):
+    """The sharding of ``name`` when it cuts the tensor over some ranks, else None."""
+    sh = None if shardings is None else shardings.get(name)
+    return None if sh is None or sh.replicated else sh
+
+
+def _data_axis(shardings: dict):
+    """The mesh axis the cut leaves of ``shardings`` are cut over: ``"data"``
+    (``ValueError`` for a cut over another axis: tensor-parallel layouts
+    are not trained)."""
+    axes = {a for sh in shardings.values() for _, names in sh.cuts() for a in names}
+    if axes - {"data"}:
+        raise ValueError(f"optimizer state cut over the mesh axes {sorted(axes)}: only 'data' "
+                         "is supported")
+    return next(iter(shardings.values())).mesh.axis("data")
+
+
+def global_norm(tree: dict, shardings: dict | None = None) -> torch.Tensor:
+    """The l2 norm over every tensor of ``tree``, in float32. With
+    ``shardings`` (``{name: Sharding}``), a leaf they cut is this rank's
+    block: the squares of the blocks are summed over ``"data"`` and each
+    replicated leaf is added once."""
+    cut = [n for n in tree if _cut(shardings, n) is not None]
+    if not cut:
+        return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree.values()))
+    blocks = psum(sum(torch.sum(torch.square(tree[n].float())) for n in cut),
+                  _data_axis(shardings), "dp")
+    return torch.sqrt(blocks + sum(torch.sum(torch.square(t.float()))
+                                   for n, t in tree.items() if n not in cut))
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -73,12 +112,16 @@ def decays(name: str, p: torch.Tensor) -> bool:
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig):
+def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig,
+                 shardings: dict | None = None):
     """One AdamW step with global-norm clipping and bias corrections,
     in place. Returns (params, opt_state, metrics) with ``metrics`` the
-    gradients' ``grad_norm`` (before clipping) and the step's ``lr``."""
+    gradients' ``grad_norm`` (before clipping) and the step's ``lr``.
+    ``shardings``: the moments' (``{name: Sharding}``); a gradient and the
+    moments of a parameter they cut are this rank's blocks, and the
+    parameter (replicated) is all-gathered after its block's update."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -86,14 +129,19 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig):
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
     for name, p in params.items():
+        sh = _cut(shardings, name)
+        blk = p if sh is None else sh.local(p)
         g = grads[name].float() * scale
         m, v = opt_state["m"][name], opt_state["v"][name]
         m_new = b1 * m.float() + (1 - b1) * g
         v_new = b2 * v.float() + (1 - b2) * g * g
         update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
         if decays(name, p):  # decoupled weight decay
-            update = update + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * update)
+            update = update + cfg.weight_decay * blk.float()
+        if sh is None:
+            p.copy_(p.float() - lr * update)
+        else:  # this rank's block, then the whole parameter from every rank's
+            p.copy_(sh.gather((blk.float() - lr * update).to(p.dtype)))
         m.copy_(m_new)
         v.copy_(v_new)
     opt_state["step"] = step

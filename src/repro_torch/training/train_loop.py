@@ -11,11 +11,24 @@ step runs the forward, the loss, the backward (on the card the flash
 attention kernels both ways), the optional compression and AdamW; the
 parameters and moments are updated in place and the state is returned.
 
-The reference's ``grad_specs`` (a GSPMD layout that turns the
-data-parallel all-reduce into a reduce-scatter) has no counterpart on one
-card and is left out; in a ``torch.distributed`` world of more than one
-rank :func:`make_train_step` raises (data-parallel training is not ported
-yet).
+Under a model mesh (``distributed.set_mesh``, a ``launch.mesh.ModelMesh``
+set when :func:`make_train_step` is called) the step is data-parallel over
+its ``"data"`` axis, SPMD. Every rank passes the same global batch and takes
+its rows by ``distributed.sharding.batch_shardings``; a batch whose rows do
+not split over the ranks runs whole on every rank. The loss is the global
+loss: the token count is a ``psum``, and each rank's term is its
+cross-entropy sum over the global count. The gradients are ``psum``-ed over
+``"data"``, or, with ``grad_specs`` (``specs_for_template(template,
+zero_rules(mesh), mesh)``, as the reference builds them), ``psum_scatter``-ed
+onto the blocks of the leaves those specs cut. With ``tcfg.opt.zero_sharding``
+the moments are ZeRO-1 blocks (:func:`shard_train_state` cuts them, the
+counterpart of ``jax.device_put(state, train_state_shardings(...))``); each
+rank updates its block of each parameter and all-gathers the parameters.
+The metrics are the global values, the same on every rank. A rank off the
+mesh takes no part: its state comes back as given, with the mesh's metrics.
+On a mesh of one rank the step is the one-rank step, bitwise. Tensor-parallel
+training (a ``"model"`` axis of more than one rank) and MoE training across
+ranks raise ``NotImplementedError`` (module item 5b).
 """
 from __future__ import annotations
 
@@ -24,13 +37,15 @@ import dataclasses
 import torch
 
 from ..device import resolve_device
-from ..distributed.context import require_one_rank
+from ..distributed import sharding as shd
+from ..distributed.context import SOLO, get_mesh, psum, psum_scatter, require_one_rank
 from ..models import model_zoo
 from ..models.moe import init_router_state
 from .compression import compress_grads, init_error_state
 from .optimizer import OptConfig, adamw_update, init_opt_state
 
-__all__ = ["TrainConfig", "make_loss_fn", "make_train_step", "init_train_state"]
+__all__ = ["TrainConfig", "make_loss_fn", "make_train_step", "init_train_state",
+           "shard_train_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +65,14 @@ def make_loss_fn(cfg, tcfg: TrainConfig, *, ops=None):
     ``z_loss * mean(logsumexp^2)`` and ``moe_aux_weight`` times the mean
     MoE load-balance loss over the layers. ``ops`` picks the attention route
     as ``model_zoo.forward`` does (``kernels.ops.plain`` to compare)."""
+    return _loss_fn(cfg, tcfg, ops, SOLO)
+
+
+def _loss_fn(cfg, tcfg: TrainConfig, ops, axis):
+    """:func:`make_loss_fn`'s loss on this rank's rows of a batch whose other
+    rows the ranks of ``axis`` hold: the loss (and the metrics' ``loss`` and
+    ``ce``) is this rank's term of the global loss, whose sum over ``axis``
+    is the global loss; ``ntok`` is the global token count."""
 
     def loss_fn(model, batch, router_state):
         logits, aux = model_zoo.forward(model, cfg, batch, router_state, ops=ops,
@@ -63,10 +86,13 @@ def make_loss_fn(cfg, tcfg: TrainConfig, *, ops=None):
         # exact zeros beside it, so the two are equal for finite logits
         gold = logits32.gather(-1, safe[..., None].long())[..., 0]
         ce = (logz - gold) * valid
-        ntok = valid.sum().clamp_min(1)
+        ntok = psum(valid.sum(), axis, "dp").clamp_min(1)
         loss = ce.sum() / ntok
-        if tcfg.z_loss:
+        if tcfg.z_loss and axis.size == 1:
             loss = loss + tcfg.z_loss * torch.mean(torch.square(logz) * valid)
+        elif tcfg.z_loss:  # this rank's sum over the global batch's element count
+            loss = loss + tcfg.z_loss * (torch.sum(torch.square(logz) * valid)
+                                         / (valid.numel() * axis.size))
         if cfg.moe:
             loss = loss + tcfg.moe_aux_weight * aux["moe_aux_loss"] / max(cfg.n_layers, 1)
         metrics = dict(loss=loss.detach(), ce=(ce.sum() / ntok).detach(), ntok=ntok,
@@ -94,45 +120,169 @@ def _split_microbatches(batch, n):
     return [{k: a[i::n] for k, a in batch.items()} for i in range(n)]
 
 
-def make_train_step(cfg, tcfg: TrainConfig, *, ops=None):
+def shard_train_state(state: dict, shardings: dict) -> dict:
+    """The counterpart of ``jax.device_put(state, shardings)`` with
+    ``shardings = distributed.sharding.train_state_shardings(cfg, mesh,
+    tcfg)``: AdamW's moments ``m`` and ``v`` (and the compression's
+    ``err``) replaced by this rank's blocks, new tensors; the parameters
+    stay replicated. In place; returns ``state``."""
+    for n, sh in shardings["params"].items():
+        if not sh.replicated:
+            raise NotImplementedError(
+                f"parameter {n} is cut over {sh.spec}: tensor- and expert-parallel training are "
+                "not ported yet (ROADMAP.md, section 1, module item 5b)")
+
+    def cut(tree, sh):
+        return {n: sh[n].local(t).clone() for n, t in tree.items()}
+
+    state["opt"]["m"] = cut(state["opt"]["m"], shardings["opt"]["m"])
+    state["opt"]["v"] = cut(state["opt"]["v"], shardings["opt"]["v"])
+    if "err" in state:
+        state["err"] = cut(state["err"], shardings["err"])
+    return state
+
+
+def _check_mesh(cfg, mesh) -> None:
+    """Raise for what data-parallel training does not cover yet."""
+    if cfg.moe:
+        require_one_rank("make_train_step of an MoE config (its router's capacity, positions, "
+                         "loads and state are sums over the global batch)")
+    if mesh is None:
+        return
+    other = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"make_train_step on mesh axes {other}: tensor-parallel training is not ported yet "
+            "(ROADMAP.md, section 1, module item 5b); train data-parallel on an (n, 1) mesh")
+
+
+class _Layout:
+    """Where a data-parallel step's gradients go: ``grad`` the shardings of
+    ``grad_specs`` (None without them), ``moment`` the moments' (the blocks
+    the optimizer updates)."""
+
+    def __init__(self, cfg, tcfg, mesh, grad_specs):
+        self.mesh = mesh
+        self.data = mesh.axis("data")
+        self.moment = shd.train_state_shardings(cfg, mesh, tcfg)["opt"]["m"]
+        self.grad = None if grad_specs is None else shd.named(mesh, grad_specs)
+
+    def rows(self, batch: dict):
+        """(this rank's rows of ``batch``, the axis the rest lie on); the
+        whole batch and a world of one when its rows do not split."""
+        if shd._batch_dim_spec(self.mesh, next(iter(batch.values())).shape[0]) is None:
+            return batch, SOLO
+        sh = shd.batch_shardings(batch, self.mesh)
+        return {k: sh[k].local(a) for k, a in batch.items()}, self.data
+
+    def check(self, params: dict, opt: dict) -> None:
+        for n, p in params.items():
+            want = tuple(self.moment[n].local(p).shape)
+            if tuple(opt["m"][n].shape) != want:
+                raise ValueError(f"the moments of {n} are {tuple(opt['m'][n].shape)}, this "
+                                 f"rank's block is {want}: cut the state with "
+                                 "shard_train_state(state, train_state_shardings(...)) first")
+
+    def reduce(self, name: str, summed, whole):
+        """The gradient of ``name`` in the moments' layout, from ``summed``
+        (this rank's rows' gradient, to sum over "data") and ``whole`` (the
+        global gradient of rows every rank ran), either None."""
+        g_sh, m_sh = None if self.grad is None else self.grad[name], self.moment[name]
+        g, blk = None, None
+        if summed is not None:
+            cuts = [] if g_sh is None else g_sh.cuts()
+            if cuts:  # the reduce-scatter onto grad_specs' block (one dim, over "data")
+                (d, _), = cuts
+                g, blk = psum_scatter(summed, self.data, d, "dp"), g_sh
+            else:
+                g = psum(summed, self.data, "dp")
+        if whole is not None:
+            part = whole if blk is None else blk.local(whole)
+            g = part if g is None else g + part
+        if blk is not None and blk.cuts() == m_sh.cuts():
+            return g
+        return m_sh.local(g if blk is None else blk.gather(g))
+
+
+def make_train_step(cfg, tcfg: TrainConfig, grad_specs=None, *, ops=None):
     """``train_step(state, batch) -> (state, metrics)``; ``metrics``: loss,
     ce, ntok, moe_aux (of the last microbatch), grad_norm, lr. With
     ``microbatches`` n > 1 the batch is split as ``a[i::n]``, the gradients
     accumulated in float32 and averaged, the router state threaded through
-    the microbatches, and the loss the mean of theirs."""
-    require_one_rank("make_train_step (data-parallel gradients, grad_specs, ZeRO-1)")
-    loss_fn = make_loss_fn(cfg, tcfg, ops=ops)
+    the microbatches, and the loss the mean of theirs. Under the ambient
+    model mesh the step is data-parallel (see the module's docstring): each
+    microbatch of the global batch is cut into the ranks' rows, and
+    ``grad_specs`` (``{name: PartitionSpec}``) reduce-scatters the
+    gradients of the leaves it cuts over "data"."""
+    mesh = get_mesh()
+    _check_mesh(cfg, mesh)
+    layout = (None if mesh is None or not mesh.member or mesh.shape["data"] == 1
+              else _Layout(cfg, tcfg, mesh, grad_specs))
+    loss_whole = make_loss_fn(cfg, tcfg, ops=ops)
+    loss_rows = None if layout is None else _loss_fn(cfg, tcfg, ops, layout.data)
 
-    def grads_of(model, names, batch, rs):
-        loss, (metrics, rs_new) = loss_fn(model, batch, rs)
+    def grads_of(model, names, batch, rs, split):
+        loss, (metrics, rs_new) = (loss_rows if split else loss_whole)(model, batch, rs)
         grads = torch.autograd.grad(loss, [p for _, p in names], allow_unused=True,
                                     materialize_grads=True)
         rs = rs if rs_new is None else rs_new.detach()
         return loss.detach(), metrics, dict(zip((n for n, _ in names), grads)), rs
 
     def train_step(state, batch):
+        if mesh is not None and not mesh.member:
+            return state, mesh.share(None)
         model = state["params"]
         names = list(model.named_parameters())
+        if layout is not None:
+            layout.check(dict(names), state["opt"])
         rs = state["router_state"]
-        if tcfg.microbatches > 1:
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for n, p in names}
-            loss_sum = torch.zeros((), dtype=torch.float32, device=rs.device)
-            for mb in _split_microbatches(batch, tcfg.microbatches):
-                loss, metrics, g, rs = grads_of(model, names, mb, rs)
-                for n in grads:
-                    grads[n] = grads[n] + g[n]
-                loss_sum = loss_sum + loss
-            grads = {n: g / tcfg.microbatches for n, g in grads.items()}
-            metrics["loss"] = loss_sum / tcfg.microbatches
-        else:
-            _, metrics, grads, rs = grads_of(model, names, batch, rs)
+        n_micro = tcfg.microbatches
+        # by whether the rows were split over "data": the gradients (to sum over the
+        # ranks, or global already) and the losses
+        grads, losses = {True: None, False: None}, {True: None, False: None}
+        for mb in (_split_microbatches(batch, n_micro) if n_micro > 1 else [batch]):
+            rows, axis = (mb, SOLO) if layout is None else layout.rows(mb)
+            split = axis.size > 1
+            loss, metrics, g, rs = grads_of(model, names, rows, rs, split)
+            if n_micro == 1:
+                grads[split], losses[split] = g, loss
+                continue
+            if grads[split] is None:
+                grads[split] = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                                for n, p in names}
+                losses[split] = torch.zeros((), dtype=torch.float32, device=rs.device)
+            for n in grads[split]:
+                grads[split][n] = grads[split][n] + g[n]
+            losses[split] = losses[split] + loss
 
+        if layout is None:
+            grads, loss_sum = grads[False], losses[False]
+        else:
+            grads = {n: layout.reduce(n, None if grads[True] is None else grads[True][n],
+                                      None if grads[False] is None else grads[False][n])
+                     for n, _ in names}
+            # the rows' loss terms and the last microbatch's ce, summed over the ranks in one
+            zero = torch.zeros((), dtype=torch.float32, device=rs.device)
+            terms = psum(torch.stack([zero if losses[True] is None else losses[True],
+                                      metrics["ce"] if split else zero]), layout.data, "dp")
+            loss_sum = terms[0] + (zero if losses[False] is None else losses[False])
+            if split:
+                metrics["ce"] = terms[1]
+        if n_micro > 1:
+            grads = {n: g / n_micro for n, g in grads.items()}
+            metrics["loss"] = loss_sum / n_micro
+        else:
+            metrics["loss"] = loss_sum
+
+        moment = None if layout is None else layout.moment
         if tcfg.grad_compression:
-            grads, state["err"] = compress_grads(grads, state["err"])
-        _, state["opt"], opt_metrics = adamw_update(dict(names), grads, state["opt"], tcfg.opt)
+            grads, state["err"] = compress_grads(grads, state["err"], moment)
+        _, state["opt"], opt_metrics = adamw_update(dict(names), grads, state["opt"], tcfg.opt,
+                                                    moment)
         metrics.update(opt_metrics)
         state["router_state"] = rs
+        if mesh is not None and mesh.idle:  # the ranks off the mesh take rank 0's metrics
+            mesh.share({k: v.detach().cpu() for k, v in metrics.items()})
         return state, metrics
 
     return train_step

@@ -3,8 +3,9 @@
 and ``repro_torch.core.eventsim``, the MoE layer ``repro_torch.models.moe``,
 the training package ``repro_torch.training``, the data package
 ``repro_torch.data``, the ``repro_torch.distributed`` package,
-``repro_torch.core.sharded``, the ``repro_torch.launch`` package and
-``repro_torch.models.moe_ep`` among them), ``chip_smoke`` and the port's
+``repro_torch.core.sharded``, the ``repro_torch.launch`` package,
+``repro_torch.models.moe_ep``, ``repro_torch.distributed.sharding`` and
+``repro_torch.distributed.pipeline`` among them), ``chip_smoke`` and the port's
 benchmark ``benchmarks.torch_systems`` loads no ``jax*`` module and nothing
 of the reference package ``repro``. Runs in a fresh interpreter so this
 process's imports cannot mask a leak."""
@@ -39,7 +40,8 @@ obs = all(n in names for n in ("repro_torch.obs", "repro_torch.obs.metrics",
                                 "repro_torch.distributed", "repro_torch.distributed.context",
                                 "repro_torch.distributed.world", "repro_torch.core.sharded",
                                 "repro_torch.launch", "repro_torch.launch.mesh",
-                                "repro_torch.models.moe_ep"))
+                                "repro_torch.models.moe_ep", "repro_torch.distributed.sharding",
+                                "repro_torch.distributed.pipeline"))
 print("obs walked:", obs)
 sys.exit(1 if bad or len(names) < 15 or not obs else 0)
 """

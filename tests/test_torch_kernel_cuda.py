@@ -41,8 +41,10 @@ and ragged S, repeats bitwise, and counts its route (bf16 at head_dim 64,
 matches its arithmetic stated in plain PyTorch within 1e-2 and raises on a
 misaligned pointer or stride; the kernel runs under
 ``kernels.ops.flash_attention``'s autograd, and a reduced train step's gradients on the kernel route match the
-plain route within 1e-4; ``ssd_intra_chunk`` raises when a CUDA input
-requires grad (no SSD backward kernel yet). The sharded cohort-fused scan
+plain route within 1e-4, and on a 1x1 model mesh (ZeRO-1 moments,
+``grad_specs``) two steps equal the meshless steps bitwise;
+``ssd_intra_chunk`` raises when a CUDA input requires grad (no SSD
+backward kernel yet). The sharded cohort-fused scan
 takes the slot kernel on a one-rank NCCL world, bitwise the dense port on
 the card, and on four gloo ranks sharing the card equals the CPU port
 bitwise on the dyadic cases of ``chip_smoke.sharded_cases``.
@@ -731,6 +733,48 @@ def test_train_step_kernel_route_matches_plain_route(cuda_device, arch):
     assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
     for a, b in zip(gk, gp):
         assert _scale_gap(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_train_step_on_a_one_by_one_mesh_is_the_meshless_step_bitwise(cuda_device, dtype):
+    """Two reduced internvl2-1b train steps on the card under a 1x1 model
+    mesh, the moments cut by ``train_state_shardings`` (ZeRO-1) and the
+    gradients by ``grad_specs``, equal the steps without a mesh bitwise:
+    parameters, moments and metrics."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.specs import make_batch
+    from repro_torch.distributed import set_mesh
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo as pz
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training import train_loop as ptl
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = get_config("internvl2_1b").reduced().with_(param_dtype=dtype, compute_dtype=dtype)
+    tcfg = ptl.TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+    batch = make_batch(np.random.default_rng(0), cfg, 4, 64, device=cuda_device)
+
+    def run(mesh):
+        set_mesh(mesh)
+        try:
+            gen = torch.Generator(cuda_device).manual_seed(0)
+            state = ptl.init_train_state(cfg, tcfg, gen, cuda_device)
+            specs = None
+            if mesh is not None:
+                ptl.shard_train_state(state, shd.train_state_shardings(cfg, mesh, tcfg))
+                specs = shd.specs_for_template(pz.template(cfg), shd.zero_rules(mesh), mesh)
+            step = ptl.make_train_step(cfg, tcfg, specs)
+            for _ in range(2):
+                state, met = step(state, batch)
+        finally:
+            set_mesh(None)
+        return ck.flatten_state(state), met
+
+    (a, ma), (b, mb) = run(None), run(make_host_mesh(1, 1))
+    assert list(a) == list(b)
+    assert all(torch.equal(a[k].detach(), b[k].detach()) for k in a)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
 
 
 def test_sharded_one_nccl_rank_takes_the_kernel_route(cuda_device):
