@@ -135,8 +135,8 @@ I=16384 serving fleet, counting the kernel launches of each:
   internvl2-1b at full width, 2 of its 24 layers, bf16, two steps on a
   1x1 mesh with ZeRO-1 moments and ``grad_specs`` bitwise the meshless
   steps (phase M's), kernels 5 and 5b once per layer a step; P2 four gloo
-  ranks sharing the card on a 4x1 mesh in f32, two steps on a global
-  batch of 8 against the one-rank f32 steps on the card (loss and grad
+  ranks sharing the card on a 4x1 mesh in f32, one step on a global
+  batch of 8 against the one-rank f32 step on the card (loss and grad
   norm within rel 1e-5, after the first step the parameters within the
   ``_param_bound`` rule of ``tests/test_torch_training.py`` and each rank's
   moment blocks within 1e-5 of scale), kernels 5 and 5b on every rank, the
@@ -144,7 +144,24 @@ I=16384 serving fleet, counting the kernel launches of each:
   ``pipeline_apply`` over the four ranks, one full-width block a stage
   (kernel 5 in each), against the blocks in turn within 1e-5. P1 and
   P2's one-rank reference run after phase M, P2 and P3 in phase N's world
-  after O2 and O3.
+  after O2 and O3;
+* phase Q, MoE training across ranks (``models/moe.py``'s global-batch
+  router and ``models/moe_ep.py``'s expert-parallel route under
+  ``make_train_step``; no kernel of its own): Q1 one NCCL rank in this
+  process, granite-moe-1b at full width and depth (24 layers, 32 experts,
+  top-8, capacity factor 1.25) in bf16 on phase M's batch, two steps on a
+  1x1 mesh bitwise the meshless steps, kernels 5 and 5b once
+  per layer a step, then the kernel route against the plain route at 2
+  layers in f32 (within 1e-4); Q2 four gloo ranks sharing the card on a
+  4x1 mesh, full width at 2 of 24 layers, f32, a global batch of 8 x 256:
+  one step by the global-batch router at capacity factor 1.25 and one by
+  the expert-parallel route at 4.0 (nothing drops), each against the
+  one-rank f32 step on the card (loss and grad norm within rel 1e-5, each
+  layer's loads, ``dropped_frac`` and selections and the router state
+  equal, the parameters within the ``_param_bound`` rule, the moment
+  blocks within 1e-5 of scale), the expert-parallel state saved across the
+  ranks and restored onto one rank bitwise. Q1 and Q2's references run
+  after P1, Q2 in phase N's world after P2 and P3.
 
 It checks the results and prints:
 
@@ -195,6 +212,11 @@ It checks the results and prints:
   per P2 step each rank's wall ms, share in collectives and ``"dp"``
   elements beside the one-rank step's wall ms, the checkpoint's save and
   restore seconds, and P3's wall ms per rank and ``"pp"`` elements;
+* for phase Q, Q1's step wall ms with and without the mesh in turns, the
+  peak device memory, each layer's ``dropped_frac`` and a profiled step's
+  top device items; per Q2 route each rank's step wall ms, share in
+  collectives and elements by tag (``"moe"``, ``"ep"``, ``"dp"``) beside
+  the one-rank step's, and the checkpoint's save and restore seconds;
 * one JSON line ``{"kernels": [...]}`` (eight kernels: the seven TPU
   kernels' counterparts and the flash attention backward; the slot
   kernel's row carries its batched entry under ``"batched"`` and its
@@ -206,7 +228,9 @@ It checks the results and prints:
   ``"ep_launches"``, row 5 its launches on phase M's M2 and M3 steps under
   ``"train_launches"`` and ``"encoder_launches"``, rows 5 and 5b their
   launches on rank 0's P2 steps under ``"dp_launches"``, row 5 its P3
-  launches under ``"pipeline_launches"``, the backward's row its
+  launches under ``"pipeline_launches"``, rows 5 and 5b their launches on
+  Q1's meshless steps under ``"moe_train_launches"`` and on rank 0's Q2
+  steps under ``"moe_dp_launches"``, the backward's row its
   M3 launches under ``"encoder_launches"``, its route under
   ``"kernel_route"`` and its passes' ms under ``"passes_ms"``), then, last,
   ``{"ok": true, "device": {...}}``.
@@ -3544,32 +3568,20 @@ def moe_router_balance(cfg, model, cuda, card):
     toks = np.concatenate([np.full(256, int(rng.integers(cfg.vocab_size))),
                            rng.integers(0, cfg.vocab_size, 256)])
     batch = {"tokens": torch.as_tensor(toks, device=cuda)[None]}
-    seen = []
-
-    def recording(moe, x, c, router_state=None):
-        y, aux = moe_ffn(moe, x, c, router_state)
-        seen.append((aux["load"], aux["dropped_frac"]))
-        return y, aux
-
-    moe_ffn = pz.moe_ffn
-    pz.moe_ffn = recording
-    try:
-        for router in ("topk", "potus"):
-            seen.clear()
-            _, aux = pz.forward(model, cfg.with_(router=router), batch)
-            loads = torch.stack([s[0] for s in seen]).cpu().numpy()
-            dropped = torch.stack([s[1] for s in seen]).cpu().numpy()
-            imb = loads.max(axis=1) / np.maximum(loads.mean(axis=1), 1e-9)
-            state = aux["router_state"].cpu().numpy()
-            print(f"L4 {router}: expert load max/mean over {len(seen)} layers {imb.mean():.4f} "
-                  f"(layer min {imb.min():.4f}, max {imb.max():.4f}), dropped "
-                  f"{dropped.mean():.4f}; final router state max {state.max():.1f}, mean "
-                  f"{state.mean():.2f}, {int((state > 0).sum())} of {state.size} experts "
-                  f"backlogged [{card}]")
-            check(len(seen) == cfg.n_layers and np.isfinite(imb).all(),
-                  f"L4 {router}: one load row per layer")
-    finally:
-        pz.moe_ffn = moe_ffn
+    for router in ("topk", "potus"):
+        _, aux = pz.forward(model, cfg.with_(router=router), batch)
+        layers = aux["moe_layers"]
+        loads = torch.stack([a["load"] for a in layers]).cpu().numpy()
+        dropped = torch.stack([a["dropped_frac"] for a in layers]).cpu().numpy()
+        imb = loads.max(axis=1) / np.maximum(loads.mean(axis=1), 1e-9)
+        state = aux["router_state"].cpu().numpy()
+        print(f"L4 {router}: expert load max/mean over {len(layers)} layers {imb.mean():.4f} "
+              f"(layer min {imb.min():.4f}, max {imb.max():.4f}), dropped "
+              f"{dropped.mean():.4f}; final router state max {state.max():.1f}, mean "
+              f"{state.mean():.2f}, {int((state > 0).sum())} of {state.size} experts "
+              f"backlogged [{card}]")
+        check(len(layers) == cfg.n_layers and np.isfinite(imb).all(),
+              f"L4 {router}: one load row per layer")
 
 
 def moe_path(card, cuda):
@@ -4300,7 +4312,8 @@ def sharded_path(card, cuda, fleet=None, also=(), also_timeout_s=None):
           f"{formula - C}), {stats[0]['calls'] / SHARD_FLEET_T:.0f} collectives a slot")
     print(f"  wall ms/slot per rank: " + ", ".join(f"{w:.3f}" for w in wall_ms)
           + "; share in collectives: " + ", ".join(f"{x:.3f}" for x in share)
-          + f"; the world {world_s:.1f} s" + (" (with phases O's and P's calls)" if also else "")
+          + f"; the world {world_s:.1f} s"
+          + (" (with phases O's, P's and Q's calls)" if also else "")
           + ": the ranks up after "
           + ", ".join(f"{s['entered'] - started:.1f}" for s in stats) + " s, the dyadic cases "
           + ", ".join(f"{s['cases_s']:.1f}" for s in stats) + f" s [{card}]")
@@ -4655,12 +4668,13 @@ def moe_ep_path(card, cuda, world=None):
 # ---------------------------------------------------------------------------
 
 # internvl2-1b at full width cut to DP_LAYERS of its 24 layers: P1 one NCCL rank in bf16
-# (TRAIN_B x TRAIN_S, phase M's batch), P2 four gloo ranks sharing the card on a 4x1 mesh in
-# f32, DP_STEPS steps on a global batch of DP_B x TRAIN_S, ZeRO-1 moments and grad_specs; P3
-# pipeline_apply over the four ranks, one full-width block a stage, PIPE_MICRO microbatches of
-# one PIPE_S-token row
+# (TRAIN_B x TRAIN_S, phase M's batch), DP_STEPS steps; P2 four gloo ranks sharing the card on
+# a 4x1 mesh in f32, P2_STEPS steps on a global batch of DP_B x TRAIN_S, ZeRO-1 moments and
+# grad_specs (cut from two steps to one to make room for phase Q: a gloo step here is ~7-8 s,
+# 96% of it the gradients' reductions through the host); P3 pipeline_apply over the four
+# ranks, one full-width block a stage, PIPE_MICRO microbatches of one PIPE_S-token row
 DP_ARCH, DP_LAYERS, DP_RANKS, DP_TIMEOUT_S = "internvl2_1b", 2, 4, 300
-DP_STEPS, DP_B, DP_TURNS = 2, 8, ("meshless", "mesh", "mesh", "meshless")
+DP_STEPS, P2_STEPS, DP_B, DP_TURNS = 2, 1, 8, ("meshless", "mesh", "mesh", "meshless")
 PIPE_MICRO, PIPE_S = 4, 512
 
 
@@ -4678,30 +4692,36 @@ def dp_tcfg():
     return ptl.TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=100))
 
 
-def dp_batch(cfg, B, device):
-    """``TokenPipeline(cfg, B, TRAIN_S, seed 0)``'s first batch on ``device``."""
+def dp_batch(cfg, B, device, S=None):
+    """``TokenPipeline(cfg, B, S (TRAIN_S), seed 0)``'s first batch on ``device``."""
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.data.specs import as_tensors
 
-    return as_tensors(TokenPipeline(cfg, batch=B, seq=TRAIN_S, seed=0).next_batch(), cfg, device)
+    return as_tensors(TokenPipeline(cfg, batch=B, seq=S or TRAIN_S, seed=0).next_batch(), cfg,
+                      device)
 
 
 def dp_stepper(cfg, tcfg, mesh, device):
     """(state, step): the state drawn from seed 0 on ``device`` (every rank
     draws the same), under ``mesh`` (None: none) cut to this rank's ZeRO-1
-    blocks, and ``make_train_step`` with ``grad_specs`` from the ZeRO rules."""
+    blocks (``state_shardings``; an MoE config's experts placed first under
+    the expert-parallel route), and ``make_train_step`` with ``grad_specs``
+    from the ZeRO rules."""
     import torch
 
     from repro_torch.distributed import set_mesh
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import model_zoo as pz
+    from repro_torch.models.moe_ep import place_
     from repro_torch.training import train_loop as ptl
 
     state = ptl.init_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0),
                                  device)
     specs = None
     if mesh is not None:
-        ptl.shard_train_state(state, shd.train_state_shardings(cfg, mesh, tcfg))
+        if cfg.moe and cfg.moe_ep_shardmap:
+            place_(state["params"], mesh)
+        ptl.shard_train_state(state, ptl.state_shardings(cfg, mesh, tcfg))
         specs = shd.specs_for_template(pz.template(cfg), shd.zero_rules(mesh), mesh)
     set_mesh(mesh)
     try:
@@ -4712,7 +4732,7 @@ def dp_stepper(cfg, tcfg, mesh, device):
 
 def timed_step(step, state, batch):
     """One step, synchronised: (state, metrics as floats, wall s, the "dp"
-    elements, collective s and calls, the launches)."""
+    elements, the elements by tag, collective s and calls, the launches)."""
     import torch
 
     from repro_torch.distributed import PAYLOAD
@@ -4725,7 +4745,8 @@ def timed_step(step, state, batch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return state, dict(metrics={k: float(v) for k, v in met.items()}, wall_s=wall,
-                       elements=PAYLOAD.n("dp"), collective_s=PAYLOAD.seconds,
+                       elements=PAYLOAD.n("dp"), tags=dict(PAYLOAD.elements),
+                       collective_s=PAYLOAD.seconds,
                        calls=PAYLOAD.calls, launches=read_counts())
 
 
@@ -4819,7 +4840,7 @@ def dp_reference(card, cuda, tmp):
     state, step = dp_stepper(cfg, tcfg, None, cuda)
     batch = dp_batch(cfg, DP_B, cuda)
     stats = []
-    for i in range(DP_STEPS):
+    for i in range(P2_STEPS):
         state, st = timed_step(step, state, batch)
         stats.append(st)
         if i == 0:
@@ -4852,7 +4873,9 @@ def dp_gaps(state, ref_path, shardings, b1, device):
         g = m_ref / (1 - b1)
         delta = 1e-4 * g.abs().max()
         bound = lr * torch.clamp(4 * delta / g.abs().clamp_min(1e-30), max=2.0) + 2e-7
-        excess = max(excess, float(((p.detach() - w).abs() - bound).max()))
+        held = shardings["params"][n]  # an expert-parallel rank's experts are its blocks
+        excess = max(excess, float(((p.detach() - held.local(w)).abs()
+                                    - held.local(bound)).max()))
         blk = shardings["opt"]["m"][n].local(m_ref)
         m_gap = max(m_gap, float((state["opt"]["m"][n] - blk).abs().max())
                     / max(float(m_ref.abs().max()), 1e-30))
@@ -4861,30 +4884,30 @@ def dp_gaps(state, ref_path, shardings, b1, device):
 
 def p2_rank(tmp, device):
     """One rank of P2: the 4x1 mesh, the state cut to its ZeRO-1 blocks,
-    ``DP_STEPS`` steps timed and counted, the gaps after the first against
+    ``P2_STEPS`` steps timed and counted, the gaps after the first against
     the reference, the state saved across the ranks to ``tmp/ckpt`` and the
     fingerprints of this rank's leaves (:func:`leaf_prints`)."""
     import torch
 
-    from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.training import checkpoint as ck
+    from repro_torch.training import train_loop as ptl
 
     t0 = time.perf_counter()
     cfg, tcfg = dp_cfg("float32"), dp_tcfg()
     mesh = make_host_mesh(DP_RANKS, 1)
-    shardings = shd.train_state_shardings(cfg, mesh, tcfg)
+    shardings = ptl.state_shardings(cfg, mesh, tcfg)
     state, step = dp_stepper(cfg, tcfg, mesh, device)
     batch = dp_batch(cfg, DP_B, device)
     out = dict(setup_s=time.perf_counter() - t0, steps=[])
-    for i in range(DP_STEPS):
+    for i in range(P2_STEPS):
         state, st = timed_step(step, state, batch)
         out["steps"].append(st)
         if i == 0:
             out["gaps"] = dp_gaps(state, Path(tmp) / "reference.pt", shardings, tcfg.opt.b1,
                                   device)
     t1 = time.perf_counter()
-    ck.save_checkpoint(Path(tmp) / "ckpt", DP_STEPS, state, extra=dict(batch_seed=0),
+    ck.save_checkpoint(Path(tmp) / "ckpt", P2_STEPS, state, extra=dict(batch_seed=0),
                        shardings=shardings)
     out["save_s"] = time.perf_counter() - t1
     out["prints"] = leaf_prints(state)
@@ -4992,7 +5015,6 @@ def dp_train_path(card, cuda, prepared=None, world=None):
     import torch
 
     from repro_torch.distributed import call_each, spawn_world
-    from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import ModelMesh
     from repro_torch.distributed.context import Axis
     from repro_torch.training import checkpoint as ck
@@ -5030,7 +5052,7 @@ def dp_train_path(card, cuda, prepared=None, world=None):
                 if k.startswith("params/")) for out in p2[1:])
         print(f"P2 {DP_RANKS} gloo ranks on the card, 4x1 mesh, {cfg.name} {DP_LAYERS} of 24 "
               f"layers f32, global batch {DP_B} x {TRAIN_S} ({DP_B // DP_RANKS} rows a rank), "
-              f"ZeRO-1 moments, grad_specs, {DP_STEPS} steps: losses "
+              f"ZeRO-1 moments, grad_specs, {P2_STEPS} step(s): losses "
               + ", ".join(f"{st['metrics']['loss']:.6f}" for st in p2[0]["steps"])
               + f"; against the one-rank f32 steps: loss rel {worst['loss']:.3e}, grad norm rel "
               f"{worst['grad_norm']:.3e} (limit 1e-5); after step 1 the parameters' largest "
@@ -5042,7 +5064,7 @@ def dp_train_path(card, cuda, prepared=None, world=None):
         check(excess <= 0.0, f"P2: a parameter beyond the _param_bound rule by {excess}")
         check(m_gap <= 1e-5, f"P2: moment blocks {m_gap} of scale from the reference's")
         check(same_params, "P2: the ranks' parameters differ")
-        for i in range(DP_STEPS):
+        for i in range(P2_STEPS):
             sts = [out["steps"][i] for out in p2]
             print(f"  P2 step {i} wall ms per rank "
                   + ", ".join(f"{s['wall_s'] * 1e3:.2f}" for s in sts)
@@ -5054,13 +5076,13 @@ def dp_train_path(card, cuda, prepared=None, world=None):
         t0 = time.perf_counter()
         fresh = ptl.init_train_state(cfg, tcfg, torch.Generator(device=cuda).manual_seed(1),
                                      cuda)
-        restored, extra = ck.restore_checkpoint(Path(tmp) / "ckpt", DP_STEPS, fresh)
+        restored, extra = ck.restore_checkpoint(Path(tmp) / "ckpt", P2_STEPS, fresh)
         load_s = time.perf_counter() - t0
         bitwise = extra == dict(batch_seed=0)
         for r, out in enumerate(p2):
             mesh = ModelMesh((("data", Axis(None, DP_RANKS, r)), ("model", Axis(None, 1, 0))))
             bitwise = bitwise and leaf_prints(
-                restored, shd.train_state_shardings(cfg, mesh, tcfg)) == out["prints"]
+                restored, ptl.state_shardings(cfg, mesh, tcfg)) == out["prints"]
         print(f"P2 checkpoint saved across the {DP_RANKS} ranks in "
               + ", ".join(f"{out['save_s']:.2f}" for out in p2)
               + f" s, restored onto one rank in {load_s:.2f} s: every rank's blocks bitwise "
@@ -5099,6 +5121,351 @@ def dp_train_path(card, cuda, prepared=None, world=None):
     return {"flash_attention": sum(s["launches"]["flash_attention"] for s in steps),
             "flash_attention_bwd": sum(s["launches"]["flash_attention_bwd"] for s in steps),
             "pipeline": p3[0]["launches"]["flash_attention"]}
+
+
+# ---------------------------------------------------------------------------
+# phase Q: MoE training across ranks (models/moe.py's global-batch router and
+# models/moe_ep.py's expert-parallel route under the data-parallel train step)
+# ---------------------------------------------------------------------------
+
+# granite-moe-1b, its published config (32 experts, top-8, capacity factor 1.25): Q1 one NCCL
+# rank at full width and depth in bf16 on phase M's batch (TRAIN_B x TRAIN_S), MOE_TRAIN_STEPS
+# steps on a 1x1 mesh against no mesh, then one step each in turns; Q2 four gloo
+# ranks sharing the card in phase N's world, full width cut to MOE_DP_LAYERS of 24 layers, f32,
+# a global batch of MOE_DP_B x MOE_DP_S on a 4x1 mesh, one step by each route against the
+# one-rank step on the card: route (a) at the config's capacity factor (drops happen), route
+# (b) at 4.0 (cap >= N: nothing drops at either stage)
+MOE_TRAIN_ARCH, MOE_TRAIN_STEPS = "granite_moe_1b", 2
+MOE_DP_LAYERS, MOE_DP_B, MOE_DP_S, MOE_DP_TIMEOUT_S = 2, 8, 256, 240
+MOE_DP_ROUTES = {"a": (False, None), "b": (True, 4.0)}  # (moe_ep_shardmap, capacity factor)
+
+
+def moe_train_cfg(dtype, n_layers=None, ep=False, cf=None):
+    """``MOE_TRAIN_ARCH`` in ``dtype``, cut to ``n_layers`` (None: all), by
+    the expert-parallel route with ``ep``, at capacity factor ``cf`` (None:
+    the config's)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_TRAIN_ARCH)
+    return cfg.with_(n_layers=n_layers or cfg.n_layers, param_dtype=dtype, compute_dtype=dtype,
+                     moe_ep_shardmap=ep, capacity_factor=cf or cfg.capacity_factor)
+
+
+def moe_layers(cfg, state, batch, axis=None):
+    """The forward of ``batch`` without grad (this rank's rows of a global
+    batch cut over ``axis``, None: the whole batch): each MoE layer's load
+    and ``dropped_frac`` (global) and this rank's selections, on the CPU."""
+    import torch
+
+    from repro_torch.distributed import SOLO
+    from repro_torch.models import model_zoo as pz
+
+    with torch.no_grad():
+        _, aux = pz.forward(state["params"], cfg, batch, state["router_state"],
+                            axis=axis or SOLO)
+    return [dict(load=a["load"].cpu(), dropped=float(a["dropped_frac"]), top_i=a["top_i"].cpu())
+            for a in aux["moe_layers"]]
+
+
+def moe_one_rank(card, cuda):
+    """Q1: one NCCL rank in this process, ``MOE_TRAIN_ARCH`` at full width
+    and depth in bf16 on phase M's batch: ``MOE_TRAIN_STEPS`` steps on a 1x1
+    mesh against the same steps without a mesh, bitwise (the global-batch
+    router; the expert-parallel route's 1x1 mesh is held on the CPU, in
+    ``tests/test_torch_moe_train.py``), kernels 5 and 5b once per layer a
+    step; one step of each timed in turns; the peak device memory, each layer's
+    ``dropped_frac``, a profiled step's device items; then the kernel route
+    against the plain route at 2 layers in f32. Returns the launches of
+    kernels 5 and 5b on the meshless steps."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import checkpoint as ck
+
+    cfg, tcfg = moe_train_cfg("bfloat16"), dp_tcfg()
+    batch = dp_batch(cfg, TRAIN_B, cuda)
+    want = dict(ZERO_COUNTS, flash_attention=cfg.n_layers, flash_attention_bwd=cfg.n_layers)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            runs, same, peak = {}, {}, None
+            for name, c, mesh in (("meshless", cfg, None), ("mesh", cfg, make_host_mesh(1, 1))):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                state, step = dp_stepper(c, tcfg, mesh, cuda)
+                stats = []
+                for _ in range(MOE_TRAIN_STEPS):
+                    state, st = timed_step(step, state, batch)
+                    stats.append(st)
+                peak = peak or torch.cuda.max_memory_allocated()
+                runs[name] = [state, step, stats]
+                if name != "meshless":
+                    a, b = (ck.flatten_state(runs[n][0]) for n in ("meshless", name))
+                    same[name] = (list(a) == list(b)
+                                  and all(torch.equal(a[k].detach(), b[k].detach()) for k in a)
+                                  and all(x["metrics"] == y["metrics"] for x, y in
+                                          zip(runs["meshless"][2], stats)))
+            turns = {"meshless": [], "mesh": []}
+            for name in DP_TURNS:
+                runs[name][0], st = timed_step(runs[name][1], runs[name][0], batch)
+                turns[name].append(st)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    state, step, stats = runs.pop("meshless")
+    del runs
+    torch.cuda.empty_cache()
+    for i, st in enumerate(stats):
+        check(st["launches"] == want, f"Q1 step {i}: launches {st['launches']}")
+        check(np.isfinite(st["metrics"]["loss"]), f"Q1 step {i}: loss not finite")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    print(f"Q1 one {backend} rank, {cfg.name} d_model {cfg.d_model}, {cfg.n_experts} experts of "
+          f"d_ff {cfg.d_ff}, top-{cfg.top_k}, capacity factor {cfg.capacity_factor}, "
+          f"{cfg.n_layers} layers, bf16, {n_params} parameters, batch {TRAIN_B} x {TRAIN_S}: "
+          f"{MOE_TRAIN_STEPS} steps on a 1x1 mesh = the steps without a mesh bitwise: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()) + "; losses "
+          + ", ".join(f"{st['metrics']['loss']:.6f}" for st in stats) + "; moe_aux "
+          + ", ".join(f"{st['metrics']['moe_aux']:.6f}" for st in stats)
+          + f"; launches a step flash_attention={cfg.n_layers} "
+          f"flash_attention_bwd={cfg.n_layers}; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB) [{card}]")
+    check(all(same.values()), f"Q1: the 1x1-mesh steps differ from the meshless steps: {same}")
+    for name, sts in turns.items():
+        print(f"  Q1 {name} step wall ms in turns ({', '.join(DP_TURNS)}): "
+              + ", ".join(f"{st['wall_s'] * 1e3:.2f}" for st in sts) + f" [{card}]")
+    layers = moe_layers(cfg, state, batch)
+    drops = [layer["dropped"] for layer in layers]
+    print(f"  Q1 dropped_frac over the {len(drops)} MoE layers before step "
+          f"{MOE_TRAIN_STEPS + 2}: mean {np.mean(drops):.6f}, min {min(drops):.6f}, max "
+          f"{max(drops):.6f}; the largest load of a layer over its mean "
+          f"{max(float(layer['load'].max() / layer['load'].mean()) for layer in layers):.3f} "
+          f"[{card}]")
+    profile_run(lambda: step(state, batch), top=10, suffix=f" [{card}]",
+                also=(*BWD_PASSES["tc"], "flash_tc"))
+    del state, step
+    torch.cuda.empty_cache()
+    two_layer_f32_gap(MOE_TRAIN_ARCH, card, cuda)
+    return {k: sum(st["launches"][k] for st in stats)
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def moe_dp_reference(card, cuda, tmp):
+    """Q2's references: for each route's capacity factor, the one-rank f32
+    step without a mesh on the card from the seed and the global batch Q2's
+    ranks use, and the forward's MoE layers before it; written to
+    ``tmp/moe_<route>.pt`` for the ranks. Returns each route's step stats."""
+    import torch
+
+    out = {}
+    for route, (_, cf) in MOE_DP_ROUTES.items():
+        cfg, tcfg = moe_train_cfg("float32", MOE_DP_LAYERS, cf=cf), dp_tcfg()
+        state, step = dp_stepper(cfg, tcfg, None, cuda)
+        batch = dp_batch(cfg, MOE_DP_B, cuda, MOE_DP_S)
+        layers = moe_layers(cfg, state, batch)
+        state, st = timed_step(step, state, batch)
+        torch.save({"params": {n: p.detach().cpu() for n, p in
+                               state["params"].named_parameters()},
+                    "m": {n: t.cpu() for n, t in state["opt"]["m"].items()},
+                    "lr": st["metrics"]["lr"], "router_state": state["router_state"].cpu(),
+                    "layers": layers}, Path(tmp) / f"moe_{route}.pt")
+        out[route] = st
+        print(f"Q2 reference ({route}): one rank, {cfg.name} {MOE_DP_LAYERS} layers f32, "
+              f"capacity factor {cfg.capacity_factor}, global batch {MOE_DP_B} x {MOE_DP_S}: "
+              f"step wall {st['wall_s'] * 1e3:.2f} ms, loss {st['metrics']['loss']:.6f}, "
+              f"dropped_frac by layer " + ", ".join(f"{x['dropped']:.6f}" for x in layers)
+              + f" [{card}]")
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def q2_rank(tmp, device):
+    """One rank of Q2: for each route, the 4x1 mesh, the state placed and
+    cut (``dp_stepper``), the forward's MoE layers on this rank's rows, one
+    step timed and counted, the gaps against the reference (``dp_gaps``),
+    the fingerprints of this rank's leaves; the expert-parallel state saved
+    across the ranks to ``tmp/moe_ckpt``."""
+    import torch
+
+    from repro_torch.distributed import set_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training import train_loop as ptl
+
+    out = {}
+    for route, (ep, cf) in MOE_DP_ROUTES.items():
+        t0 = time.perf_counter()
+        cfg, tcfg = moe_train_cfg("float32", MOE_DP_LAYERS, ep=ep, cf=cf), dp_tcfg()
+        mesh = make_host_mesh(DP_RANKS, 1)
+        held = ptl.state_shardings(cfg, mesh, tcfg)
+        state, step = dp_stepper(cfg, tcfg, mesh, device)
+        batch = dp_batch(cfg, MOE_DP_B, device, MOE_DP_S)
+        data, n = mesh.axis("data"), MOE_DP_B // DP_RANKS
+        rows = {k: v[data.index * n:(data.index + 1) * n] for k, v in batch.items()}
+        set_mesh(mesh)
+        try:
+            layers = moe_layers(cfg, state, rows, data)
+        finally:
+            set_mesh(None)
+        r = dict(setup_s=time.perf_counter() - t0, layers=layers)
+        state, r["step"] = timed_step(step, state, batch)
+        r["gaps"] = dp_gaps(state, Path(tmp) / f"moe_{route}.pt", held, tcfg.opt.b1, device)
+        r["router_state"] = state["router_state"].cpu()
+        r["prints"] = leaf_prints(state)
+        r["owned"] = sorted(f"params/{n}" for n, sh in held["params"].items()
+                            if not sh.replicated)
+        if ep:
+            t1 = time.perf_counter()
+            ck.save_checkpoint(Path(tmp) / "moe_ckpt", 1, state, extra=dict(batch_seed=0),
+                               shardings=held)
+            r["save_s"] = time.perf_counter() - t1
+        r["wall_s"] = time.perf_counter() - t0
+        out[route] = r
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_prepare(card, cuda):
+    """Phase Q's parts in this process before the world of ranks: Q1, and
+    Q2's one-rank references in a temporary directory. Returns (the
+    directory, the references' stats, Q1's launches)."""
+    t0 = time.perf_counter()
+    q1 = moe_one_rank(card, cuda)
+    print(f"  Q1 {time.perf_counter() - t0:.1f} s [{card}]")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    return tmp, moe_dp_reference(card, cuda, tmp), q1
+
+
+def moe_world_calls(cuda, prepared):
+    """Q2's call for each rank of a world of ``DP_RANKS`` gloo ranks sharing
+    the card (``spawn_world(call_each, ...)``)."""
+    return [(q2_rank, (prepared[0], str(cuda)), {})]
+
+
+def moe_train_path(card, cuda, prepared=None, world=None):
+    """Phase Q, MoE training across ranks: Q1 (:func:`moe_one_rank`); Q2
+    four gloo ranks sharing the card on a 4x1 mesh, f32, one step by each
+    route against the one-rank f32 step on the card: loss and grad norm
+    within rel 1e-5 and the same on every rank, each MoE layer's loads,
+    ``dropped_frac`` and the ranks' selections equal to the one-rank
+    forward's, the router state equal, the parameters within the
+    ``_param_bound`` rule and each rank's moment blocks within 1e-5 of
+    scale, every rank's replicated parameters identical, kernels 5 and 5b
+    once per layer on every rank, the step walls, their share in
+    collectives and the elements by tag; the expert-parallel state saved
+    across the ranks and restored onto one rank here, bitwise every rank's
+    blocks. ``prepared``: :func:`moe_prepare`'s result, ``world``: each
+    rank's results of :func:`moe_world_calls` where another phase's world
+    ran them (phase N's, in a whole run); else they run here. Callable
+    alone after ``card_setup`` and ``build_kernels`` (kernels 5 and 5b).
+    Returns the launches of kernels 5 and 5b on Q1's meshless steps and on
+    rank 0's Q2 steps."""
+    import shutil
+
+    import torch
+
+    from repro_torch.distributed import call_each, spawn_world
+    from repro_torch.distributed.context import Axis
+    from repro_torch.launch.mesh import ModelMesh
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training import train_loop as ptl
+
+    t_phase = time.perf_counter()
+    if prepared is None:
+        prepared = moe_prepare(card, cuda)
+    tmp, refs, q1 = prepared
+    try:
+        if world is None:
+            t0 = time.perf_counter()
+            world = spawn_world(call_each, DP_RANKS, "gloo", MOE_DP_TIMEOUT_S,
+                                (moe_world_calls(cuda, prepared),))
+            print(f"  Q2 in a world of its own, {time.perf_counter() - t0:.1f} s [{card}]")
+        q2 = [w[0] for w in world]
+        want = dict(ZERO_COUNTS, flash_attention=MOE_DP_LAYERS, flash_attention_bwd=MOE_DP_LAYERS)
+        for route, (ep, cf) in MOE_DP_ROUTES.items():
+            cfg, tcfg = moe_train_cfg("float32", MOE_DP_LAYERS, ep=ep, cf=cf), dp_tcfg()
+            ref = torch.load(Path(tmp) / f"moe_{route}.pt", weights_only=True)
+            outs = [out[route] for out in q2]
+            worst = {"loss": 0.0, "grad_norm": 0.0}
+            for r, out in enumerate(outs):
+                st = out["step"]
+                check(st["launches"] == want, f"Q2 ({route}) rank {r}: launches {st['launches']}")
+                check(st["metrics"] == outs[0]["step"]["metrics"],
+                      f"Q2 ({route}): rank {r}'s metrics differ from rank 0's")
+                for key in worst:
+                    worst[key] = max(worst[key], rel_diff(st["metrics"][key],
+                                                          refs[route]["metrics"][key]))
+            same_rs = all(torch.equal(out["router_state"], ref["router_state"]) for out in outs)
+            loads = all(torch.equal(out["layers"][i]["load"], layer["load"])
+                        and out["layers"][i]["dropped"] == layer["dropped"]
+                        for out in outs for i, layer in enumerate(ref["layers"]))
+            picks = all(torch.equal(torch.cat([out["layers"][i]["top_i"] for out in outs]),
+                                    layer["top_i"]) for i, layer in enumerate(ref["layers"]))
+            drops = [layer["dropped"] for layer in ref["layers"]]
+            excess = max(out["gaps"]["param_excess"] for out in outs)
+            m_gap = max(out["gaps"]["m_gap"] for out in outs)
+            same_params = all(out["prints"][k] == outs[0]["prints"][k] for out in outs[1:]
+                              for k in out["prints"]
+                              if k.startswith("params/") and k not in out["owned"])
+            name = "global-batch router" if route == "a" else "expert-parallel route"
+            print(f"Q2 ({route}) {DP_RANKS} gloo ranks on the card, 4x1 mesh, the {name}, "
+                  f"{cfg.name} {MOE_DP_LAYERS} of 24 layers f32, capacity factor "
+                  f"{cfg.capacity_factor}, global batch {MOE_DP_B} x {MOE_DP_S} "
+                  f"({MOE_DP_B // DP_RANKS} rows a rank): loss "
+                  f"{outs[0]['step']['metrics']['loss']:.6f}, moe_aux "
+                  f"{outs[0]['step']['metrics']['moe_aux']:.6f}; against the one-rank f32 step: "
+                  f"loss rel {worst['loss']:.3e}, grad norm rel {worst['grad_norm']:.3e} (limit "
+                  f"1e-5); each layer's loads and dropped_frac equal: {loads} (dropped_frac "
+                  + ", ".join(f"{d:.6f}" for d in drops) + f"); the ranks' selections equal: "
+                  f"{picks}; router state equal: {same_rs}; the parameters' largest excess "
+                  f"over the _param_bound rule {excess:.3e} (held <= 0), the moment blocks "
+                  f"{m_gap:.3e} of scale (limit 1e-5); every rank's replicated parameters "
+                  f"identical: {same_params}; launches on every rank flash_attention="
+                  f"{MOE_DP_LAYERS} flash_attention_bwd={MOE_DP_LAYERS} [{card}]")
+            check(max(worst.values()) <= 1e-5, f"Q2 ({route}): loss/grad norm beyond rel 1e-5: "
+                                               f"{worst}")
+            check(loads and picks and same_rs, f"Q2 ({route}): loads, dropped_frac, selections "
+                                               "or router state differ from the one-rank step")
+            check(excess <= 0.0, f"Q2 ({route}): a parameter beyond the _param_bound rule")
+            check(m_gap <= 1e-5, f"Q2 ({route}): moment blocks {m_gap} of scale off")
+            check(same_params, f"Q2 ({route}): the ranks' replicated parameters differ")
+            if route == "b":  # cap >= N: nothing can drop
+                check(max(drops) == 0.0, f"Q2 (b): dropped_frac {drops}")
+            sts = [out["step"] for out in outs]
+            print(f"  Q2 ({route}) step wall ms per rank "
+                  + ", ".join(f"{s['wall_s'] * 1e3:.2f}" for s in sts)
+                  + "; share in collectives " + ", ".join(f"{s['collective_s'] / s['wall_s']:.3f}"
+                                                          for s in sts)
+                  + f"; elements by tag {sts[0]['tags']} in {sts[0]['calls']} collectives; "
+                  f"one rank without a mesh {refs[route]['wall_s'] * 1e3:.2f} ms; the rank's "
+                  f"set-up {outs[0]['setup_s']:.1f} s [{card}]")
+        # -- Q2: the expert-parallel checkpoint restored onto one rank ---------------------
+        cfg, tcfg = moe_train_cfg("float32", MOE_DP_LAYERS, ep=True, cf=4.0), dp_tcfg()
+        t0 = time.perf_counter()
+        fresh = ptl.init_train_state(cfg, tcfg, torch.Generator(device=cuda).manual_seed(1),
+                                     cuda)
+        restored, extra = ck.restore_checkpoint(Path(tmp) / "moe_ckpt", 1, fresh)
+        load_s = time.perf_counter() - t0
+        bitwise = extra == dict(batch_seed=0)
+        for r, out in enumerate(q2):
+            mesh = ModelMesh((("data", Axis(None, DP_RANKS, r)), ("model", Axis(None, 1, 0))))
+            bitwise = bitwise and leaf_prints(
+                restored, ptl.state_shardings(cfg, mesh, tcfg)) == out["b"]["prints"]
+        print(f"Q2 expert-parallel checkpoint (each rank's {cfg.n_experts // DP_RANKS} experts "
+              f"and their moments) saved across the {DP_RANKS} ranks in "
+              + ", ".join(f"{out['b']['save_s']:.2f}" for out in q2)
+              + f" s, restored onto one rank in {load_s:.2f} s: every rank's blocks bitwise "
+              f"(two exact fingerprints of each leaf's bits): {bitwise} [{card}]")
+        check(bitwise, "Q2: the state restored onto one rank differs from the ranks' blocks")
+        del fresh, restored
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase Q {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {k: dict(train=q1[k], dp=sum(q2[0][r]["step"]["launches"][k] for r in MOE_DP_ROUTES))
+            for k in ("flash_attention", "flash_attention_bwd")}
 
 
 def slot_kernel(card, cuda):
@@ -5247,7 +5614,8 @@ def card_setup():
     (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``,
     ``sweep_path``, ``obs_path``, ``oracle_path``, ``moe_path``,
     ``training_path``, ``sharded_path``, ``moe_ep_path``,
-    ``dp_train_path``) starts with this and :func:`build_kernels`."""
+    ``dp_train_path``, ``moe_train_path``) starts with this and
+    :func:`build_kernels`."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5341,18 +5709,22 @@ def run_phases(pt, cf, card, cuda) -> int:
     bwd_kernel, flash_train = training_path(card, cuda)
     attention_kernels[0].update(flash_train)
 
-    # -- 13. phase P's parts in this process: P1 (one NCCL rank) and P2's one-rank
-    # reference, before the world of ranks --------------------------------------------
+    # -- 13. phase P's and phase Q's parts in this process: P1 and Q1 (one NCCL rank), P2's
+    # and Q2's one-rank references, before the world of ranks ----------------------------
     t_phase = time.perf_counter()
     dp_prepared = dp_prepare(card, cuda)
     print(f"  P1 and P2's reference {time.perf_counter() - t_phase:.1f} s [{card}]")
+    t_phase = time.perf_counter()
+    moe_prepared = moe_prepare(card, cuda)
+    print(f"  Q1 and Q2's references {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     # -- 14. phase N: the instance-sharded engines (kernel 1 on one rank); its world of
-    # four gloo ranks then runs phase O's O2 and O3 and phase P's P2 and P3 (one
-    # start-up for all) ------------------------------------------------------------------
+    # four gloo ranks then runs phase O's O2 and O3, phase P's P2 and P3 and phase Q's Q2
+    # (one start-up for all) ---------------------------------------------------------------
     slot.row["sharded_launches"], world = sharded_path(
-        card, cuda, slot.fleet, also=ep_world_calls(cuda) + dp_world_calls(cuda, dp_prepared),
-        also_timeout_s=EP_TIMEOUT_S + DP_TIMEOUT_S)
+        card, cuda, slot.fleet, also=ep_world_calls(cuda) + dp_world_calls(cuda, dp_prepared)
+        + moe_world_calls(cuda, moe_prepared),
+        also_timeout_s=EP_TIMEOUT_S + DP_TIMEOUT_S + MOE_DP_TIMEOUT_S)
 
     # -- 15. phase O: expert-parallel MoE serving (kernels 2, 5 and 6 on every rank) ----
     ep = moe_ep_path(card, cuda, world=[out[:2] for out in world])
@@ -5366,7 +5738,14 @@ def run_phases(pt, cf, card, cuda) -> int:
     attention_kernels[0]["pipeline_launches"] = dp["pipeline"]
     bwd_kernel["dp_launches"] = dp["flash_attention_bwd"]
 
-    # -- 17. the kernels line, 18. the last line ---------------------------------
+    # -- 17. phase Q: MoE training across ranks (kernels 5 and 5b on every rank) --------
+    moe_train = moe_train_path(card, cuda, moe_prepared, world=[out[4:] for out in world])
+    for row, name in ((attention_kernels[0], "flash_attention"),
+                      (bwd_kernel, "flash_attention_bwd")):
+        row["moe_train_launches"] = moe_train[name]["train"]
+        row["moe_dp_launches"] = moe_train[name]["dp"]
+
+    # -- 18. the kernels line, 19. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel, bwd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

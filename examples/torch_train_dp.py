@@ -19,7 +19,12 @@ card, so the share is then that of enqueueing them
 (``collective_enqueue_share``); under gloo it is the exchanges' own.
 ``--arch`` picks the model (internvl2-1b by default) at its full width,
 ``--layers`` cuts its depth, ``--device cpu`` runs the ranks on the CPU
-under gloo.
+under gloo. An MoE model (``--arch granite_moe_1b``) trains with the
+global-batch router by default and with ``--ep`` by the expert-parallel
+route (``moe_ep_shardmap``: each rank holds E/n experts):
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
+      --arch granite_moe_1b --ep
 
 The module-level functions run on one rank of a world that is already up
 (``repro_torch.distributed.spawn_world`` starts one in child processes):
@@ -42,15 +47,16 @@ import torch.distributed as dist
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.data.specs import as_tensors
-from repro_torch.distributed import PAYLOAD, set_mesh
+from repro_torch.distributed import PAYLOAD, SOLO, set_mesh
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.pipeline import pipeline_apply
 from repro_torch.launch.mesh import make_axis_mesh, make_host_mesh
 from repro_torch.models import model_zoo as pz
+from repro_torch.models.moe_ep import place_
 from repro_torch.training import checkpoint as ck
 from repro_torch.training.optimizer import OptConfig
 from repro_torch.training.train_loop import (TrainConfig, init_train_state, make_train_step,
-                                             shard_train_state)
+                                             shard_train_state, state_shardings)
 
 
 def _sync(device) -> None:
@@ -67,36 +73,73 @@ def _host(tree):
     return tree.detach().cpu().clone()
 
 
-def _state(cfg, tcfg, mesh, weights, device):
+def _state(cfg, tcfg, mesh, weights, device, seed=0):
     """The train state of ``cfg`` (weights ``weights``, a state_dict, or
-    drawn from seed 0), cut to this rank's blocks on ``mesh`` (None: whole)."""
-    state = init_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0), device)
+    drawn from ``seed``), cut to this rank's blocks on ``mesh`` (None:
+    whole): the expert-parallel route's experts placed (``place_``), the
+    moments cut (``state_shardings``)."""
+    state = init_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(seed),
+                             device)
     if weights is not None:
         state["params"].load_state_dict(weights)
     if mesh is not None:
-        shard_train_state(state, shd.train_state_shardings(cfg, mesh, tcfg))
+        if cfg.moe and cfg.moe_ep_shardmap:
+            place_(state["params"], mesh)
+        shard_train_state(state, state_shardings(cfg, mesh, tcfg))
     return state
 
 
+def _rows(batch: dict, mesh):
+    """(this rank's rows of ``batch``, the axis they are cut over), as the
+    train step cuts them on an ``(n, 1)`` mesh: the whole batch and
+    ``SOLO`` when its rows do not split."""
+    n = 1 if mesh is None else mesh.shape["data"]
+    B = next(iter(batch.values())).shape[0]
+    if n == 1 or B % n:
+        return batch, SOLO
+    i = mesh.axis("data").index
+    return {k: a[i * (B // n):(i + 1) * (B // n)] for k, a in batch.items()}, mesh.axis("data")
+
+
+@torch.no_grad()
+def moe_probe(cfg, state, batch, mesh):
+    """The forward of an MoE model on this rank's rows of ``batch`` (numpy),
+    as the train step runs it: each MoE layer's ``load``, ``dropped_frac``,
+    ``aux_loss`` and ``router_state`` (global) and this rank's ``top_i``
+    and ``keep``, on the CPU."""
+    rows, axis = _rows(as_tensors(batch, cfg, state["router_state"].device), mesh)
+    _, aux = pz.forward(state["params"], cfg, rows, state["router_state"], axis=axis)
+    keys = ("load", "dropped_frac", "aux_loss", "router_state", "top_i", "keep")
+    return [{k: None if a[k] is None else a[k].detach().cpu() for k in keys}
+            for a in aux["moe_layers"]]
+
+
 def train_rank(cfg, tcfg, mesh_shape, weights, batches, *, grad_specs=False, device="cuda",
-               keep_state=True):
+               keep_state=True, router_state=None, probe=False):
     """Train steps on this rank: the state of ``cfg`` with ``weights`` (None:
-    seed 0), on a ``mesh_shape`` mesh set as the ambient one (None: no
-    mesh), one ``make_train_step`` call per global batch of ``batches``
-    (numpy dicts); ``grad_specs`` reduce-scatters the gradients onto the
-    ZeRO-1 blocks. Returns ``metrics`` (floats, one dict a step), the step
-    walls ``wall_s``, the ``"dp"`` elements and collective seconds of each
-    step, and with ``keep_state`` the state after the steps on the CPU
-    (``params``, the moments' blocks ``m`` and ``v``, ``err``, ``step``)."""
+    seed 0) and ``router_state`` (None: zeros), on a ``mesh_shape`` mesh set
+    as the ambient one (None: no mesh), one ``make_train_step`` call per
+    global batch of ``batches`` (numpy dicts); ``grad_specs``
+    reduce-scatters the gradients onto the ZeRO-1 blocks. Returns
+    ``metrics`` (floats, one dict a step), the step walls ``wall_s``, the
+    elements moved by tag (``"dp"``, ``"moe"``, ``"ep"``) and the
+    collective seconds of each step, with ``probe`` (an MoE model) the
+    forward's layers before the first step (:func:`moe_probe`), and with
+    ``keep_state`` the state after the steps on the CPU (``params``, the
+    moments' blocks ``m`` and ``v``, ``err``, ``step``, ``router_state``)."""
     mesh = None if mesh_shape is None else make_host_mesh(*mesh_shape)
     set_mesh(mesh)
     try:
         state = _state(cfg, tcfg, mesh, weights, device)
+        if router_state is not None:
+            state["router_state"] = torch.as_tensor(router_state, device=device)
         specs = None
         if grad_specs:
             specs = shd.specs_for_template(pz.template(cfg), shd.zero_rules(mesh), mesh)
         step = make_train_step(cfg, tcfg, specs)
-        out = dict(metrics=[], wall_s=[], elements=[], collective_s=[])
+        out = dict(metrics=[], wall_s=[], elements=[], collective_s=[], tags=[])
+        if probe and (mesh is None or mesh.member):
+            out["probe"] = moe_probe(cfg, state, batches[0], mesh)
         for batch in batches:
             batch = as_tensors(batch, cfg, device)
             PAYLOAD.reset()
@@ -107,12 +150,14 @@ def train_rank(cfg, tcfg, mesh_shape, weights, batches, *, grad_specs=False, dev
             out["wall_s"].append(time.perf_counter() - t0)
             out["metrics"].append({k: float(v) for k, v in met.items()})
             out["elements"].append(PAYLOAD.n("dp"))
+            out["tags"].append(dict(PAYLOAD.elements))
             out["collective_s"].append(PAYLOAD.seconds)
     finally:
         set_mesh(None)
     if keep_state:
         out["state"] = dict(params=_host(state["params"]), m=_host(state["opt"]["m"]),
-                            v=_host(state["opt"]["v"]), step=int(state["opt"]["step"]))
+                            v=_host(state["opt"]["v"]), step=int(state["opt"]["step"]),
+                            router_state=_host(state["router_state"]))
         if "err" in state:
             out["state"]["err"] = _host(state["err"])
     out["member"] = mesh is None or mesh.member
@@ -123,17 +168,18 @@ def checkpoint_rank(cfg, tcfg, mesh_shape, weights, batch, ckpt_dir, restore_sha
                     device="cuda"):
     """One train step on a ``mesh_shape`` mesh, the ZeRO-1 state saved to
     ``ckpt_dir`` across the ranks (``save_checkpoint`` with the state's
-    shardings) and to ``<ckpt_dir>-async`` (an ``AsyncCheckpointer``),
-    then restored onto a mesh of each of ``restore_shapes``
-    (None: no mesh, the whole state on every rank) into a fresh state.
-    Returns this rank's blocks before the save (``saved``) and after each
-    restore (``restored``, by shape), on the CPU."""
+    shardings, ``state_shardings``) and to ``<ckpt_dir>-async`` (an
+    ``AsyncCheckpointer``), then restored onto a mesh of each of
+    ``restore_shapes`` (None: no mesh, the whole state on every rank) into
+    a fresh state placed and cut for that mesh. Returns this rank's blocks
+    before the save (``saved``) and after each restore (``restored``, by
+    shape), on the CPU."""
     mesh = make_host_mesh(*mesh_shape)
     set_mesh(mesh)
     try:
         state = _state(cfg, tcfg, mesh, weights, device)
         state, _ = make_train_step(cfg, tcfg)(state, as_tensors(batch, cfg, device))
-        shardings = shd.train_state_shardings(cfg, mesh, tcfg)
+        shardings = state_shardings(cfg, mesh, tcfg)
         ck.save_checkpoint(ckpt_dir, 1, state, extra=dict(batch_seed=0), shardings=shardings)
         saver = ck.AsyncCheckpointer(f"{ckpt_dir}-async")
         saver.save(1, state, extra=dict(batch_seed=0), shardings=shardings)
@@ -142,10 +188,9 @@ def checkpoint_rank(cfg, tcfg, mesh_shape, weights, batch, ckpt_dir, restore_sha
         set_mesh(None)
     out = dict(saved=ck.flatten_state(_host(state)), restored={})
     for shape in restore_shapes:
-        fresh = init_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(1), device)
-        sh = None
-        if shape is not None:
-            sh = shd.train_state_shardings(cfg, make_host_mesh(*shape), tcfg)
+        there = None if shape is None else make_host_mesh(*shape)
+        fresh = _state(cfg, tcfg, there, None, device, seed=1)
+        sh = None if there is None else state_shardings(cfg, there, tcfg)
         back, extra = ck.restore_checkpoint(ckpt_dir, 1, fresh, sh)
         out["restored"][shape] = dict(leaves=ck.flatten_state(_host(back)), extra=extra)
     return out
@@ -175,6 +220,8 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=8, help="the global batch")
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--ep", action="store_true",
+                    help="an MoE model by the expert-parallel route (moe_ep_shardmap)")
     args = ap.parse_args()
     if "RANK" in os.environ:  # started by torchrun: one rank per card
         if args.device == "cuda":
@@ -186,6 +233,8 @@ def main() -> None:
     cfg = get_config(args.arch)
     if args.layers:
         cfg = cfg.with_(n_layers=args.layers)
+    if args.ep:
+        cfg = cfg.with_(moe_ep_shardmap=True)
     tcfg = TrainConfig(opt=OptConfig(lr=1e-4, warmup_steps=1, total_steps=100))
     pipe = TokenPipeline(cfg, batch=args.batch, seq=args.seq, seed=0)
     batches = [pipe.next_batch() for _ in range(args.steps)]
@@ -207,6 +256,8 @@ def main() -> None:
             ("collective_enqueue_share" if nccl else "collective_share"):
                 [r[1] for r in per_rank],
             "dp_elements_per_step": out["elements"][-1],
+            "elements_per_step_by_tag": out["tags"][-1], "moe_route":
+                (None if not cfg.moe else "expert-parallel" if args.ep else "global-batch"),
             "loss": [m["loss"] for m in out["metrics"]]}))
     if dist.is_initialized():
         dist.barrier()

@@ -13,13 +13,17 @@ collectives map as:
 * a tiled ``all_gather`` (:func:`all_gather`) →
   ``dist.all_gather_single`` (``all_gather_into_tensor`` where the
   installed torch lacks it);
-* ``psum`` (:func:`psum`) → ``all_reduce(SUM)``;
+* ``psum`` (:func:`psum`) → ``all_reduce(SUM)``, differentiable: its
+  backward is the ``psum`` of the cotangent, the transpose of a sum, which
+  gives each rank its gradient of the global loss where every rank's loss
+  is its term of that loss (``training.train_loop``'s rule);
 * ``pmin`` (:func:`pmin`) → ``all_reduce(MIN)``, which selects an element, so
   a (value, global instance id) pair folded with two of them keeps the
   dense engine's lowest-index tie-break bitwise (DESIGN.md §13.2);
 * an untiled ``all_to_all`` over dim 0 (:func:`all_to_all`) →
   ``dist.all_to_all_single`` with equal blocks (the expert-parallel MoE
-  dispatch, ``models.moe_ep``);
+  dispatch, ``models.moe_ep``), differentiable: its backward is the same
+  exchange of the cotangent;
 * a tiled ``psum_scatter`` (:func:`psum_scatter`) →
   ``dist.reduce_scatter_single`` (``reduce_scatter_tensor`` where the
   installed torch lacks it) over the dim moved to the front, through the
@@ -30,10 +34,13 @@ collectives map as:
 Each call adds the elements it moves to :data:`PAYLOAD` under a tag:
 ``"step"`` for the slot dynamics (the ``payload`` metric stream reads it),
 ``"obs"`` for what only the metric streams need, ``"out"`` for replicating a
-result at the end of a run, ``"ep"`` for the expert-parallel MoE layers,
-``"dp"`` for data-parallel training (the gradients' reductions, the token
-count and the norm, the parameters' all-gathers, checkpoints' gathers) and
-``"pp"`` for the pipeline's hand-offs. An all-reduce of n elements moves n;
+result at the end of a run, ``"ep"`` for the expert-parallel MoE layers
+(their backward's exchanges too), ``"moe"`` for the global-batch router of
+``models.moe.moe_ffn`` under data-parallel training (the POTUS price's
+scale, each rank's expert counts and importance sums), ``"dp"`` for
+data-parallel training (the gradients' reductions, the token count and the
+norm, the parameters' all-gathers, checkpoints' gathers) and ``"pp"`` for
+the pipeline's hand-offs. An all-reduce of n elements moves n;
 a tiled all-gather and an all-to-all move the n of their output, a
 reduce-scatter the n of its input. On one rank nothing is counted.
 
@@ -62,8 +69,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Axis", "SOLO", "PAYLOAD", "PayloadCounter", "all_gather", "all_to_all", "psum",
-           "pmin", "pmax", "psum_scatter", "grid_axes", "rank_device", "require_one_rank",
-           "set_mesh", "get_mesh", "set_cache_specs", "get_cache_specs"]
+           "pmin", "pmax", "psum_scatter", "grid_axes", "rank_device", "set_mesh", "get_mesh",
+           "set_cache_specs", "get_cache_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,9 +166,25 @@ def _all_reduce(x: torch.Tensor, axis: Axis, op, tag: str) -> torch.Tensor:
     return _collective(run, x, tag)
 
 
+class _PSum(torch.autograd.Function):
+    """The sum over the ranks; backward, the sum of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, axis, tag):
+        ctx.axis, ctx.tag = axis, tag
+        return _all_reduce(x, axis, dist.ReduceOp.SUM, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis, dist.ReduceOp.SUM, ctx.tag), None, None
+
+
 def psum(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
-    """Sum of ``x`` over the ranks of ``axis``, on every rank."""
-    return _all_reduce(x, axis, dist.ReduceOp.SUM, tag)
+    """Sum of ``x`` over the ranks of ``axis``, on every rank; its gradient
+    is the sum of the ranks' cotangents."""
+    if axis.size == 1:
+        return x
+    return _PSum.apply(x, axis, tag)
 
 
 def pmin(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
@@ -216,17 +239,7 @@ def all_gather(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
     return _collective(run, x, tag)
 
 
-def all_to_all(x: torch.Tensor, axis: Axis, tag: str = "ep") -> torch.Tensor:
-    """``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)`` on
-    ``x`` cut into ``axis.size`` equal blocks along dim 0: block j goes to
-    rank j of ``axis``, and block j of the result came from rank j. Gloo
-    moves host memory, so under gloo a CUDA block is copied to the host and
-    the result back to the card; NCCL exchanges the card's memory directly."""
-    if axis.size == 1:
-        return x
-    if x.shape[0] % axis.size:
-        raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} is not {axis.size} equal blocks")
-
+def _all_to_all(x: torch.Tensor, axis: Axis, tag: str) -> torch.Tensor:
     def run(buf):
         staged = _staged(buf, axis)
         out = torch.empty_like(staged)
@@ -235,14 +248,32 @@ def all_to_all(x: torch.Tensor, axis: Axis, tag: str = "ep") -> torch.Tensor:
     return _collective(run, x, tag)
 
 
-def require_one_rank(what: str) -> None:
-    """Raise when ``what`` runs in a world of more than one rank: training
-    an MoE model across ranks (its router's capacity, positions, loads and
-    state are sums over the global batch) is not ported yet."""
-    if dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{what} across {dist.get_world_size()} ranks is not ported yet (ROADMAP.md, "
-            "section 1, module item 5b); run it in a world of one rank")
+class _AllToAll(torch.autograd.Function):
+    """The exchange of equal blocks; backward, the same exchange of the
+    cotangent (block j of the gradient goes back to rank j)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, tag):
+        ctx.axis, ctx.tag = axis, tag
+        return _all_to_all(x, axis, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.axis, ctx.tag), None, None
+
+
+def all_to_all(x: torch.Tensor, axis: Axis, tag: str = "ep") -> torch.Tensor:
+    """``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=False)`` on
+    ``x`` cut into ``axis.size`` equal blocks along dim 0: block j goes to
+    rank j of ``axis``, and block j of the result came from rank j.
+    Differentiable (the backward is the same exchange). Gloo moves host
+    memory, so under gloo a CUDA block is copied to the host and the result
+    back to the card; NCCL exchanges the card's memory directly."""
+    if axis.size == 1:
+        return x
+    if x.shape[0] % axis.size:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} is not {axis.size} equal blocks")
+    return _AllToAll.apply(x, axis, tag)
 
 
 def rank_device(device: torch.device) -> torch.device:

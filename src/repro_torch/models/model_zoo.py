@@ -53,6 +53,15 @@ hint. ``moe_ep_shardmap`` picks the expert-parallel dispatch
 ``moe_ep.place_``), as the reference's ``_moe_dispatch`` does; without a
 mesh every rank runs ``moe_ffn`` and computes the same result. Under a
 mesh the ranks run every entry point together (SPMD), on the same inputs.
+
+``forward(..., axis=)`` is the data-parallel train step's: the batch is
+this rank's rows of a global batch cut over ``axis`` (the mesh's
+``"data"`` axis), and each MoE layer computes its routing over the global
+batch (``moe.moe_ffn``'s ``axis``), or, with ``moe_ep_shardmap`` and a
+mesh, takes and returns this rank's rows (``moe_ep.moe_ffn_ep``'s
+``rows``). The axis travels as an argument down to the blocks, so that
+``remat``'s re-run of a block in the backward pass, outside any context
+the caller set, issues the same collectives.
 """
 from __future__ import annotations
 
@@ -67,7 +76,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..distributed.context import get_mesh
+from ..distributed.context import SOLO, get_mesh
 from .common import DTYPES, MLP, Attention, RMSNorm
 from .mamba import (Mamba2Block, mamba_block, mamba_cache_spec, mamba_decode_step,
                     ssd_chunked_with_state)
@@ -111,28 +120,29 @@ class Block(nn.Module):
         self.mlp = None if use_moe else MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
         self.moe = MoE(cfg, **kw) if use_moe else None
 
-    def ffn(self, x, cfg=None, router_state=None):
-        """``x + ffn(ln2 x)``. Returns (x, router state, aux_loss): an MoE
-        block (which reads its router settings from ``cfg``) passes its
-        updated state on (the given one without a state) and its
-        load-balance loss; an MLP block the state as given and None."""
+    def ffn(self, x, cfg=None, router_state=None, axis=SOLO):
+        """``x + ffn(ln2 x)``. Returns (x, router state, aux): an MoE block
+        (which reads its router settings from ``cfg``) passes its updated
+        state on (the given one without a state) and its layer's ``aux``
+        (``moe.moe_ffn``'s); an MLP block the state as given and None.
+        ``axis``: the axis ``x``'s rows are cut over (:func:`forward`)."""
         h_in = self.ln2(x)
         if self.moe is None:
             return x + self.mlp(h_in), router_state, None
         mesh = get_mesh() if cfg.moe_ep_shardmap else None
         if mesh is not None:
-            h, aux = moe_ffn_ep(self.moe, h_in, cfg, mesh, router_state)
+            h, aux = moe_ffn_ep(self.moe, h_in, cfg, mesh, router_state, axis)
         else:
-            h, aux = moe_ffn(self.moe, h_in, cfg, router_state)
+            h, aux = moe_ffn(self.moe, h_in, cfg, router_state, axis)
         rs = aux["router_state"] if aux["router_state"] is not None else router_state
-        return x + h, rs, aux["aux_loss"]
+        return x + h, rs, aux
 
-    def forward(self, x, positions, ops=None, cfg=None, router_state=None):
+    def forward(self, x, positions, ops=None, cfg=None, router_state=None, axis=SOLO):
         """Self-attention over a full sequence, then :meth:`ffn`. Returns
-        (x, (k, v), router state, aux_loss)."""
+        (x, (k, v), router state, the MoE layer's aux or None)."""
         h, kv = self.attn(self.ln1(x), positions, ops)
-        x, router_state, aux_loss = self.ffn(x + h, cfg, router_state)
-        return x, kv, router_state, aux_loss
+        x, router_state, aux = self.ffn(x + h, cfg, router_state, axis)
+        return x, kv, router_state, aux
 
     def decode(self, x, k_cache, v_cache, pos, ops=None, cfg=None, router_state=None):
         """One token against the KV cache, then :meth:`ffn`. Returns
@@ -371,17 +381,23 @@ def _start_state(cfg, router_state, device):
     return torch.zeros((1,), dtype=torch.float32, device=device)
 
 
-def forward(model, cfg, batch, router_state=None, *, ops=None, remat: str = "none"):
+def forward(model, cfg, batch, router_state=None, *, ops=None, remat: str = "none",
+            axis=SOLO):
     """Full-sequence forward. Returns (logits (B, S, V), aux dict):
     ``moe_aux_loss``, the sum of the MoE layers' load-balance losses (0
-    without them), and ``router_state``, the state after the last layer.
-    Differentiable when grad is enabled; ``remat`` names a policy of
-    :data:`REMAT_POLICIES` applied to each block (not to a hybrid's shared
-    attention blocks, as in the reference)."""
+    without them), ``moe_aux_term``, the sum of this rank's terms of them
+    (``moe_aux_loss`` itself on :data:`SOLO`), ``moe_layers``, each MoE
+    layer's aux (``moe.moe_ffn``'s) in order, and ``router_state``, the
+    state after the last layer. Differentiable when grad is enabled;
+    ``remat`` names a policy of :data:`REMAT_POLICIES` applied to each
+    block (not to a hybrid's shared attention blocks, as in the reference).
+    ``axis``: the axis ``batch``'s rows are cut over (the train step's
+    ``"data"`` axis; :data:`SOLO`, the whole batch)."""
     x = _embed_input(model, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     rs = _start_state(cfg, router_state, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    term_total, layers = aux_total, []
     if cfg.ssm:
         for gi, (s, e, attn_after) in enumerate(_hybrid_groups(cfg)):
             for block in model.blocks[s:e]:
@@ -390,11 +406,14 @@ def forward(model, cfg, batch, router_state=None, *, ops=None, remat: str = "non
                 x, *_ = model.shared_attn[gi % cfg.n_shared_attn](x, positions, ops)
     else:
         for block in model.blocks:
-            x, _, rs, aux = _remat(block, remat)(x, positions, ops, cfg, rs)
+            x, _, rs, aux = _remat(block, remat)(x, positions, ops, cfg, rs, axis)
             if aux is not None:
-                aux_total = aux_total + aux
+                layers.append(aux)
+                aux_total = aux_total + aux["aux_loss"]
+                term_total = term_total + aux["aux_term"]
     logits = _unembed(model, cfg, model.final_norm(x))
-    return logits, dict(moe_aux_loss=aux_total, router_state=rs)
+    return logits, dict(moe_aux_loss=aux_total, moe_aux_term=term_total, moe_layers=layers,
+                        router_state=rs)
 
 
 # ---------------------------------------------------------------------------

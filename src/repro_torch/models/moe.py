@@ -36,6 +36,28 @@ The expert products are plain large products (the reference computes them
 outside any Pallas kernel), so they run as ``torch.bmm``. ``moe_ffn`` makes
 no host synchronisation: every aux value stays a tensor, and ``cap`` comes
 from the shapes.
+
+The global batch (``axis``). Under the data-parallel train step each rank
+holds only its rows of the batch; ``axis``, the ``"data"`` axis those rows
+are cut over (``training.train_loop``), makes the layer compute what the
+reference's ``moe_ffn`` computes under GSPMD over the global batch of N
+tokens, N the rank's count times the axis's size (the rows split evenly):
+the capacity from N, the price's ``scale`` over every token (a ``psum``),
+each entry's position in global token order (rank-major, as
+``distributed.sharding.batch_shardings`` cuts the rows: each rank's
+(E,) counts go out in one ``all_gather`` with its importance sums, and
+rank r's entries start after the lower ranks'), the loads, ``frac``, the
+importance, the router state's update and ``dropped_frac``, the same on
+every rank. A rank runs the expert products for its own kept entries with
+the whole expert weights: an expert row's output depends on its own token
+alone, so no token moves. Of these values only the importance carries a
+gradient; ``aux["aux_term"]`` is this rank's term of the load-balance
+loss, ``E * sum(frac * probs.sum(0) / N)`` over its rows, whose sum over
+the ranks is the global ``aux_loss`` and whose gradient is this rank's
+share of the global one. On :data:`~repro_torch.distributed.SOLO` (every
+caller but training across ranks) ``aux_term`` is ``aux_loss`` and the
+function is the one-rank layer, bitwise. The collectives count under
+``"moe"``.
 """
 from __future__ import annotations
 
@@ -46,6 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.context import SOLO, all_gather, psum
 from .common import MLP
 
 __all__ = ["MoE", "moe_ffn", "init_router_state", "moe_capacity"]
@@ -78,14 +101,26 @@ def moe_capacity(cfg, n_tokens: int) -> int:
     return int(math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
 
 
+def _recip(n: int) -> float:
+    """The float32 reciprocal of ``n``: XLA turns a division by a constant
+    into a product with it."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
 def _mean(t, dim=None):
     """``t.mean(dim)`` as the reference's computes it under XLA: the sum
-    times the float32 reciprocal of the count (XLA turns a division by a
-    constant into that product), so that ``dropped_frac`` and the POTUS
-    prices round as the reference's do."""
+    times the float32 reciprocal of the count, so that ``dropped_frac`` and
+    the POTUS prices round as the reference's do."""
     n = t.numel() if dim is None else t.shape[dim]
     s = t.sum() if dim is None else t.sum(dim=dim)
-    return s * float(np.float32(1.0) / np.float32(n))
+    return s * _recip(n)
+
+
+def _aux_term(frac, probs, n_tokens: int):
+    """``E * sum(frac * probs.sum(0) / n_tokens)``: the Switch load-balance
+    loss of ``probs``'s rows, whose ``n_tokens`` is the global count. The
+    gradient flows through ``probs`` alone (``frac`` counts selections)."""
+    return probs.shape[-1] * torch.sum(frac * (probs.sum(dim=0) * _recip(n_tokens)))
 
 
 def _bmm(a, b):
@@ -95,14 +130,19 @@ def _bmm(a, b):
     return torch.bmm(a.to(dtype), b.to(dtype))
 
 
-def moe_ffn(moe, x, cfg, router_state=None):
-    """x: (B, S, D). Returns ``(y (B, S, D), aux)``; ``aux`` holds the
-    tensors ``aux_loss``, ``dropped_frac``, ``load`` (E,) (entries routed to
-    each expert, before drops), ``keep`` (N*k,) and ``top_i`` (N, k), and
-    ``router_state``, the updated virtual queues (None without a state)."""
+def moe_ffn(moe, x, cfg, router_state=None, axis=SOLO):
+    """x: (B, S, D), this rank's rows of the batch whose other rows the
+    ranks of ``axis`` hold (:data:`SOLO`: the whole batch). Returns ``(y
+    (B, S, D), aux)``; ``aux`` holds the tensors ``aux_loss``,
+    ``dropped_frac``, ``load`` (E,) (entries routed to each expert, before
+    drops) and ``router_state``, the updated virtual queues (None without a
+    state), all global, ``aux_term``, this rank's term of ``aux_loss``
+    (with the gradient), and this rank's ``keep`` (N*k,) and ``top_i``
+    (N, k)."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     N = B * S
+    Ng = N * axis.size  # the global token count: the rows split evenly
     xf = x.reshape(N, D)
 
     logits = xf.float() @ moe.router.float()  # (N, E)
@@ -110,7 +150,8 @@ def moe_ffn(moe, x, cfg, router_state=None):
     sel_scores = logits
     if cfg.router == "potus" and router_state is not None:
         # price = affinity - beta * virtual backlog  (eq. 16, U=0)
-        scale = _mean(logits.abs()).clamp_min(1e-6)
+        # the mean over every rank's tokens (no gradient reaches the selections)
+        scale = (psum(logits.detach().abs().sum(), axis, "moe") * _recip(Ng * E)).clamp_min(1e-6)
         backlog = router_state / (_mean(router_state) + 1.0).clamp_min(1.0)
         sel_scores = logits - cfg.potus_router_beta * scale * backlog[None, :]
     # the lower index first on equal prices, as jax.lax.top_k
@@ -119,15 +160,23 @@ def moe_ffn(moe, x, cfg, router_state=None):
     gather_p = probs.gather(-1, top_i)
     top_w = gather_p / gather_p.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    cap = moe_capacity(cfg, N)
+    cap = moe_capacity(cfg, Ng)
     flat_e = top_i.reshape(-1)  # (N*k,)
     # counts[e, j]: entries 0..j routed to expert e; entry j's position in its
     # expert is counts[e_j, j] - 1 (the reference's ((cumsum - 1) * onehot).sum)
     onehot = flat_e[None, :] == torch.arange(E, device=x.device)[:, None]  # (E, N*k)
     counts = torch.cumsum(onehot, dim=1, dtype=torch.int32)
-    pos = counts.gather(0, flat_e[None, :])[0] - 1  # (N*k,)
-    keep = pos < cap
-    slot = torch.where(keep, flat_e * cap + pos, E * cap).view(N, k)  # E*cap: the cut-off row
+    local = counts.gather(0, flat_e[None, :])[0] - 1  # (N*k,) among this rank's entries
+    load = counts[:, -1].float()  # (E,) entries routed (pre-drop)
+    pos, imp_sums = local, None
+    if axis.size > 1:
+        # every rank's counts and importance sums: the global loads, and this rank's
+        # entries placed after the lower ranks' in each expert
+        ranks = all_gather(torch.cat([load, probs.detach().sum(dim=0)])[None], axis, "moe")
+        pos = local + ranks[:axis.index, :E].sum(dim=0).to(torch.int32)[flat_e]
+        load, imp_sums = ranks[:, :E].sum(dim=0), ranks[:, E:].sum(dim=0)
+    keep = pos < cap  # a kept entry's local position is below cap too: its rank's row
+    slot = torch.where(keep, flat_e * cap + local, E * cap).view(N, k)  # E*cap: the cut-off row
 
     buf = x.new_zeros((E * cap + 1, D))
     buf[slot] = xf[:, None, :]  # each token into its k rows; no two kept entries share one
@@ -144,15 +193,15 @@ def moe_ffn(moe, x, cfg, router_state=None):
         y = y + moe.shared(xf)
 
     # --- balance metrics + POTUS virtual-queue update -----------------------
-    load = counts[:, -1].float()  # (E,) entries routed (pre-drop)
-    frac = load / float(max(N * k, 1))  # load.sum() is N*k, exactly in f32
-    imp = _mean(probs, dim=0)
-    aux_loss = E * torch.sum(frac * imp)  # Switch load-balance loss (metric)
+    frac = load / float(max(Ng * k, 1))  # load.sum() is Ng*k, exactly in f32
+    aux_term = _aux_term(frac, probs, Ng)  # Switch load-balance loss (metric)
+    aux_loss = aux_term if imp_sums is None else E * torch.sum(frac * (imp_sums * _recip(Ng)))
     new_state = None
     if router_state is not None:
-        service = N * k / E
+        service = Ng * k / E
         new_state = (router_state + load - service).clamp_min(0.0)  # eq. (8)
-    dropped = 1.0 - _mean(keep.float())
-    aux = dict(aux_loss=aux_loss, dropped_frac=dropped, load=load, router_state=new_state,
-               keep=keep, top_i=top_i)
+    # expert e keeps the first cap of its load_e entries (an exact count, as keep.sum())
+    dropped = 1.0 - load.clamp_max(cap).sum() * _recip(Ng * k)
+    aux = dict(aux_loss=aux_loss, aux_term=aux_term, dropped_frac=dropped, load=load,
+               router_state=new_state, keep=keep, top_i=top_i)
     return y.reshape(B, S, D), aux

@@ -38,6 +38,19 @@ The expert products stay ``torch.bmm``, as in ``moe.moe_ffn``.
 The reference's ``psum`` and ``pmean`` over "data" (the load, the
 importance and the kept share) travel as one all-reduce here; the sums of
 each element are the same.
+
+Under the train step (``training.train_loop`` on an ``(n, 1)`` mesh) each
+rank passes its own rows of the batch and gets its rows' ``y``
+(``moe_ffn_ep(..., rows=data)``): no cut and no gather. The layer is
+differentiable: the ``all_to_all`` exchanges and the ``psum`` over
+"model" carry their gradients back (``distributed.context``), so an
+expert block's gradient is complete on its rank, summed over every rank's
+tokens, and is not summed over "data". The folded all-reduce carries none:
+``aux["aux_term"]``, this rank's term of the load-balance loss (as
+``moe.moe_ffn`` builds it), carries the importance's gradient, and its sum
+over the ranks is the global ``aux_loss``, which gives each rank the
+gradient the reference's ``pmean`` gives: the one-device one where nothing
+drops.
 """
 from __future__ import annotations
 
@@ -46,8 +59,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.context import all_gather, all_to_all, psum
-from .moe import MoE, _bmm, _mean, init_router_state, moe_capacity
+from ..distributed.context import SOLO, all_gather, all_to_all, psum
+from .moe import MoE, _aux_term, _bmm, _mean, init_router_state, moe_capacity
 
 __all__ = ["moe_ffn_ep", "place_", "check_mesh"]
 
@@ -65,8 +78,9 @@ def _positions(idx: torch.Tensor, n: int) -> torch.Tensor:
 def _local_moe(moe, xf, cfg, router_state, data, model):
     """The per-rank body, the reference's ``_local_moe``. ``xf`` (N_loc, D)
     is this rank's token block; ``moe`` holds this rank's weight blocks.
-    Returns (y (N_loc, D), aux) with ``aux_loss``, ``dropped_frac``,
-    ``load``, ``router_state`` (None without a state), ``top_i`` (N_loc, k),
+    Returns (y (N_loc, D), aux) with ``aux_loss``, ``aux_term`` (this
+    rank's term of it, with the gradient), ``dropped_frac``, ``load``,
+    ``router_state`` (None without a state), ``top_i`` (N_loc, k),
     ``keep`` (N_loc*k,), the send side's mask, and ``keep_recv``
     (ep*cap_send,), the receive side's over the received rows."""
     N_loc, D = xf.shape
@@ -126,8 +140,8 @@ def _local_moe(moe, xf, cfg, router_state, data, model):
 
     # ---- aux metrics: one all-reduce over "data" of load, importance, kept share ----
     load_loc = (flat_e[None, :] == torch.arange(E, device=dev)[:, None]).sum(1).float()
-    folded = psum(torch.cat([load_loc, _mean(probs, dim=0), _mean(keep.float())[None]]),
-                  data, "ep")
+    folded = psum(torch.cat([load_loc, _mean(probs.detach(), dim=0),
+                             _mean(keep.float())[None]]), data, "ep")
     load = folded[:E]
     imp = folded[E:2 * E] / ep
     frac = load / load.sum().clamp_min(1.0)
@@ -137,8 +151,9 @@ def _local_moe(moe, xf, cfg, router_state, data, model):
         service = load.sum() / E
         new_state = (router_state + load - service).clamp_min(0.0)
     dropped = 1.0 - folded[2 * E] / ep
-    return y, dict(aux_loss=aux_loss, dropped_frac=dropped, load=load, router_state=new_state,
-                   top_i=top_i, keep=keep, keep_recv=keep2)
+    return y, dict(aux_loss=aux_loss, aux_term=_aux_term(frac, probs, N_loc * ep),
+                   dropped_frac=dropped, load=load, router_state=new_state, top_i=top_i,
+                   keep=keep, keep_recv=keep2)
 
 
 def check_mesh(cfg, mesh, n_tokens: int | None = None) -> None:
@@ -161,27 +176,35 @@ def check_mesh(cfg, mesh, n_tokens: int | None = None) -> None:
         raise ValueError("moe_ffn_ep: this rank is not on the mesh")
 
 
-def moe_ffn_ep(moe, x, cfg, mesh, router_state=None):
+def moe_ffn_ep(moe, x, cfg, mesh, router_state=None, rows=SOLO):
     """``moe.moe_ffn`` under a model mesh with "data" and "model" axes.
     ``x``: (B, S, D), the same on every rank; ``moe`` holds this rank's
     weight blocks (:func:`place_`). Returns ``(y (B, S, D), aux)``, the same
-    on every rank but for ``aux``'s ``top_i``, ``keep`` and ``keep_recv``,
-    which are this rank's (see :func:`_local_moe`)."""
+    on every rank but for ``aux``'s ``aux_term``, ``top_i``, ``keep`` and
+    ``keep_recv``, which are this rank's (see :func:`_local_moe`).
+    ``rows``: the mesh's "data" axis when ``x`` is this rank's rows of the
+    batch (the train step's), and then ``y`` is this rank's rows."""
     B, S, D = x.shape
     N = B * S
-    check_mesh(cfg, mesh, N)
     data, model = mesh.axis("data"), mesh.axis("model")
+    if rows.size > 1 and rows != data:
+        raise ValueError("moe_ffn_ep: the rows must be cut over the mesh's 'data' axis")
+    check_mesh(cfg, mesh, N if rows.size == 1 else None)
     want = (cfg.n_experts // data.size, D, cfg.d_ff // model.size)
     if tuple(moe.w_gate.shape) != want:
         raise ValueError(f"moe_ffn_ep: w_gate is {tuple(moe.w_gate.shape)}, this rank's block "
                          f"is {want}: place the model on the mesh first (moe_ep.place_)")
-    n_loc = N // data.size
-    xf = x.reshape(N, D)[data.index * n_loc:(data.index + 1) * n_loc]
+    xf = x.reshape(N, D)
+    if rows.size == 1:
+        n_loc = N // data.size
+        xf = xf[data.index * n_loc:(data.index + 1) * n_loc]
     rs = router_state if router_state is not None else init_router_state(cfg, x.device)
     y, aux = _local_moe(moe, xf, cfg, rs, data, model)
     if router_state is None:
         aux["router_state"] = None
-    return all_gather(y, data, "ep").view(B, S, D), aux
+    if rows.size == 1:
+        y = all_gather(y, data, "ep")
+    return y.view(B, S, D), aux
 
 
 def _block(p: torch.Tensor, dim: int, axis) -> torch.Tensor:

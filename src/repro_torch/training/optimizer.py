@@ -15,7 +15,9 @@ shardings, :func:`adamw_update` updates this rank's block of each cut
 parameter from its block of the gradient and moments, by the same
 per-element arithmetic, then all-gathers the parameter back to replicated;
 :func:`global_norm` sums the squares of the cut leaves' blocks over
-``"data"`` and adds each replicated leaf once. On a mesh of one rank (or
+``"data"`` and adds each replicated leaf once. A parameter that is itself
+this rank's block (the expert-parallel route's experts, by the parameters'
+shardings) is updated in place, with no gather. On a mesh of one rank (or
 without shardings) both are the one-rank update, bitwise.
 
 Weight decay is decoupled and falls on the tensors the reference decays:
@@ -113,13 +115,15 @@ def decays(name: str, p: torch.Tensor) -> bool:
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig,
-                 shardings: dict | None = None):
+                 shardings: dict | None = None, param_shardings: dict | None = None):
     """One AdamW step with global-norm clipping and bias corrections,
     in place. Returns (params, opt_state, metrics) with ``metrics`` the
     gradients' ``grad_norm`` (before clipping) and the step's ``lr``.
     ``shardings``: the moments' (``{name: Sharding}``); a gradient and the
     moments of a parameter they cut are this rank's blocks, and the
-    parameter (replicated) is all-gathered after its block's update."""
+    parameter (replicated) is all-gathered after its block's update, unless
+    ``param_shardings`` (the parameters' as held) cut it too: then the
+    parameter is that block, updated in place."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads, shardings)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
@@ -130,6 +134,8 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig,
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
     for name, p in params.items():
         sh = _cut(shardings, name)
+        if _cut(param_shardings, name) is not None:  # the parameter is this rank's block
+            sh = None
         blk = p if sh is None else sh.local(p)
         g = grads[name].float() * scale
         m, v = opt_state["m"][name], opt_state["v"][name]

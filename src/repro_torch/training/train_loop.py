@@ -27,8 +27,30 @@ rank updates its block of each parameter and all-gathers the parameters.
 The metrics are the global values, the same on every rank. A rank off the
 mesh takes no part: its state comes back as given, with the mesh's metrics.
 On a mesh of one rank the step is the one-rank step, bitwise. Tensor-parallel
-training (a ``"model"`` axis of more than one rank) and MoE training across
-ranks raise ``NotImplementedError`` (module item 5b).
+training (a ``"model"`` axis of more than one rank) raises
+``NotImplementedError`` (module item 5b).
+
+An MoE config trains across ranks by either of the reference's routes:
+
+* the global-batch router (``moe_ep_shardmap`` off): each MoE layer routes
+  the global batch (``models.moe.moe_ffn`` with the rows' axis: capacity,
+  positions, loads, the router state and ``dropped_frac`` are the
+  reference's under GSPMD, from collectives), with the whole expert weights
+  on every rank. The reference's layout cuts the experts' inner dim F over
+  "data" (FSDP); here the parameters stay whole, their moments cut by the
+  ZeRO-1 rules as any leaf's; holding them as blocks and gathering them a
+  layer at a time is left for later (ROADMAP.md, module item 5b);
+* the expert-parallel route (``moe_ep_shardmap`` with the mesh set, the
+  model placed by ``models.moe_ep.place_``): each rank holds E/n experts,
+  whose gradients are complete on their rank (the ``all_to_all``'s
+  backward) and are not summed; their moments are blocks of the same
+  layout, updated in place with no gather. Its batch must split over
+  "data".
+
+:func:`state_shardings` gives the layout a rank holds the state in, which
+:func:`shard_train_state` cuts and ``training.checkpoint`` gathers and
+restores. The load-balance loss of each rank is its term
+(``moe_aux_term``), whose sum over the ranks is the global one.
 """
 from __future__ import annotations
 
@@ -38,14 +60,14 @@ import torch
 
 from ..device import resolve_device
 from ..distributed import sharding as shd
-from ..distributed.context import SOLO, get_mesh, psum, psum_scatter, require_one_rank
+from ..distributed.context import SOLO, get_mesh, psum, psum_scatter, set_mesh
 from ..models import model_zoo
 from ..models.moe import init_router_state
 from .compression import compress_grads, init_error_state
 from .optimizer import OptConfig, adamw_update, init_opt_state
 
 __all__ = ["TrainConfig", "make_loss_fn", "make_train_step", "init_train_state",
-           "shard_train_state"]
+           "shard_train_state", "state_shardings"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +98,7 @@ def _loss_fn(cfg, tcfg: TrainConfig, ops, axis):
 
     def loss_fn(model, batch, router_state):
         logits, aux = model_zoo.forward(model, cfg, batch, router_state, ops=ops,
-                                        remat=tcfg.remat)
+                                        remat=tcfg.remat, axis=axis)
         labels = batch["labels"]
         logits32 = logits.float()
         valid = labels >= 0
@@ -94,7 +116,8 @@ def _loss_fn(cfg, tcfg: TrainConfig, ops, axis):
             loss = loss + tcfg.z_loss * (torch.sum(torch.square(logz) * valid)
                                          / (valid.numel() * axis.size))
         if cfg.moe:
-            loss = loss + tcfg.moe_aux_weight * aux["moe_aux_loss"] / max(cfg.n_layers, 1)
+            # this rank's term of the global load-balance loss
+            loss = loss + tcfg.moe_aux_weight * aux["moe_aux_term"] / max(cfg.n_layers, 1)
         metrics = dict(loss=loss.detach(), ce=(ce.sum() / ntok).detach(), ntok=ntok,
                        moe_aux=aux["moe_aux_loss"].detach())
         return loss, (metrics, aux["router_state"])
@@ -120,17 +143,41 @@ def _split_microbatches(batch, n):
     return [{k: a[i::n] for k, a in batch.items()} for i in range(n)]
 
 
+#: the expert leaves' blocks under the expert-parallel route (``moe_ep.place_``'s cuts)
+_EXPERT_BLOCKS = {"w_gate": ("data", None, "model"), "w_up": ("data", None, "model"),
+                  "w_down": ("data", "model", None)}
+
+
+def state_shardings(cfg, mesh, tcfg: TrainConfig) -> dict:
+    """The layout a rank holds the training state in on an ``(n, 1)``
+    ``mesh``, in ``distributed.sharding.train_state_shardings``'s tree: the
+    parameters whole, but under the expert-parallel route
+    (``cfg.moe_ep_shardmap``) the experts' ``w_gate``, ``w_up`` and
+    ``w_down``, which are this rank's blocks of E/n experts; the moments
+    (and the compression's ``err``) by ``train_state_shardings``'s (ZeRO-1)
+    specs, those expert leaves' as their parameters' blocks. For a dense
+    config this is ``train_state_shardings``."""
+    out = shd.train_state_shardings(cfg, mesh, tcfg)
+    whole = shd.Sharding(mesh, shd.PartitionSpec())
+    out["params"] = {n: whole for n in out["params"]}
+    if cfg.moe and cfg.moe_ep_shardmap:
+        for n in out["params"]:
+            owner, _, leaf = n.rpartition(".")
+            if owner.endswith(".moe") and leaf in _EXPERT_BLOCKS:
+                blk = shd.Sharding(mesh, shd.PartitionSpec(*_EXPERT_BLOCKS[leaf]))
+                out["params"][n] = out["opt"]["m"][n] = out["opt"]["v"][n] = blk
+                if "err" in out:
+                    out["err"][n] = blk
+    return out
+
+
 def shard_train_state(state: dict, shardings: dict) -> dict:
     """The counterpart of ``jax.device_put(state, shardings)`` with
-    ``shardings = distributed.sharding.train_state_shardings(cfg, mesh,
-    tcfg)``: AdamW's moments ``m`` and ``v`` (and the compression's
-    ``err``) replaced by this rank's blocks, new tensors; the parameters
-    stay replicated. In place; returns ``state``."""
-    for n, sh in shardings["params"].items():
-        if not sh.replicated:
-            raise NotImplementedError(
-                f"parameter {n} is cut over {sh.spec}: tensor- and expert-parallel training are "
-                "not ported yet (ROADMAP.md, section 1, module item 5b)")
+    ``shardings = state_shardings(cfg, mesh, tcfg)``: AdamW's moments ``m``
+    and ``v`` (and the compression's ``err``), made at the parameters' whole
+    shapes, replaced by this rank's blocks, new tensors. The parameters are
+    left as they are: whole, or under the expert-parallel route the blocks
+    ``models.moe_ep.place_`` cut. In place; returns ``state``."""
 
     def cut(tree, sh):
         return {n: sh[n].local(t).clone() for n, t in tree.items()}
@@ -142,11 +189,8 @@ def shard_train_state(state: dict, shardings: dict) -> dict:
     return state
 
 
-def _check_mesh(cfg, mesh) -> None:
+def _check_mesh(mesh) -> None:
     """Raise for what data-parallel training does not cover yet."""
-    if cfg.moe:
-        require_one_rank("make_train_step of an MoE config (its router's capacity, positions, "
-                         "loads and state are sums over the global batch)")
     if mesh is None:
         return
     other = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
@@ -159,34 +203,46 @@ def _check_mesh(cfg, mesh) -> None:
 class _Layout:
     """Where a data-parallel step's gradients go: ``grad`` the shardings of
     ``grad_specs`` (None without them), ``moment`` the moments' (the blocks
-    the optimizer updates)."""
+    the optimizer updates), ``params`` the parameters' as held
+    (:func:`state_shardings`), ``owned`` the parameters that are this
+    rank's blocks (the expert-parallel route's experts)."""
 
     def __init__(self, cfg, tcfg, mesh, grad_specs):
         self.mesh = mesh
         self.data = mesh.axis("data")
-        self.moment = shd.train_state_shardings(cfg, mesh, tcfg)["opt"]["m"]
+        held = state_shardings(cfg, mesh, tcfg)
+        self.moment, self.params = held["opt"]["m"], held["params"]
+        self.owned = {n for n, sh in self.params.items() if not sh.replicated}
         self.grad = None if grad_specs is None else shd.named(mesh, grad_specs)
 
     def rows(self, batch: dict):
         """(this rank's rows of ``batch``, the axis the rest lie on); the
         whole batch and a world of one when its rows do not split."""
         if shd._batch_dim_spec(self.mesh, next(iter(batch.values())).shape[0]) is None:
+            if self.owned:
+                raise ValueError(
+                    f"the expert-parallel route trains on a batch whose rows split over the "
+                    f"{self.data.size} ranks of 'data'; this one has "
+                    f"{next(iter(batch.values())).shape[0]}")
             return batch, SOLO
         sh = shd.batch_shardings(batch, self.mesh)
         return {k: sh[k].local(a) for k, a in batch.items()}, self.data
 
     def check(self, params: dict, opt: dict) -> None:
         for n, p in params.items():
-            want = tuple(self.moment[n].local(p).shape)
+            want = tuple(p.shape if n in self.owned else self.moment[n].local(p).shape)
             if tuple(opt["m"][n].shape) != want:
                 raise ValueError(f"the moments of {n} are {tuple(opt['m'][n].shape)}, this "
                                  f"rank's block is {want}: cut the state with "
-                                 "shard_train_state(state, train_state_shardings(...)) first")
+                                 "shard_train_state(state, state_shardings(...)) first")
 
     def reduce(self, name: str, summed, whole):
         """The gradient of ``name`` in the moments' layout, from ``summed``
         (this rank's rows' gradient, to sum over "data") and ``whole`` (the
-        global gradient of rows every rank ran), either None."""
+        global gradient of rows every rank ran), either None. An owned
+        block's gradient is complete on this rank."""
+        if name in self.owned:
+            return summed
         g_sh, m_sh = None if self.grad is None else self.grad[name], self.moment[name]
         g, blk = None, None
         if summed is not None:
@@ -205,17 +261,18 @@ class _Layout:
 
 
 def make_train_step(cfg, tcfg: TrainConfig, grad_specs=None, *, ops=None):
-    """``train_step(state, batch) -> (state, metrics)``; ``metrics``: loss,
-    ce, ntok, moe_aux (of the last microbatch), grad_norm, lr. With
-    ``microbatches`` n > 1 the batch is split as ``a[i::n]``, the gradients
-    accumulated in float32 and averaged, the router state threaded through
+    """``train_step(state, batch) -> (state, metrics)``, which runs under the
+    model mesh ambient when it was made (``distributed.set_mesh``);
+    ``metrics``: loss, ce, ntok, moe_aux (of the last microbatch), grad_norm,
+    lr. With ``microbatches`` n > 1 the batch is split as ``a[i::n]``, the
+    gradients accumulated in float32 and averaged, the router state threaded through
     the microbatches, and the loss the mean of theirs. Under the ambient
     model mesh the step is data-parallel (see the module's docstring): each
     microbatch of the global batch is cut into the ranks' rows, and
     ``grad_specs`` (``{name: PartitionSpec}``) reduce-scatters the
     gradients of the leaves it cuts over "data"."""
     mesh = get_mesh()
-    _check_mesh(cfg, mesh)
+    _check_mesh(mesh)
     layout = (None if mesh is None or not mesh.member or mesh.shape["data"] == 1
               else _Layout(cfg, tcfg, mesh, grad_specs))
     loss_whole = make_loss_fn(cfg, tcfg, ops=ops)
@@ -229,6 +286,16 @@ def make_train_step(cfg, tcfg: TrainConfig, grad_specs=None, *, ops=None):
         return loss.detach(), metrics, dict(zip((n for n, _ in names), grads)), rs
 
     def train_step(state, batch):
+        # the MoE blocks read the ambient mesh as they run: the step's, which remat's
+        # re-runs in the backward pass see too
+        outer = get_mesh()
+        set_mesh(mesh)
+        try:
+            return step_under_mesh(state, batch)
+        finally:
+            set_mesh(outer)
+
+    def step_under_mesh(state, batch):
         if mesh is not None and not mesh.member:
             return state, mesh.share(None)
         model = state["params"]
@@ -278,7 +345,8 @@ def make_train_step(cfg, tcfg: TrainConfig, grad_specs=None, *, ops=None):
         if tcfg.grad_compression:
             grads, state["err"] = compress_grads(grads, state["err"], moment)
         _, state["opt"], opt_metrics = adamw_update(dict(names), grads, state["opt"], tcfg.opt,
-                                                    moment)
+                                                    moment, None if layout is None
+                                                    else layout.params)
         metrics.update(opt_metrics)
         state["router_state"] = rs
         if mesh is not None and mesh.idle:  # the ranks off the mesh take rank 0's metrics

@@ -28,8 +28,9 @@ runs every case through ``examples/torch_train_dp.py``'s rank functions:
   the sequential application in JAX, within 1e-5.
 
 In this process: a 1x1 mesh (ZeRO-1, ``grad_specs``) is the meshless step
-bitwise; a ``"model"`` axis of more than one rank and MoE training across
-ranks raise ``NotImplementedError`` naming module item 5b.
+bitwise; a ``"model"`` axis of more than one rank raises
+``NotImplementedError`` naming module item 5b, for a dense config and an
+MoE one (MoE training on ``(n, 1)`` meshes: ``tests/test_torch_moe_train.py``).
 """
 import filecmp
 import sys
@@ -319,16 +320,16 @@ def test_one_by_one_mesh_is_the_meshless_step_bitwise(tkw):
     assert all(torch.equal(ma[k], mb[k]) for k in ma)
 
 
-def test_tensor_parallel_and_moe_across_ranks_raise(monkeypatch):
-    cfg = get_config("stablelm_3b").reduced()
-    set_mesh(ModelMesh((("data", Axis(None, 2, 0)), ("model", Axis(None, 2, 0)))))
-    try:
-        with pytest.raises(NotImplementedError, match="module item 5b"):
-            ptl.make_train_step(cfg, ptl.TrainConfig())
-    finally:
-        set_mesh(None)
-    moe = get_config("granite_moe_1b").reduced()
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 4)
-    with pytest.raises(NotImplementedError, match="module item 5b"):
-        ptl.make_train_step(moe, ptl.TrainConfig())
+def test_tensor_parallel_and_moe_across_ranks_raise():
+    """A ``"model"`` axis of more than one rank raises naming module item
+    5b, for a dense config and for an MoE config (whose ``(n, 1)`` training
+    ``tests/test_torch_moe_train.py`` holds)."""
+    mesh = ModelMesh((("data", Axis(None, 2, 0)), ("model", Axis(None, 2, 0))))
+    for cfg in (get_config("stablelm_3b").reduced(), get_config("granite_moe_1b").reduced(),
+                get_config("granite_moe_1b").reduced().with_(moe_ep_shardmap=True)):
+        set_mesh(mesh)
+        try:
+            with pytest.raises(NotImplementedError, match="module item 5b"):
+                ptl.make_train_step(cfg, ptl.TrainConfig())
+        finally:
+            set_mesh(None)

@@ -42,7 +42,11 @@ matches its arithmetic stated in plain PyTorch within 1e-2 and raises on a
 misaligned pointer or stride; the kernel runs under
 ``kernels.ops.flash_attention``'s autograd, and a reduced train step's gradients on the kernel route match the
 plain route within 1e-4, and on a 1x1 model mesh (ZeRO-1 moments,
-``grad_specs``) two steps equal the meshless steps bitwise;
+``grad_specs``) two steps equal the meshless steps bitwise; a reduced
+MoE train step (granite-moe-1b's reduction, drops) on the card equals its
+run on the CPU in each layer's selections, keep masks, loads and dropped
+fractions and its router state, the loss within rel 1e-5, and gains
+granite-moe-1b among the kernel-route against plain-route steps;
 ``ssd_intra_chunk`` raises when a CUDA input requires grad (no SSD
 backward kernel yet). The sharded cohort-fused scan
 takes the slot kernel on a one-rank NCCL world, bitwise the dense port on
@@ -703,7 +707,7 @@ def test_ssd_intra_chunk_raises_when_a_cuda_input_requires_grad(cuda_device):
     assert y.shape == xc.shape and states.shape == (b, nc, H, P, S)
 
 
-@pytest.mark.parametrize("arch", ["internvl2_1b", "hubert_xlarge"])
+@pytest.mark.parametrize("arch", ["internvl2_1b", "hubert_xlarge", "granite_moe_1b"])
 def test_train_step_kernel_route_matches_plain_route(cuda_device, arch):
     """One reduced float32 train step's loss and gradients on the card, the
     kernel route (flash attention and its backward kernel) against the
@@ -733,6 +737,50 @@ def test_train_step_kernel_route_matches_plain_route(cuda_device, arch):
     assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
     for a, b in zip(gk, gp):
         assert _scale_gap(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("router", ["topk", "potus"])
+def test_moe_train_step_card_equals_cpu(cuda_device, router):
+    """A reduced float32 MoE train step (granite-moe-1b's reduction with 8
+    experts, capacity factor 0.5: drops) on the card against the same step on
+    the CPU from the same weights and router state: each MoE layer's
+    selections, keep mask, load and ``dropped_frac`` equal in the forward,
+    the loss and grad norm within rel 1e-5 and the router state equal after
+    the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.specs import make_batch
+    from repro_torch.models import model_zoo as pz
+    from repro_torch.training import train_loop as ptl
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = get_config("granite_moe_1b").reduced().with_(n_experts=8, capacity_factor=0.5,
+                                                       router=router)
+    tcfg = ptl.TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+    cpu = torch.device("cpu")
+    weights = ptl.init_train_state(cfg, tcfg, torch.Generator().manual_seed(0), cpu)
+    weights = {n: p.detach() for n, p in weights["params"].named_parameters()}
+    batch = make_batch(np.random.default_rng(0), cfg, 4, 64, device=cpu)
+    runs = {}
+    for device in (cpu, cuda_device):
+        gen = torch.Generator(device).manual_seed(1)
+        state = ptl.init_train_state(cfg, tcfg, gen, device)
+        state["params"].load_state_dict(weights)
+        state["router_state"] = torch.arange(8, dtype=torch.float32, device=device) * 0.5
+        on = {k: v.to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            _, aux = pz.forward(state["params"], cfg, on, state["router_state"])
+        layers = [{k: a[k].cpu() for k in ("top_i", "keep", "load", "dropped_frac")}
+                  for a in aux["moe_layers"]]
+        state, met = ptl.make_train_step(cfg, tcfg)(state, on)
+        runs[device.type] = (layers, {k: float(v) for k, v in met.items()},
+                             state["router_state"].cpu())
+    (lc, mc, rc), (lg, mg, rg) = runs["cpu"], runs["cuda"]
+    assert any(float(layer["dropped_frac"]) > 0 for layer in lc)
+    for a, b in zip(lg, lc):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    for key in ("loss", "grad_norm", "moe_aux"):
+        assert abs(mg[key] - mc[key]) <= 1e-5 * abs(mc[key]), key
+    assert torch.equal(rg, rc)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
