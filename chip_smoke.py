@@ -148,8 +148,8 @@ I=16384 serving fleet, counting the kernel launches of each:
 * phase Q, MoE training across ranks (``models/moe.py``'s global-batch
   router and ``models/moe_ep.py``'s expert-parallel route under
   ``make_train_step``; no kernel of its own): Q1 one NCCL rank in this
-  process, granite-moe-1b at full width and depth (24 layers, 32 experts,
-  top-8, capacity factor 1.25) in bf16 on phase M's batch, two steps on a
+  process, granite-moe-1b at full width (32 experts, top-8, capacity
+  factor 1.25), 8 of its 24 layers, in bf16 on phase M's batch, two steps on a
   1x1 mesh bitwise the meshless steps, kernels 5 and 5b once
   per layer a step, then the kernel route against the plain route at 2
   layers in f32 (within 1e-4); Q2 four gloo ranks sharing the card on a
@@ -161,7 +161,19 @@ I=16384 serving fleet, counting the kernel launches of each:
   equal, the parameters within the ``_param_bound`` rule, the moment
   blocks within 1e-5 of scale), the expert-parallel state saved across the
   ranks and restored onto one rank bitwise. Q1 and Q2's references run
-  after P1, Q2 in phase N's world after P2 and P3.
+  after P1, Q2 in phase N's world after P2 and P3;
+* phase R, tensor-parallel training of the dense decoder
+  (``make_train_step`` on a ``"model"`` axis above 1; no kernel of its
+  own): kernels 5 and 5b alone at the ranks' shapes (f32, 8 and 16 heads
+  of 80, S=512) against their plain versions; R1 stablelm-3b at full
+  width, 2 of its 32 layers, f32, one step without a mesh in this process
+  on a global batch of 4 x 512; R2 four gloo ranks sharing the card on a
+  (1, 4) mesh and R3 on a (2, 2) mesh (ZeRO-1 moments over both axes),
+  one step each against R1 (loss and grad norm within rel 1e-5, each
+  rank's parameter blocks within the ``_param_bound`` rule, its moment
+  blocks within 1e-4 of scale, replicated parameters and gradients the
+  same on the ranks), kernels 5 and 5b once per layer a step on every rank
+  on its heads. R1 runs after Q1, R2 and R3 in phase N's world after Q2.
 
 It checks the results and prints:
 
@@ -217,6 +229,10 @@ It checks the results and prints:
   top device items; per Q2 route each rank's step wall ms, share in
   collectives and elements by tag (``"moe"``, ``"ep"``, ``"dp"``) beside
   the one-rank step's, and the checkpoint's save and restore seconds;
+* for phase R, kernels 5 and 5b's event ms per call at the ranks' shapes,
+  R1's step wall ms, and per mesh each rank's step wall ms, share in
+  collectives, the collectives' seconds and elements by tag (``"tp"``,
+  ``"dp"``) beside R1's;
 * one JSON line ``{"kernels": [...]}`` (eight kernels: the seven TPU
   kernels' counterparts and the flash attention backward; the slot
   kernel's row carries its batched entry under ``"batched"`` and its
@@ -230,7 +246,8 @@ It checks the results and prints:
   launches on rank 0's P2 steps under ``"dp_launches"``, row 5 its P3
   launches under ``"pipeline_launches"``, rows 5 and 5b their launches on
   Q1's meshless steps under ``"moe_train_launches"`` and on rank 0's Q2
-  steps under ``"moe_dp_launches"``, the backward's row its
+  steps under ``"moe_dp_launches"``, and a step's on rank 0 of each phase R
+  mesh under ``"tp_launches"``, the backward's row its
   M3 launches under ``"encoder_launches"``, its route under
   ``"kernel_route"`` and its passes' ms under ``"passes_ms"``), then, last,
   ``{"ok": true, "device": {...}}``.
@@ -4746,7 +4763,7 @@ def timed_step(step, state, batch):
     wall = time.perf_counter() - t0
     return state, dict(metrics={k: float(v) for k, v in met.items()}, wall_s=wall,
                        elements=PAYLOAD.n("dp"), tags=dict(PAYLOAD.elements),
-                       collective_s=PAYLOAD.seconds,
+                       collective_s=PAYLOAD.seconds, tag_seconds=dict(PAYLOAD.tag_seconds),
                        calls=PAYLOAD.calls, launches=read_counts())
 
 
@@ -4861,25 +4878,29 @@ def dp_gaps(state, ref_path, shardings, b1, device):
     largest excess of a parameter's gap over the ``_param_bound`` rule of
     ``tests/test_torch_training.py`` (the gradient within 1e-4 of its
     leaf's scale; the bound is invariant to the gradient's scale, so the
-    reference's first moment stands for it), and the largest gap of a
-    moment block to the reference's block, of the reference moment's scale."""
+    reference's first moment stands for it), the largest gap of a
+    parameter (block) to the reference's, of the reference parameter's
+    scale, and the largest gap of a moment block to the reference's block,
+    of the reference moment's scale."""
     import torch
 
     ref = torch.load(ref_path, mmap=True, weights_only=True)
     lr = ref["lr"]
-    excess, m_gap = -float("inf"), 0.0
+    excess, m_gap, p_gap = -float("inf"), 0.0, 0.0
     for n, p in state["params"].named_parameters():
         w, m_ref = ref["params"][n].to(device), ref["m"][n].to(device)
         g = m_ref / (1 - b1)
         delta = 1e-4 * g.abs().max()
         bound = lr * torch.clamp(4 * delta / g.abs().clamp_min(1e-30), max=2.0) + 2e-7
-        held = shardings["params"][n]  # an expert-parallel rank's experts are its blocks
-        excess = max(excess, float(((p.detach() - held.local(w)).abs()
-                                    - held.local(bound)).max()))
+        # an expert-parallel rank's experts and a tensor-parallel rank's cut leaves are blocks
+        held = shardings["params"][n]
+        gap = (p.detach() - held.local(w)).abs()
+        excess = max(excess, float((gap - held.local(bound)).max()))
+        p_gap = max(p_gap, float(gap.max()) / max(float(w.abs().max()), 1e-30))
         blk = shardings["opt"]["m"][n].local(m_ref)
         m_gap = max(m_gap, float((state["opt"]["m"][n] - blk).abs().max())
                     / max(float(m_ref.abs().max()), 1e-30))
-    return dict(param_excess=excess, m_gap=m_gap)
+    return dict(param_excess=excess, m_gap=m_gap, param_gap=p_gap)
 
 
 def p2_rank(tmp, device):
@@ -5129,13 +5150,14 @@ def dp_train_path(card, cuda, prepared=None, world=None):
 # ---------------------------------------------------------------------------
 
 # granite-moe-1b, its published config (32 experts, top-8, capacity factor 1.25): Q1 one NCCL
-# rank at full width and depth in bf16 on phase M's batch (TRAIN_B x TRAIN_S), MOE_TRAIN_STEPS
-# steps on a 1x1 mesh against no mesh, then one step each in turns; Q2 four gloo
+# rank at full width in bf16 on phase M's batch (TRAIN_B x TRAIN_S), cut to MOE_TRAIN_LAYERS of
+# its 24 layers (from all 24, to make room for phase R: its checks do not depend on the depth),
+# MOE_TRAIN_STEPS steps on a 1x1 mesh against no mesh, then one step each in turns; Q2 four gloo
 # ranks sharing the card in phase N's world, full width cut to MOE_DP_LAYERS of 24 layers, f32,
 # a global batch of MOE_DP_B x MOE_DP_S on a 4x1 mesh, one step by each route against the
 # one-rank step on the card: route (a) at the config's capacity factor (drops happen), route
 # (b) at 4.0 (cap >= N: nothing drops at either stage)
-MOE_TRAIN_ARCH, MOE_TRAIN_STEPS = "granite_moe_1b", 2
+MOE_TRAIN_ARCH, MOE_TRAIN_STEPS, MOE_TRAIN_LAYERS = "granite_moe_1b", 2, 8
 MOE_DP_LAYERS, MOE_DP_B, MOE_DP_S, MOE_DP_TIMEOUT_S = 2, 8, 256, 240
 MOE_DP_ROUTES = {"a": (False, None), "b": (True, 4.0)}  # (moe_ep_shardmap, capacity factor)
 
@@ -5169,8 +5191,9 @@ def moe_layers(cfg, state, batch, axis=None):
 
 def moe_one_rank(card, cuda):
     """Q1: one NCCL rank in this process, ``MOE_TRAIN_ARCH`` at full width
-    and depth in bf16 on phase M's batch: ``MOE_TRAIN_STEPS`` steps on a 1x1
-    mesh against the same steps without a mesh, bitwise (the global-batch
+    and ``MOE_TRAIN_LAYERS`` layers in bf16 on phase M's batch:
+    ``MOE_TRAIN_STEPS`` steps on a 1x1 mesh against the same steps without
+    a mesh, bitwise (the global-batch
     router; the expert-parallel route's 1x1 mesh is held on the CPU, in
     ``tests/test_torch_moe_train.py``), kernels 5 and 5b once per layer a
     step; one step of each timed in turns; the peak device memory, each layer's
@@ -5183,7 +5206,7 @@ def moe_one_rank(card, cuda):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.training import checkpoint as ck
 
-    cfg, tcfg = moe_train_cfg("bfloat16"), dp_tcfg()
+    cfg, tcfg = moe_train_cfg("bfloat16", MOE_TRAIN_LAYERS), dp_tcfg()
     batch = dp_batch(cfg, TRAIN_B, cuda)
     want = dict(ZERO_COUNTS, flash_attention=cfg.n_layers, flash_attention_bwd=cfg.n_layers)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
@@ -5222,8 +5245,8 @@ def moe_one_rank(card, cuda):
     n_params = sum(p.numel() for p in state["params"].parameters())
     print(f"Q1 one {backend} rank, {cfg.name} d_model {cfg.d_model}, {cfg.n_experts} experts of "
           f"d_ff {cfg.d_ff}, top-{cfg.top_k}, capacity factor {cfg.capacity_factor}, "
-          f"{cfg.n_layers} layers, bf16, {n_params} parameters, batch {TRAIN_B} x {TRAIN_S}: "
-          f"{MOE_TRAIN_STEPS} steps on a 1x1 mesh = the steps without a mesh bitwise: "
+          f"{cfg.n_layers} of 24 layers, bf16, {n_params} parameters, batch {TRAIN_B} x "
+          f"{TRAIN_S}: {MOE_TRAIN_STEPS} steps on a 1x1 mesh = the steps without a mesh bitwise: "
           + ", ".join(f"{k} {v}" for k, v in same.items()) + "; losses "
           + ", ".join(f"{st['metrics']['loss']:.6f}" for st in stats) + "; moe_aux "
           + ", ".join(f"{st['metrics']['moe_aux']:.6f}" for st in stats)
@@ -5468,6 +5491,254 @@ def moe_train_path(card, cuda, prepared=None, world=None):
             for k in ("flash_attention", "flash_attention_bwd")}
 
 
+# ---------------------------------------------------------------------------
+# phase R: tensor-parallel training of the dense decoder (make_train_step on a "model"
+# axis above 1: models/common.py's Megatron layout, distributed.copy_to/reduce_from, the
+# vocabulary-cut loss)
+# ---------------------------------------------------------------------------
+
+# stablelm-3b at full width (d_model 2560, 32 heads of 80, d_ff 6912, vocab 50304), cut to
+# TP_LAYERS of its 32 layers, f32, one step on a global batch of TP_B x TP_S: R1 one rank
+# without a mesh in this process, the reference; R2 four gloo ranks sharing the card on a
+# (1, 4) mesh, R3 on a (2, 2) mesh with ZeRO-1 moments over both axes and grad_specs, both in
+# phase N's world after Q2
+TP_ARCH, TP_LAYERS, TP_B, TP_S, TP_TIMEOUT_S = "stablelm_3b", 2, 4, 512, 300
+TP_MESHES = {"R2": (1, 4), "R3": (2, 2)}
+# the CPU tests' bounds (tests/test_torch_tp_train.py): loss and grad norm rel 1e-5, each
+# moment block within 1e-4 of the reference moment's scale
+TP_MOMENT_TOL = 1e-4
+
+
+def tp_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config(TP_ARCH).with_(n_layers=TP_LAYERS, param_dtype="float32",
+                                     compute_dtype="float32")
+
+
+def tp_kernel_checks(card, cuda):
+    """Kernels 5 and 5b alone at each R mesh's per-rank shapes (the rank's
+    rows of the global batch, its n_heads/m heads of 80, S = ``TP_S``,
+    causal, f32: the SIMT routes) against their plain versions on the card:
+    the output and dQ, dK, dV within ``ATT_TOL`` of scale; each call's
+    event ms beside the plain version's, SDPA's (forward, and backward) and
+    the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as kf
+
+    cfg = tp_cfg()
+    for label, (n_data, n_model) in TP_MESHES.items():
+        B, H, D = TP_B // n_data, cfg.n_heads // n_model, cfg.resolved_head_dim
+        g = torch.Generator(device=cuda).manual_seed(H)
+        q, k, v, dout = (torch.randn((B, H, TP_S, D), generator=g, device=cuda)
+                         for _ in range(4))
+        name = f"{label} kernels at a rank's shapes (B {B}, {H} heads of {D}, S {TP_S}, f32)"
+        fwd_err = attention_close(f"{name}: flash_attention",
+                                  kf.flash_attention_call(q, k, v, True),
+                                  kf.flash_attention_plain(q, k, v, True), "float32")
+        got = kf.flash_attention_bwd_call(q, k, v, dout, True)
+        want = kf.flash_attention_bwd_plain(q, k, v, dout, True)
+        gaps = [float((a - w).abs().max()) / float(w.abs().max()) for a, w in zip(got, want)]
+        check(max(gaps) <= ATT_TOL["float32"],
+              f"{name}: flash_attention_bwd beyond {ATT_TOL['float32']} of scale: {gaps}")
+        fwd = {"kernel": partial(kf.flash_attention_call, q, k, v, True),
+               "plain": partial(kf.flash_attention_plain, q, k, v, True),
+               "SDPA": partial(library_sdpa, q, k, v, is_causal=True)}
+        bwd = {"kernel": partial(kf.flash_attention_bwd_call, q, k, v, dout, True),
+               "plain": partial(kf.flash_attention_bwd_plain, q, k, v, dout, True),
+               "SDPA": library_sdpa_backward(q, k, v, dout, True)}
+        fwd_ms = {w: time_calls(fn, 5 if w != "plain" else 2) for w, fn in fwd.items()}
+        bwd_ms = {w: time_calls(fn, 5 if w != "plain" else 2) for w, fn in bwd.items()}
+        fwd_bound = attention_bound((2 * q.numel() + k.numel() + v.numel()) * 4,
+                                    4 * B * H * D * TP_S * TP_S // 2, torch.float32)
+        *_, bwd_bound_ms, bwd_bound_by = bwd_bound(B, H, H, TP_S, D, True, torch.float32)
+        print(f"{name}: flash_attention max_abs_err {fwd_err:.3e} (limit "
+              f"{ATT_TOL['float32']}), event ms per call "
+              + ", ".join(f"{w} {t:.4f}" for w, t in fwd_ms.items())
+              + f", bound {fwd_bound[0]:.4f} ({fwd_bound[1]}); flash_attention_bwd dq/dk/dv gap "
+              f"of scale {gaps[0]:.3e}/{gaps[1]:.3e}/{gaps[2]:.3e} (limit "
+              f"{ATT_TOL['float32']}), event ms per call "
+              + ", ".join(f"{w} {t:.4f}" for w, t in bwd_ms.items())
+              + f", bound {bwd_bound_ms:.4f} ({bwd_bound_by}) [{card}]")
+        del q, k, v, dout, got, want, fwd, bwd
+        torch.cuda.empty_cache()
+
+
+def tp_reference(card, cuda, tmp):
+    """R1: the one-rank f32 step without a mesh on the card from the seed and
+    global batch R2's and R3's ranks use; writes the parameters and the
+    first moments after it to ``tmp/tp_reference.pt`` for the ranks.
+    Returns its stats."""
+    import torch
+
+    cfg, tcfg = tp_cfg(), dp_tcfg()
+    state, step = dp_stepper(cfg, tcfg, None, cuda)
+    batch = dp_batch(cfg, TP_B, cuda, TP_S)
+    state, st = timed_step(step, state, batch)
+    torch.save({"params": {n: p.detach().cpu() for n, p in state["params"].named_parameters()},
+                "m": {n: t.cpu() for n, t in state["opt"]["m"].items()},
+                "lr": st["metrics"]["lr"]}, Path(tmp) / "tp_reference.pt")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    want = dict(ZERO_COUNTS, flash_attention=TP_LAYERS, flash_attention_bwd=TP_LAYERS)
+    check(st["launches"] == want, f"R1 launches {st['launches']}")
+    print(f"R1 one rank, {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {TP_LAYERS} of 32 "
+          f"layers f32, {n_params} parameters, global batch {TP_B} x {TP_S}: step wall "
+          f"{st['wall_s'] * 1e3:.2f} ms, loss {st['metrics']['loss']:.6f}, grad norm "
+          f"{st['metrics']['grad_norm']:.6f}; launches flash_attention={TP_LAYERS} "
+          f"flash_attention_bwd={TP_LAYERS} [{card}]")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return st
+
+
+def r_rank(tmp, device):
+    """One rank of R2 and R3: for each mesh of ``TP_MESHES``, the state cut to
+    this rank's blocks (``dp_stepper``: the model-cut parameters and the
+    moments), one step timed and counted with its collectives' seconds by
+    tag, the gaps against R1 (``dp_gaps``) and the fingerprints of this
+    rank's leaves."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import train_loop as ptl
+
+    out = {}
+    for label, shape in TP_MESHES.items():
+        t0 = time.perf_counter()
+        cfg, tcfg = tp_cfg(), dp_tcfg()
+        mesh = make_host_mesh(*shape)
+        held = ptl.state_shardings(cfg, mesh, tcfg)
+        state, step = dp_stepper(cfg, tcfg, mesh, device)
+        batch = dp_batch(cfg, TP_B, device, TP_S)
+        r = dict(setup_s=time.perf_counter() - t0, coords=(mesh.axis("data").index,
+                                                           mesh.axis("model").index))
+        state, r["step"] = timed_step(step, state, batch)
+        r["gaps"] = dp_gaps(state, Path(tmp) / "tp_reference.pt", held, tcfg.opt.b1, device)
+        r["prints"] = leaf_prints(state)
+        r["model_cut"] = sorted(
+            f"{tree}/{n}" for tree, shs in (("params", held["params"]),
+                                            ("opt/m", held["opt"]["m"]))
+            for n, sh in shs.items() if any("model" in a for _, a in sh.cuts()))
+        r["wall_s"] = time.perf_counter() - t0
+        out[label] = r
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_prepare(card, cuda):
+    """Phase R's parts in this process before the world of ranks: kernels 5
+    and 5b at R's per-rank shapes, and R1 in a temporary directory.
+    Returns (the directory, R1's stats)."""
+    t0 = time.perf_counter()
+    tp_kernel_checks(card, cuda)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    ref = tp_reference(card, cuda, tmp)
+    print(f"  R's kernel checks and R1 {time.perf_counter() - t0:.1f} s [{card}]")
+    return tmp, ref
+
+
+def tp_world_calls(cuda, prepared):
+    """R2's and R3's call for each rank of a world of ``DP_RANKS`` gloo ranks
+    sharing the card (``spawn_world(call_each, ...)``)."""
+    return [(r_rank, (prepared[0], str(cuda)), {})]
+
+
+def tp_train_path(card, cuda, prepared=None, world=None):
+    """Phase R, tensor-parallel training of the dense decoder
+    (``make_train_step`` on a ``"model"`` axis above 1): kernels 5 and 5b at
+    the ranks' shapes and R1 (:func:`tp_prepare`); R2 four gloo ranks
+    sharing the card on a (1, 4) mesh and R3 on a (2, 2) mesh with ZeRO-1,
+    ``TP_ARCH`` at full width, ``TP_LAYERS`` layers, f32, one step each on
+    R1's global batch: loss and grad norm within rel 1e-5 of R1 and the same
+    on every rank, the parameters (each rank's blocks) within the
+    ``_param_bound`` rule and their largest gap over scale, each rank's
+    moment blocks within ``TP_MOMENT_TOL`` of scale, every replicated
+    parameter the same on every rank and every moment block of a leaf that
+    "model" does not cut the same on a data row's model ranks, kernels 5 and
+    5b once per layer a step on every rank on the rank's heads, the step
+    walls and the collectives' seconds by tag. ``prepared``:
+    :func:`tp_prepare`'s result, ``world``: each rank's results of
+    :func:`tp_world_calls` where another phase's world ran them (phase N's,
+    in a whole run); else they run here. Callable alone after
+    ``card_setup`` and ``build_kernels`` (kernels 5 and 5b). Returns rank
+    0's launches of kernels 5 and 5b a step, by mesh."""
+    import shutil
+
+    from repro_torch.distributed import call_each, spawn_world
+
+    t_phase = time.perf_counter()
+    if prepared is None:
+        prepared = tp_prepare(card, cuda)
+    tmp, ref = prepared
+    try:
+        if world is None:
+            t0 = time.perf_counter()
+            world = spawn_world(call_each, DP_RANKS, "gloo", TP_TIMEOUT_S,
+                                (tp_world_calls(cuda, prepared),))
+            print(f"  R2 and R3 in a world of their own, {time.perf_counter() - t0:.1f} s "
+                  f"[{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rr = [w[0] for w in world]
+    cfg = tp_cfg()
+    want = dict(ZERO_COUNTS, flash_attention=TP_LAYERS, flash_attention_bwd=TP_LAYERS)
+    launches = {}
+    for label, (n_data, n_model) in TP_MESHES.items():
+        outs = [out[label] for out in rr]
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        for r, out in enumerate(outs):
+            st = out["step"]
+            check(st["launches"] == want, f"{label} rank {r}: launches {st['launches']}")
+            check(st["metrics"] == outs[0]["step"]["metrics"],
+                  f"{label}: rank {r}'s metrics differ from rank 0's")
+            for key in worst:
+                worst[key] = max(worst[key], rel_diff(st["metrics"][key], ref["metrics"][key]))
+        excess = max(out["gaps"]["param_excess"] for out in outs)
+        p_gap = max(out["gaps"]["param_gap"] for out in outs)
+        m_gap = max(out["gaps"]["m_gap"] for out in outs)
+        cut = set(outs[0]["model_cut"])
+        same_params = all(out["prints"][k] == outs[0]["prints"][k] for out in outs[1:]
+                          for k in out["prints"] if k.startswith("params/") and k not in cut)
+        same_grads = all(a["prints"][k] == b["prints"][k] for a in outs for b in outs
+                         if a["coords"][0] == b["coords"][0]
+                         for k in a["prints"] if k.startswith("opt/m/") and k not in cut)
+        sts = [out["step"] for out in outs]
+        print(f"{label} {DP_RANKS} gloo ranks on the card, ({n_data}, {n_model}) mesh, "
+              f"{cfg.name} {TP_LAYERS} of 32 layers f32 (a rank: {cfg.n_heads // n_model} heads, "
+              f"d_ff {cfg.d_ff // n_model}, vocab {cfg.vocab_size // n_model}; "
+              f"{TP_B // n_data} rows), ZeRO-1 moments, grad_specs: loss "
+              f"{sts[0]['metrics']['loss']:.6f}; against R1: loss rel {worst['loss']:.3e}, grad "
+              f"norm rel {worst['grad_norm']:.3e} (limit 1e-5); the parameters' largest gap "
+              f"{p_gap:.3e} of scale, largest excess over the _param_bound rule {excess:.3e} "
+              f"(held <= 0); the moment blocks {m_gap:.3e} of scale (limit {TP_MOMENT_TOL}); "
+              f"every rank's replicated parameters identical: {same_params}; the replicated "
+              f"leaves' gradients (moment blocks) identical on a data row's model ranks: "
+              f"{same_grads}; launches a step on every rank flash_attention={TP_LAYERS} "
+              f"flash_attention_bwd={TP_LAYERS} [{card}]")
+        check(max(worst.values()) <= 1e-5, f"{label}: loss/grad norm beyond rel 1e-5: {worst}")
+        check(excess <= 0.0, f"{label}: a parameter beyond the _param_bound rule by {excess}")
+        check(m_gap <= TP_MOMENT_TOL, f"{label}: moment blocks {m_gap} of scale off")
+        check(same_params and same_grads,
+              f"{label}: replicated parameters or gradients differ across ranks")
+        print(f"  {label} step wall ms per rank " + ", ".join(f"{s['wall_s'] * 1e3:.2f}"
+                                                            for s in sts)
+              + "; share in collectives " + ", ".join(f"{s['collective_s'] / s['wall_s']:.3f}"
+                                                      for s in sts)
+              + f"; collective seconds by tag (rank 0) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(sts[0]['tag_seconds'].items()))
+              + f"; elements by tag {sts[0]['tags']} in {sts[0]['calls']} collectives; R1 "
+              f"{ref['wall_s'] * 1e3:.2f} ms; the rank's set-up {outs[0]['setup_s']:.1f} s "
+              f"[{card}]")
+        launches[f"{(n_data, n_model)}"] = {k: sts[0]["launches"][k]
+                                             for k in ("flash_attention", "flash_attention_bwd")}
+    print(f"  phase R {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {k: {mesh: n[k] for mesh, n in launches.items()}
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
 def slot_kernel(card, cuda):
     """Section 2: the slot kernel against its plain version on the card: the
     dyadic system bitwise (potus, shuffle, jsq; K=1 and 8), the I=16384
@@ -5614,7 +5885,7 @@ def card_setup():
     (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``,
     ``sweep_path``, ``obs_path``, ``oracle_path``, ``moe_path``,
     ``training_path``, ``sharded_path``, ``moe_ep_path``,
-    ``dp_train_path``, ``moe_train_path``) starts with this and
+    ``dp_train_path``, ``moe_train_path``, ``tp_train_path``) starts with this and
     :func:`build_kernels`."""
     import torch
 
@@ -5717,14 +5988,15 @@ def run_phases(pt, cf, card, cuda) -> int:
     t_phase = time.perf_counter()
     moe_prepared = moe_prepare(card, cuda)
     print(f"  Q1 and Q2's references {time.perf_counter() - t_phase:.1f} s [{card}]")
+    tp_prepared = tp_prepare(card, cuda)
 
     # -- 14. phase N: the instance-sharded engines (kernel 1 on one rank); its world of
-    # four gloo ranks then runs phase O's O2 and O3, phase P's P2 and P3 and phase Q's Q2
-    # (one start-up for all) ---------------------------------------------------------------
+    # four gloo ranks then runs phase O's O2 and O3, phase P's P2 and P3, phase Q's Q2 and
+    # phase R's R2 and R3 (one start-up for all) ---------------------------------------------
     slot.row["sharded_launches"], world = sharded_path(
         card, cuda, slot.fleet, also=ep_world_calls(cuda) + dp_world_calls(cuda, dp_prepared)
-        + moe_world_calls(cuda, moe_prepared),
-        also_timeout_s=EP_TIMEOUT_S + DP_TIMEOUT_S + MOE_DP_TIMEOUT_S)
+        + moe_world_calls(cuda, moe_prepared) + tp_world_calls(cuda, tp_prepared),
+        also_timeout_s=EP_TIMEOUT_S + DP_TIMEOUT_S + MOE_DP_TIMEOUT_S + TP_TIMEOUT_S)
 
     # -- 15. phase O: expert-parallel MoE serving (kernels 2, 5 and 6 on every rank) ----
     ep = moe_ep_path(card, cuda, world=[out[:2] for out in world])
@@ -5745,7 +6017,13 @@ def run_phases(pt, cf, card, cuda) -> int:
         row["moe_train_launches"] = moe_train[name]["train"]
         row["moe_dp_launches"] = moe_train[name]["dp"]
 
-    # -- 18. the kernels line, 19. the last line ---------------------------------
+    # -- 18. phase R: tensor-parallel training (kernels 5 and 5b on every rank's heads) ----
+    tp = tp_train_path(card, cuda, tp_prepared, world=[out[5:] for out in world])
+    for row, name in ((attention_kernels[0], "flash_attention"),
+                      (bwd_kernel, "flash_attention_bwd")):
+        row["tp_launches"] = tp[name]
+
+    # -- 19. the kernels line, 20. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel, bwd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

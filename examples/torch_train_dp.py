@@ -1,5 +1,5 @@
-"""Data-parallel training across ranks with the PyTorch port — the SPMD
-counterpart of ``examples/train_lm.py`` under a model mesh.
+"""Data- and tensor-parallel training across ranks with the PyTorch port —
+the SPMD counterpart of ``examples/train_lm.py`` under a model mesh.
 
 Every rank builds the same ``(n, 1)`` mesh (``launch.mesh.make_host_mesh``),
 sets it as the ambient one, cuts AdamW's moments to its ZeRO-1 blocks
@@ -26,10 +26,18 @@ route (``moe_ep_shardmap``: each rank holds E/n experts):
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
       --arch granite_moe_1b --ep
 
+``--model-axis m`` trains a dense decoder tensor-parallel on a (ranks/m, m)
+mesh (each rank holds its blocks of the heads, d_ff and the vocabulary;
+``models.common``), its moments ZeRO-1 blocks over both axes:
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
+      --arch stablelm_3b --layers 2 --model-axis 4
+
 The module-level functions run on one rank of a world that is already up
 (``repro_torch.distributed.spawn_world`` starts one in child processes):
-:func:`train_rank` (train steps under a mesh), :func:`checkpoint_rank` (a
-ZeRO-1 state saved across ranks and restored onto other meshes) and
+:func:`train_rank` (train steps under a mesh, ``(n_data, n_model)``),
+:func:`checkpoint_rank` (a ZeRO-1 state saved across ranks and restored
+onto other meshes) and
 :func:`pipeline_rank` (``pipeline_apply`` over a stage axis). Each builds
 its meshes, so every rank of the world calls it.
 """
@@ -77,7 +85,7 @@ def _state(cfg, tcfg, mesh, weights, device, seed=0):
     """The train state of ``cfg`` (weights ``weights``, a state_dict, or
     drawn from ``seed``), cut to this rank's blocks on ``mesh`` (None:
     whole): the expert-parallel route's experts placed (``place_``), the
-    moments cut (``state_shardings``)."""
+    model-cut parameters and the moments cut (``state_shardings``)."""
     state = init_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(seed),
                              device)
     if weights is not None:
@@ -222,6 +230,8 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--ep", action="store_true",
                     help="an MoE model by the expert-parallel route (moe_ep_shardmap)")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks of the mesh's \"model\" axis (tensor-parallel, a dense decoder)")
     args = ap.parse_args()
     if "RANK" in os.environ:  # started by torchrun: one rank per card
         if args.device == "cuda":
@@ -238,7 +248,10 @@ def main() -> None:
     tcfg = TrainConfig(opt=OptConfig(lr=1e-4, warmup_steps=1, total_steps=100))
     pipe = TokenPipeline(cfg, batch=args.batch, seq=args.seq, seed=0)
     batches = [pipe.next_batch() for _ in range(args.steps)]
-    out = train_rank(cfg, tcfg, (world, 1), None, batches, grad_specs=True, device=device,
+    if world % args.model_axis:
+        raise SystemExit(f"--model-axis {args.model_axis} does not divide {world} ranks")
+    mesh_shape = (world // args.model_axis, args.model_axis)
+    out = train_rank(cfg, tcfg, mesh_shape, None, batches, grad_specs=True, device=device,
                      keep_state=False)
     walls = out["wall_s"][1:]  # the first step's launches load the kernels
     mine = (float(np.median(walls)), float(np.sum(out["collective_s"][1:]) / np.sum(walls)))
@@ -249,7 +262,8 @@ def main() -> None:
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         nccl = dist.is_initialized() and dist.get_backend() == "nccl"
         print(json.dumps({
-            "ranks": world, "arch": cfg.name, "layers": cfg.n_layers, "device": name,
+            "ranks": world, "mesh": mesh_shape, "arch": cfg.name, "layers": cfg.n_layers,
+            "device": name,
             "backend": dist.get_backend() if dist.is_initialized() else None,
             "global_batch": args.batch, "seq": args.seq, "steps": args.steps,
             "step_ms_median_per_rank": [r[0] * 1e3 for r in per_rank],

@@ -29,7 +29,16 @@ collectives map as:
   installed torch lacks it) over the dim moved to the front, through the
   host under gloo (the data-parallel gradients' reduce-scatter onto the
   ZeRO-1 blocks);
-* ``pmax`` (:func:`pmax`) → ``all_reduce(MAX)``.
+* ``pmax`` (:func:`pmax`) → ``all_reduce(MAX)``;
+* the two conjugate operators of tensor-parallel training, each an
+  ``all_reduce(SUM)`` on one side of autograd and the identity on the
+  other: :func:`copy_to` (identity forward, the ``psum`` of the cotangent
+  backward) enters a block whose weights are cut over ``"model"`` from an
+  activation every rank holds whole, and :func:`reduce_from` (the ``psum``
+  forward, the identity backward) leaves a block whose ranks each hold a
+  partial sum. Every model rank computes the same loss, so the cotangent of
+  a replicated activation is the same on every rank; :func:`psum`'s own
+  backward would scale each upstream gradient by the axis's size there.
 
 Each call adds the elements it moves to :data:`PAYLOAD` under a tag:
 ``"step"`` for the slot dynamics (the ``payload`` metric stream reads it),
@@ -39,7 +48,9 @@ result at the end of a run, ``"ep"`` for the expert-parallel MoE layers
 ``models.moe.moe_ffn`` under data-parallel training (the POTUS price's
 scale, each rank's expert counts and importance sums), ``"dp"`` for
 data-parallel training (the gradients' reductions, the token count and the
-norm, the parameters' all-gathers, checkpoints' gathers) and ``"pp"`` for
+norm, the parameters' all-gathers, checkpoints' gathers), ``"tp"`` for
+tensor-parallel training (:func:`copy_to` and :func:`reduce_from`, the
+vocab-cut loss's reductions, the norm's sum over "model") and ``"pp"`` for
 the pipeline's hand-offs. An all-reduce of n elements moves n;
 a tiled all-gather and an all-to-all move the n of their output, a
 reduce-scatter the n of its input. On one rank nothing is counted.
@@ -69,8 +80,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Axis", "SOLO", "PAYLOAD", "PayloadCounter", "all_gather", "all_to_all", "psum",
-           "pmin", "pmax", "psum_scatter", "grid_axes", "rank_device", "set_mesh", "get_mesh",
-           "set_cache_specs", "get_cache_specs"]
+           "pmin", "pmax", "psum_scatter", "copy_to", "reduce_from", "grid_axes", "rank_device",
+           "set_mesh", "get_mesh", "set_cache_specs", "get_cache_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,19 +127,21 @@ def grid_axes(n_outer: int, n_inner: int) -> tuple[Axis, Axis, bool]:
 
 class PayloadCounter:
     """Elements the collectives moved, by tag, since the last reset; the
-    calls that moved them and the host seconds they took (under NCCL, the
-    seconds to enqueue them: see :func:`_collective`)."""
+    calls that moved them and the host seconds they took, in all and by tag
+    (under NCCL, the seconds to enqueue them: see :func:`_collective`)."""
 
     def __init__(self) -> None:
         self.reset()
 
     def reset(self) -> None:
         self.elements: dict[str, int] = {}
+        self.tag_seconds: dict[str, float] = {}
         self.calls = 0
         self.seconds = 0.0
 
     def add(self, tag: str, n: int, seconds: float) -> None:
         self.elements[tag] = self.elements.get(tag, 0) + int(n)
+        self.tag_seconds[tag] = self.tag_seconds.get(tag, 0.0) + seconds
         self.calls += 1
         self.seconds += seconds
 
@@ -185,6 +198,49 @@ def psum(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:
     if axis.size == 1:
         return x
     return _PSum.apply(x, axis, tag)
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity; backward, the sum of the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, axis, tag):
+        ctx.axis, ctx.tag = axis, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis, dist.ReduceOp.SUM, ctx.tag), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over the ranks; backward, the identity."""
+
+    @staticmethod
+    def forward(ctx, x, axis, tag):
+        return _all_reduce(x, axis, dist.ReduceOp.SUM, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x: torch.Tensor, axis: Axis, tag: str = "tp") -> torch.Tensor:
+    """``x`` itself, whose gradient is the sum of the ranks' cotangents: the
+    entry of a block whose weights ``axis`` cuts (each rank's cotangent is
+    its part of the whole one)."""
+    if axis.size == 1:
+        return x
+    return _CopyTo.apply(x, axis, tag)
+
+
+def reduce_from(x: torch.Tensor, axis: Axis, tag: str = "tp") -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axis``, whose gradient is the
+    cotangent itself: the exit of a block whose ranks each hold a partial
+    sum, or a term of the loss that every rank computes whole."""
+    if axis.size == 1:
+        return x
+    return _ReduceFrom.apply(x, axis, tag)
 
 
 def pmin(x: torch.Tensor, axis: Axis, tag: str = "step") -> torch.Tensor:

@@ -89,13 +89,33 @@ class Sharding:
             t = t.narrow(d, index * n, n)
         return t
 
+    def within(self, held: "Sharding") -> "Sharding":
+        """This layout's block as a block of ``held``'s block (which holds
+        it): each dim cut over the axes of this spec that ``held``'s does not
+        cut it over. ``ValueError`` where ``held`` cuts a dim over an axis
+        that this spec does not."""
+        n = max(len(self.spec), len(held.spec))
+        mine = [_names(e) for e in (*self.spec, *([None] * (n - len(self.spec))))]
+        theirs = [_names(e) for e in (*held.spec, *([None] * (n - len(held.spec))))]
+        shape = self.mesh.shape
+        entries = []
+        for d, (a, b) in enumerate(zip(mine, theirs)):
+            b = tuple(x for x in b if shape[x] > 1)
+            if not set(b) <= set(a) or a[:len(b)] != b:
+                raise ValueError(f"{held.spec} does not hold a block of {self.spec} (dim {d})")
+            rest = a[len(b):]
+            entries.append(None if not rest else rest[0] if len(rest) == 1 else rest)
+        return Sharding(self.mesh, P(*entries))
+
     def gather(self, t: torch.Tensor, tag: str = "dp") -> torch.Tensor:
         """The global tensor (contiguous) from this rank's block ``t``
-        (every rank of the axes it is cut over calls it)."""
+        (every rank of the axes it is cut over calls it); the all-gathers
+        over ``"model"`` are counted under ``"tp"``, the others under ``tag``."""
         cuts = self.cuts()
         for d, names in cuts:
             for a in reversed(names):  # the minor axis first
-                t = all_gather(t.movedim(d, 0), self.mesh.axis(a), tag).movedim(0, d)
+                t = all_gather(t.movedim(d, 0), self.mesh.axis(a),
+                               "tp" if a == "model" else tag).movedim(0, d)
         return t.contiguous() if cuts else t
 
 

@@ -18,6 +18,19 @@ are not carried over as separate routes; ``cfg.use_pallas`` selects nothing.
 
 Linear layers are ``nn.Linear`` (weight (out, in)); the reference's leaves
 are (in, out) and ``convert.model_params_from_numpy`` transposes them.
+
+Tensor-parallel training (``tp``, the model mesh's ``"model"`` axis of m
+ranks; ``training.train_loop``) runs the Megatron layout: a rank holds
+``n_heads/m`` query heads of ``wq`` (the rows of the stored weight, and of
+its bias) and the matching input columns of ``wo``, ``n_kv_heads/m`` kv
+heads of ``wk``/``wv``, and ``d_ff/m`` of the MLP's inner dim (rows of
+``w_gate``/``w_up``/``w_in``, input columns of ``w_out``); the norms stay
+whole. Each cut block starts with ``distributed.copy_to`` and ends with
+``distributed.reduce_from`` over ``tp``. Where the kv heads do not divide
+over the ranks (:func:`tp_cut`), ``wk``/``wv`` stay whole on every rank,
+their gradients summed over the ranks, and each rank uses the kv heads its
+query heads read; where ``d_ff`` does not, the MLP runs whole on every
+rank. The blocks are cut by ``training.train_loop.shard_train_state``.
 """
 from __future__ import annotations
 
@@ -27,7 +40,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["DTYPES", "einsum", "rms_norm", "rope", "apply_rope", "RMSNorm", "MLP", "Attention"]
+from ..distributed.context import SOLO, copy_to, reduce_from
+
+__all__ = ["DTYPES", "einsum", "rms_norm", "rope", "apply_rope", "tp_cut", "RMSNorm", "MLP",
+           "Attention"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -43,6 +59,13 @@ def einsum(eq, *operands):
     ``jnp.einsum`` promotes them (``torch.einsum`` refuses mixed types)."""
     dtype = reduce(torch.promote_types, (t.dtype for t in operands))
     return torch.einsum(eq, *(t.to(dtype) for t in operands))
+
+
+def tp_cut(n: int, tp) -> bool:
+    """Whether a dim of ``n`` heads, kv heads, inner units or vocabulary
+    entries is cut over the model axis ``tp``: over more than one rank, when
+    they divide."""
+    return tp.size > 1 and n % tp.size == 0
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +117,7 @@ class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, mlp_type: str, dtype=None, device=None):
         super().__init__()
         kw = dict(bias=False, dtype=dtype, device=device)
-        self.mlp_type = mlp_type
+        self.mlp_type, self.d_ff = mlp_type, d_ff
         if mlp_type in ("swiglu", "geglu"):
             self.w_gate = nn.Linear(d_model, d_ff, **kw)
             self.w_up = nn.Linear(d_model, d_ff, **kw)
@@ -104,14 +127,20 @@ class MLP(nn.Module):
             raise ValueError(f"unknown mlp_type {mlp_type!r}")
         self.w_out = nn.Linear(d_ff, d_model, **kw)
 
-    def forward(self, x):
+    def forward(self, x, tp=SOLO):
+        """``tp``: the model axis; when it cuts ``d_ff`` (:func:`tp_cut`) this
+        rank holds its block of the inner units and the output is summed over
+        the ranks."""
+        cut = tp_cut(self.d_ff, tp)
+        if cut:
+            x = copy_to(x, tp)
         if self.mlp_type == "swiglu":
             h = F.silu(self.w_gate(x)) * self.w_up(x)
         elif self.mlp_type == "geglu":
             h = F.gelu(self.w_gate(x), approximate="tanh") * self.w_up(x)
         else:
             h = F.gelu(self.w_in(x), approximate="tanh")
-        return self.w_out(h)
+        return reduce_from(self.w_out(h), tp) if cut else self.w_out(h)
 
 
 # ---------------------------------------------------------------------------
@@ -133,22 +162,49 @@ class Attention(nn.Module):
         self.wv = nn.Linear(D, cfg.n_kv_heads * HD, bias=cfg.qkv_bias, **kw)
         self.wo = nn.Linear(cfg.n_heads * HD, D, bias=False, **kw)
 
-    def _qkv(self, x, positions):
+    def _qkv(self, x, positions, tp=SOLO):
         B, S, _ = x.shape
         HD = self.head_dim
-        q = self.wq(x).reshape(B, S, self.n_heads, HD)
-        k = self.wk(x).reshape(B, S, self.n_kv_heads, HD)
-        v = self.wv(x).reshape(B, S, self.n_kv_heads, HD)
+        q = self.wq(x).reshape(B, S, -1, HD)
+        if tp.size > 1 and not tp_cut(self.n_kv_heads, tp):
+            # wk/wv whole on every rank: their gradients are each rank's part
+            k, v = (F.linear(x, copy_to(w.weight, tp),
+                             None if w.bias is None else copy_to(w.bias, tp))
+                    for w in (self.wk, self.wv))
+        else:
+            k, v = self.wk(x), self.wv(x)
+        k, v = k.reshape(B, S, -1, HD), v.reshape(B, S, -1, HD)
         cos, sin = rope(positions, HD, self.rope_theta)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
-    def forward(self, x, positions, ops=None):
+    def _kv_heads(self, k, v, tp):
+        """The kv heads that this rank's query heads read, from every kv
+        head (``n_kv_heads`` not cut over ``tp``): one group of them when the
+        rank's query heads fall into whole groups or into one, else a kv head
+        for each query head."""
+        H, G = self.n_heads // tp.size, self.n_heads // self.n_kv_heads
+        idx = [(tp.index * H + i) // G for i in range(H)]
+        n = idx[-1] - idx[0] + 1
+        if H % n == 0 and idx == [idx[0] + i // (H // n) for i in range(H)]:
+            return k.narrow(2, idx[0], n), v.narrow(2, idx[0], n)
+        at = torch.tensor(idx, device=k.device)
+        return k.index_select(2, at), v.index_select(2, at)
+
+    def forward(self, x, positions, ops=None, tp=SOLO):
         """Self-attention over a full sequence (forward / prefill): x (B, S, D),
-        positions (S,). Returns ``(out (B, S, D), (k, v))``, k/v (B, S, Hkv, HD)."""
+        positions (S,). Returns ``(out (B, S, D), (k, v))``, k/v (B, S, Hkv, HD).
+        ``tp``: the model axis, over which this rank holds its block of the
+        heads (``tp.size`` > 1: the output summed over the ranks, k/v the
+        rank's)."""
         B, S, _ = x.shape
-        q, k, v = self._qkv(x, positions)
+        if tp.size > 1:
+            x = copy_to(x, tp)
+        q, k, v = self._qkv(x, positions, tp)
+        if tp.size > 1 and not tp_cut(self.n_kv_heads, tp):
+            k, v = self._kv_heads(k, v, tp)
         out = _ops(ops).flash_attention(q, k, v, causal=self.causal)
-        return self.wo(out.reshape(B, S, self.n_heads * self.head_dim)), (k, v)
+        out = self.wo(out.reshape(B, S, q.shape[2] * self.head_dim))
+        return (reduce_from(out, tp) if tp.size > 1 else out), (k, v)
 
     def decode(self, x, k_cache, v_cache, pos, ops=None):
         """Single-token attention against a KV cache: x (B, 1, D); caches

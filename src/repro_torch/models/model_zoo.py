@@ -62,6 +62,17 @@ mesh, takes and returns this rank's rows (``moe_ep.moe_ffn_ep``'s
 ``rows``). The axis travels as an argument down to the blocks, so that
 ``remat``'s re-run of a block in the backward pass, outside any context
 the caller set, issues the same collectives.
+
+``forward(..., tp=)`` is the tensor-parallel train step's: the model mesh's
+``"model"`` axis, over which each rank holds its blocks of the dense
+decoder's weights (``models.common``; ``training.train_loop.shard_train_state``
+cuts them). The embedding ``(vocab, embed)`` is vocab-parallel: each rank
+looks up the ids in its range of the vocabulary, writes zeros elsewhere,
+and the ranks' lookups are summed (``distributed.reduce_from``); the LM head
+is cut by its vocabulary rows, so the logits are this rank's vocabulary
+block (with ``tie_embeddings`` the one cut leaf serves both). A vocabulary
+that does not divide over the ranks stays whole on every rank, with whole
+logits. It travels down to the blocks as ``axis`` does.
 """
 from __future__ import annotations
 
@@ -76,8 +87,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..distributed.context import SOLO, get_mesh
-from .common import DTYPES, MLP, Attention, RMSNorm
+from ..distributed.context import SOLO, copy_to, get_mesh, reduce_from
+from .common import DTYPES, MLP, Attention, RMSNorm, tp_cut
 from .mamba import (Mamba2Block, mamba_block, mamba_cache_spec, mamba_decode_step,
                     ssd_chunked_with_state)
 from .moe import MoE, init_router_state, moe_ffn
@@ -120,15 +131,16 @@ class Block(nn.Module):
         self.mlp = None if use_moe else MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
         self.moe = MoE(cfg, **kw) if use_moe else None
 
-    def ffn(self, x, cfg=None, router_state=None, axis=SOLO):
+    def ffn(self, x, cfg=None, router_state=None, axis=SOLO, tp=SOLO):
         """``x + ffn(ln2 x)``. Returns (x, router state, aux): an MoE block
         (which reads its router settings from ``cfg``) passes its updated
         state on (the given one without a state) and its layer's ``aux``
         (``moe.moe_ffn``'s); an MLP block the state as given and None.
-        ``axis``: the axis ``x``'s rows are cut over (:func:`forward`)."""
+        ``axis``: the axis ``x``'s rows are cut over, ``tp`` the model axis
+        that cuts the MLP (:func:`forward`)."""
         h_in = self.ln2(x)
         if self.moe is None:
-            return x + self.mlp(h_in), router_state, None
+            return x + self.mlp(h_in, tp), router_state, None
         mesh = get_mesh() if cfg.moe_ep_shardmap else None
         if mesh is not None:
             h, aux = moe_ffn_ep(self.moe, h_in, cfg, mesh, router_state, axis)
@@ -137,11 +149,12 @@ class Block(nn.Module):
         rs = aux["router_state"] if aux["router_state"] is not None else router_state
         return x + h, rs, aux
 
-    def forward(self, x, positions, ops=None, cfg=None, router_state=None, axis=SOLO):
+    def forward(self, x, positions, ops=None, cfg=None, router_state=None, axis=SOLO,
+                tp=SOLO):
         """Self-attention over a full sequence, then :meth:`ffn`. Returns
         (x, (k, v), router state, the MoE layer's aux or None)."""
-        h, kv = self.attn(self.ln1(x), positions, ops)
-        x, router_state, aux = self.ffn(x + h, cfg, router_state, axis)
+        h, kv = self.attn(self.ln1(x), positions, ops, tp)
+        x, router_state, aux = self.ffn(x + h, cfg, router_state, axis, tp)
         return x, kv, router_state, aux
 
     def decode(self, x, k_cache, v_cache, pos, ops=None, cfg=None, router_state=None):
@@ -336,21 +349,34 @@ def _hybrid_groups(cfg) -> list[tuple[int, int, bool]]:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _embed_input(model, cfg, batch):
+def _embed_input(model, cfg, batch, tp=SOLO):
     """The input sequence in the compute type: an encoder's ``embeddings``,
     else the embedded ``tokens``, after the ``patches`` for a
-    ``vision_stub`` config that has them."""
+    ``vision_stub`` config that has them. Over a model axis ``tp`` that
+    cuts the vocabulary, each rank looks up the ids of its block (zeros for
+    the others) and the lookups are summed."""
     cdt = DTYPES[cfg.compute_dtype]
     if cfg.is_encoder:
         return batch["embeddings"].to(cdt)
-    x = model.embed[batch["tokens"]].to(cdt)
+    if tp_cut(cfg.vocab_size, tp):
+        n = model.embed.shape[0]
+        ids = batch["tokens"] - tp.index * n
+        mine = (ids >= 0) & (ids < n)
+        rows = model.embed[ids.clamp(0, n - 1)]
+        x = reduce_from(torch.where(mine[..., None], rows, torch.zeros_like(rows)), tp).to(cdt)
+    else:
+        x = model.embed[batch["tokens"]].to(cdt)
     if cfg.frontend == "vision_stub" and "patches" in batch:
         x = torch.cat([batch["patches"].to(cdt), x], dim=1)
     return x
 
 
-def _unembed(model, cfg, x):
+def _unembed(model, cfg, x, tp=SOLO):
+    """The logits in the compute type: this rank's vocabulary block of them
+    over a model axis ``tp`` that cuts the vocabulary."""
     w = model.embed if model.lm_head is None else model.lm_head.weight
+    if tp_cut(cfg.vocab_size, tp):
+        x = copy_to(x, tp)
     return F.linear(x, w).to(DTYPES[cfg.compute_dtype])
 
 
@@ -382,7 +408,7 @@ def _start_state(cfg, router_state, device):
 
 
 def forward(model, cfg, batch, router_state=None, *, ops=None, remat: str = "none",
-            axis=SOLO):
+            axis=SOLO, tp=SOLO):
     """Full-sequence forward. Returns (logits (B, S, V), aux dict):
     ``moe_aux_loss``, the sum of the MoE layers' load-balance losses (0
     without them), ``moe_aux_term``, the sum of this rank's terms of them
@@ -392,8 +418,10 @@ def forward(model, cfg, batch, router_state=None, *, ops=None, remat: str = "non
     ``remat`` names a policy of :data:`REMAT_POLICIES` applied to each
     block (not to a hybrid's shared attention blocks, as in the reference).
     ``axis``: the axis ``batch``'s rows are cut over (the train step's
-    ``"data"`` axis; :data:`SOLO`, the whole batch)."""
-    x = _embed_input(model, cfg, batch)
+    ``"data"`` axis; :data:`SOLO`, the whole batch); ``tp``: the model axis
+    the dense decoder's weights are cut over (the logits are then this
+    rank's vocabulary block where the vocabulary divides)."""
+    x = _embed_input(model, cfg, batch, tp)
     positions = torch.arange(x.shape[1], device=x.device)
     rs = _start_state(cfg, router_state, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -406,12 +434,12 @@ def forward(model, cfg, batch, router_state=None, *, ops=None, remat: str = "non
                 x, *_ = model.shared_attn[gi % cfg.n_shared_attn](x, positions, ops)
     else:
         for block in model.blocks:
-            x, _, rs, aux = _remat(block, remat)(x, positions, ops, cfg, rs, axis)
+            x, _, rs, aux = _remat(block, remat)(x, positions, ops, cfg, rs, axis, tp)
             if aux is not None:
                 layers.append(aux)
                 aux_total = aux_total + aux["aux_loss"]
                 term_total = term_total + aux["aux_term"]
-    logits = _unembed(model, cfg, model.final_norm(x))
+    logits = _unembed(model, cfg, model.final_norm(x), tp)
     return logits, dict(moe_aux_loss=aux_total, moe_aux_term=term_total, moe_layers=layers,
                         router_state=rs)
 

@@ -14,14 +14,15 @@ manifest. A leaf is restored onto the device and into the type of its
 
 Checkpoints are mesh-independent, as the reference's: each leaf is written
 as its global array. Across ranks, ``shardings`` (the tree of
-``distributed.sharding.Sharding`` that ``train_state_shardings`` gives, a
-ZeRO-1 state's moments cut over "data") names the leaves that are this
-rank's blocks: :func:`save_checkpoint` all-gathers each of them, rank 0
+``distributed.sharding.Sharding`` that ``training.train_loop.state_shardings``
+gives: a ZeRO-1 state's moments cut over "data", under tensor-parallel
+training the parameters and moments cut over "model" too) names the
+leaves that are this rank's blocks: :func:`save_checkpoint` all-gathers each of them, rank 0
 writes the files, byte for byte those of a one-rank checkpoint of the same
 state, and the other ranks wait for it at a barrier. :func:`restore_checkpoint`
 loads each global array and keeps this rank's block by the current mesh's
-``shardings`` (elastic restore: a state saved on four ranks restores onto
-two, or onto one without ``shardings``).
+``shardings`` (elastic restore: a state saved on a (2, 2) mesh restores
+onto (4, 1), (1, 4), or onto one rank without ``shardings``).
 
 ``AsyncCheckpointer`` gathers and copies the state to the host on the
 caller's thread (a consistent snapshot) and writes it on a background

@@ -10,9 +10,10 @@ tensor keeps the reference's layout and quantises along its last axis. A
 1-D tensor is one row, whether the reference's leaf is a vector or a row
 of a stacked (layers, width) leaf.
 
-Under data parallelism the gradients and the error state are this rank's
-blocks (the moments' layout, ``distributed.sharding``): where a block cuts
-a row, the row's largest magnitude is a ``pmax`` over ``"data"``, so each
+Across ranks the gradients and the error state are this rank's blocks
+(the moments' layout, ``distributed.sharding``): where a block cuts a row,
+the row's largest magnitude is a ``pmax`` over the axes that cut it
+(``"data"``, and ``"model"`` under tensor-parallel training), so each
 block is quantised with its global row's scale, as the reference's
 compression of a sharded leaf is.
 """
@@ -44,9 +45,10 @@ def _quantize(g32, dim, sh=None):
     its largest magnitude over the ranks."""
     amax = g32.abs().max() if dim is None else g32.abs().amax(dim=dim, keepdim=True)
     if sh is not None:
-        cut = {d for d, _ in sh.cuts()}
-        if cut and (dim is None or dim % g32.dim() in cut):
-            amax = pmax(amax, sh.mesh.axis("data"), "dp")
+        for d, names in sh.cuts():
+            if dim is None or dim % g32.dim() == d:
+                for a in names:
+                    amax = pmax(amax, sh.mesh.axis(a), "tp" if a == "model" else "dp")
     scale = torch.clamp_min(amax, 1e-12) / 127.0
     q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
     return q, scale

@@ -10,15 +10,18 @@ update is computed in float32 and cast back to the parameter's type.
 With ``zero_sharding`` (ZeRO-1, the default as in the reference) the
 training state's moments are cut over the mesh's ``"data"`` axis by
 ``distributed.sharding.zero_rules`` (``train_state_shardings`` reads the
-field; without it they take the parameters' layout). Given the moments'
-shardings, :func:`adamw_update` updates this rank's block of each cut
-parameter from its block of the gradient and moments, by the same
-per-element arithmetic, then all-gathers the parameter back to replicated;
-:func:`global_norm` sums the squares of the cut leaves' blocks over
-``"data"`` and adds each replicated leaf once. A parameter that is itself
-this rank's block (the expert-parallel route's experts, by the parameters'
-shardings) is updated in place, with no gather. On a mesh of one rank (or
-without shardings) both are the one-rank update, bitwise.
+field; without it they take the parameters' layout), and over ``"model"``
+as their parameters are under tensor-parallel training. Given the moments'
+shardings and the parameters' as held, :func:`adamw_update` updates this
+rank's moment block of each parameter, the block of the held parameter
+that the moments' layout cuts out of it (``Sharding.within``), from its
+block of the gradient, by the same per-element arithmetic, then
+all-gathers the held parameter back from the blocks; a parameter held as
+its moment block (the expert-parallel route's experts, a model-cut leaf
+without ZeRO) is updated in place, with no gather. :func:`global_norm`
+sums the squares of each leaf's blocks over the axes that cut it and adds
+each replicated leaf once. On a mesh of one rank (or without shardings)
+both are the one-rank update, bitwise.
 
 Weight decay is decoupled and falls on the tensors the reference decays:
 its leaves of two or more axes. The reference stacks each block's leaves
@@ -81,29 +84,35 @@ def _cut(shardings: dict | None, name: str):
     return None if sh is None or sh.replicated else sh
 
 
-def _data_axis(shardings: dict):
-    """The mesh axis the cut leaves of ``shardings`` are cut over: ``"data"``
-    (``ValueError`` for a cut over another axis: tensor-parallel layouts
-    are not trained)."""
-    axes = {a for sh in shardings.values() for _, names in sh.cuts() for a in names}
-    if axes - {"data"}:
-        raise ValueError(f"optimizer state cut over the mesh axes {sorted(axes)}: only 'data' "
-                         "is supported")
-    return next(iter(shardings.values())).mesh.axis("data")
+def _axes(sh) -> tuple:
+    """The mesh axes ``sh`` cuts its tensor over, in the mesh's order."""
+    cut = {a for _, names in sh.cuts() for a in names}
+    return tuple(a for a in sh.mesh.axis_names if a in cut)
 
 
 def global_norm(tree: dict, shardings: dict | None = None) -> torch.Tensor:
     """The l2 norm over every tensor of ``tree``, in float32. With
     ``shardings`` (``{name: Sharding}``), a leaf they cut is this rank's
-    block: the squares of the blocks are summed over ``"data"`` and each
-    replicated leaf is added once."""
+    block: the squares of the blocks are summed over the axes that cut
+    them (``"data"``, ``"model"`` or both) and each replicated leaf is
+    added once."""
     cut = [n for n in tree if _cut(shardings, n) is not None]
     if not cut:
         return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree.values()))
-    blocks = psum(sum(torch.sum(torch.square(tree[n].float())) for n in cut),
-                  _data_axis(shardings), "dp")
-    return torch.sqrt(blocks + sum(torch.sum(torch.square(t.float()))
-                                   for n, t in tree.items() if n not in cut))
+    rest = sum(torch.sum(torch.square(t.float())) for n, t in tree.items() if n not in cut)
+    mesh = shardings[cut[0]].mesh
+    zero = torch.zeros((), dtype=torch.float32, device=tree[cut[0]].device)
+    part: dict[tuple, torch.Tensor] = {}
+    for n in cut:
+        axes = _axes(shardings[n])
+        part[axes] = part.get(axes, zero) + torch.sum(torch.square(tree[n].float()))
+    if set(part) - {("data",), ("model",), ("data", "model")}:
+        raise ValueError(f"optimizer state cut over the mesh axes {sorted(part)}")
+    # the blocks cut over "model" summed over it, then those cut over "data" over that
+    both, model = psum(torch.stack([part.get(("data", "model"), zero),
+                                    part.get(("model",), zero)]), mesh.axis("model"), "tp")
+    data = psum(both + part.get(("data",), zero), mesh.axis("data"), "dp")
+    return torch.sqrt(data + model + rest)
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -121,9 +130,9 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig,
     gradients' ``grad_norm`` (before clipping) and the step's ``lr``.
     ``shardings``: the moments' (``{name: Sharding}``); a gradient and the
     moments of a parameter they cut are this rank's blocks, and the
-    parameter (replicated) is all-gathered after its block's update, unless
-    ``param_shardings`` (the parameters' as held) cut it too: then the
-    parameter is that block, updated in place."""
+    parameter as held (``param_shardings``, None: whole) is all-gathered
+    from the blocks after its block's update, unless it is held as that
+    block: then it is updated in place."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads, shardings)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
@@ -134,8 +143,9 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig,
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
     for name, p in params.items():
         sh = _cut(shardings, name)
-        if _cut(param_shardings, name) is not None:  # the parameter is this rank's block
-            sh = None
+        if sh is not None and param_shardings is not None:  # the block within the held one
+            sh = sh.within(param_shardings[name])
+            sh = None if sh.replicated else sh
         blk = p if sh is None else sh.local(p)
         g = grads[name].float() * scale
         m, v = opt_state["m"][name], opt_state["v"][name]
@@ -146,7 +156,7 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig,
             update = update + cfg.weight_decay * blk.float()
         if sh is None:
             p.copy_(p.float() - lr * update)
-        else:  # this rank's block, then the whole parameter from every rank's
+        else:  # this rank's block, then the held parameter from every rank's
             p.copy_(sh.gather((blk.float() - lr * update).to(p.dtype)))
         m.copy_(m_new)
         v.copy_(v_new)

@@ -26,9 +26,30 @@ counterpart of ``jax.device_put(state, train_state_shardings(...))``); each
 rank updates its block of each parameter and all-gathers the parameters.
 The metrics are the global values, the same on every rank. A rank off the
 mesh takes no part: its state comes back as given, with the mesh's metrics.
-On a mesh of one rank the step is the one-rank step, bitwise. Tensor-parallel
-training (a ``"model"`` axis of more than one rank) raises
-``NotImplementedError`` (module item 5b).
+On a mesh of one rank the step is the one-rank step, bitwise.
+
+A ``"model"`` axis of m > 1 ranks trains a dense decoder (family
+``"dense"``, no frontend, no MoE) tensor-parallel, composed with the
+``"data"`` axis on (1, m) and (d, m) meshes (Megatron's layout,
+``models.common``): each rank holds its blocks of the weights that the
+reference's rules cut over "model" (heads, kv heads, d_ff and the
+vocabulary, ``distributed.sharding.param_rules``) and whole the others
+(the norms); :func:`shard_train_state` cuts them. Every rank of a data row
+computes the same loss. On vocabulary-cut logits the loss takes ``logz``
+by a ``pmax`` and a sum of ``exp`` over "model", and the gold logit by a
+masked local gather summed over "model" (the reference's one-hot
+contraction); the z-loss reads the same ``logz``. A model-cut leaf's
+gradient is this rank's block, complete; a replicated leaf's is the same on
+every model rank (``distributed.copy_to``'s backward sums the ranks'
+parts); both are summed over "data" only. With ZeRO-1 the moments of a
+model-cut leaf are cut over both axes; AdamW updates the moment block
+within the rank's parameter block and all-gathers over "data" alone. The
+heads must divide over the ranks (``ValueError``); kv heads that do not
+leave ``wk``/``wv`` whole on every rank (:func:`state_shardings`, a layout
+that parts from the reference's, whose flat kv dim may cut a head). MoE,
+``vision_stub``, encoder, SSM and hybrid configs on such a mesh, and any
+axis other than "data" and "model", raise ``NotImplementedError`` (module
+item 5b).
 
 An MoE config trains across ranks by either of the reference's routes:
 
@@ -57,11 +78,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch import nn
 
 from ..device import resolve_device
 from ..distributed import sharding as shd
-from ..distributed.context import SOLO, get_mesh, psum, psum_scatter, set_mesh
+from ..distributed.context import (SOLO, get_mesh, pmax, psum, psum_scatter, reduce_from,
+                                   set_mesh)
 from ..models import model_zoo
+from ..models.common import tp_cut
 from ..models.moe import init_router_state
 from .compression import compress_grads, init_error_state
 from .optimizer import OptConfig, adamw_update, init_opt_state
@@ -90,23 +114,43 @@ def make_loss_fn(cfg, tcfg: TrainConfig, *, ops=None):
     return _loss_fn(cfg, tcfg, ops, SOLO)
 
 
-def _loss_fn(cfg, tcfg: TrainConfig, ops, axis):
+def _logz_gold(cfg, logits32, safe, tp):
+    """``logsumexp`` of the logits and the gold logit at ``safe``. Over a
+    model axis ``tp`` that cuts the vocabulary, ``logits32`` is this rank's
+    block: the maximum is a ``pmax`` (no gradient: ``logsumexp``'s does not
+    depend on the shift), and the sum of ``exp`` and the masked local gold
+    logit are summed over the ranks in one ``reduce_from``, whose backward
+    gives this rank the gradient of the loss every rank computes."""
+    if not tp_cut(cfg.vocab_size, tp):
+        # the gold logit by a gather: the reference's one-hot contraction sums
+        # exact zeros beside it, so the two are equal for finite logits
+        return (torch.logsumexp(logits32, dim=-1),
+                logits32.gather(-1, safe[..., None].long())[..., 0])
+    n = logits32.shape[-1]
+    top = pmax(logits32.detach().amax(dim=-1), tp, "tp")
+    ids = safe.long() - tp.index * n
+    mine = (ids >= 0) & (ids < n)
+    gold = logits32.gather(-1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    sums = reduce_from(torch.stack([torch.exp(logits32 - top[..., None]).sum(dim=-1),
+                                    torch.where(mine, gold, torch.zeros_like(gold))]), tp)
+    return torch.log(sums[0]) + top, sums[1]
+
+
+def _loss_fn(cfg, tcfg: TrainConfig, ops, axis, tp=SOLO):
     """:func:`make_loss_fn`'s loss on this rank's rows of a batch whose other
     rows the ranks of ``axis`` hold: the loss (and the metrics' ``loss`` and
     ``ce``) is this rank's term of the global loss, whose sum over ``axis``
-    is the global loss; ``ntok`` is the global token count."""
+    is the global loss; ``ntok`` is the global token count. ``tp``: the
+    model axis the weights are cut over, whose ranks compute the same loss."""
 
     def loss_fn(model, batch, router_state):
         logits, aux = model_zoo.forward(model, cfg, batch, router_state, ops=ops,
-                                        remat=tcfg.remat, axis=axis)
+                                        remat=tcfg.remat, axis=axis, tp=tp)
         labels = batch["labels"]
         logits32 = logits.float()
         valid = labels >= 0
         safe = labels.clamp_min(0)
-        logz = torch.logsumexp(logits32, dim=-1)
-        # the gold logit by a gather: the reference's one-hot contraction sums
-        # exact zeros beside it, so the two are equal for finite logits
-        gold = logits32.gather(-1, safe[..., None].long())[..., 0]
+        logz, gold = _logz_gold(cfg, logits32, safe, tp)
         ce = (logz - gold) * valid
         ntok = psum(valid.sum(), axis, "dp").clamp_min(1)
         loss = ce.sum() / ntok
@@ -148,17 +192,30 @@ _EXPERT_BLOCKS = {"w_gate": ("data", None, "model"), "w_up": ("data", None, "mod
                   "w_down": ("data", "model", None)}
 
 
+def _kv_leaves(names) -> list[str]:
+    """The parameters of ``wk`` and ``wv`` (weights and biases) among ``names``."""
+    return [n for n in names if n.split(".")[-3:-1] in (["attn", "wk"], ["attn", "wv"])]
+
+
 def state_shardings(cfg, mesh, tcfg: TrainConfig) -> dict:
-    """The layout a rank holds the training state in on an ``(n, 1)``
-    ``mesh``, in ``distributed.sharding.train_state_shardings``'s tree: the
-    parameters whole, but under the expert-parallel route
+    """The layout a rank holds the training state in on ``mesh``, in
+    ``distributed.sharding.train_state_shardings``'s tree; the moments (and
+    the compression's ``err``) always by its (ZeRO-1) specs. On an ``(n,
+    1)`` mesh the parameters are whole, but under the expert-parallel route
     (``cfg.moe_ep_shardmap``) the experts' ``w_gate``, ``w_up`` and
-    ``w_down``, which are this rank's blocks of E/n experts; the moments
-    (and the compression's ``err``) by ``train_state_shardings``'s (ZeRO-1)
-    specs, those expert leaves' as their parameters' blocks. For a dense
-    config this is ``train_state_shardings``."""
+    ``w_down``, which are this rank's blocks of E/n experts, their moments
+    as their parameters' blocks. On a ``"model"`` axis of m > 1 ranks the
+    parameters are cut by ``train_state_shardings``'s rules (heads, kv
+    heads, d_ff and the vocabulary over "model" where they divide), but
+    where ``n_kv_heads`` does not divide by m the ``wk``/``wv`` leaves stay
+    whole (the reference cuts their flat dim whenever it divides, which can
+    leave part of a head on a rank; their moments keep its layout)."""
     out = shd.train_state_shardings(cfg, mesh, tcfg)
     whole = shd.Sharding(mesh, shd.PartitionSpec())
+    if mesh.shape.get("model", 1) > 1:
+        if not tp_cut(cfg.n_kv_heads, mesh.axis("model")):
+            out["params"].update(dict.fromkeys(_kv_leaves(out["params"]), whole))
+        return out
     out["params"] = {n: whole for n in out["params"]}
     if cfg.moe and cfg.moe_ep_shardmap:
         for n in out["params"]:
@@ -175,12 +232,24 @@ def shard_train_state(state: dict, shardings: dict) -> dict:
     """The counterpart of ``jax.device_put(state, shardings)`` with
     ``shardings = state_shardings(cfg, mesh, tcfg)``: AdamW's moments ``m``
     and ``v`` (and the compression's ``err``), made at the parameters' whole
-    shapes, replaced by this rank's blocks, new tensors. The parameters are
+    shapes, replaced by this rank's blocks, new tensors; the parameters that
+    the layout cuts over "model" (tensor-parallel training) replaced by this
+    rank's blocks, new parameters of the model. The other parameters are
     left as they are: whole, or under the expert-parallel route the blocks
     ``models.moe_ep.place_`` cut. In place; returns ``state``."""
 
     def cut(tree, sh):
         return {n: sh[n].local(t).clone() for n, t in tree.items()}
+
+    model = state["params"]
+    for n, sh in shardings["params"].items():
+        if any("model" in names for _, names in sh.cuts()):
+            owner, _, leaf = n.rpartition(".")
+            module = model.get_submodule(owner) if owner else model
+            p = getattr(module, leaf)
+            with torch.no_grad():
+                setattr(module, leaf, nn.Parameter(sh.local(p).clone(),
+                                                   requires_grad=p.requires_grad))
 
     state["opt"]["m"] = cut(state["opt"]["m"], shardings["opt"]["m"])
     state["opt"]["v"] = cut(state["opt"]["v"], shardings["opt"]["v"])
@@ -189,31 +258,46 @@ def shard_train_state(state: dict, shardings: dict) -> dict:
     return state
 
 
-def _check_mesh(mesh) -> None:
-    """Raise for what data-parallel training does not cover yet."""
+def _check_mesh(cfg, mesh) -> None:
+    """Raise for what training across ranks does not cover yet, and for
+    heads that do not divide over the "model" axis; before any collective."""
     if mesh is None:
         return
-    other = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
-    if other:
+    other = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
+    m = mesh.shape.get("model", 1)
+    dense = cfg.family == "dense" and not (cfg.moe or cfg.ssm or cfg.is_encoder or cfg.frontend)
+    if other or (m > 1 and not dense):
+        what = (f"mesh axes {other}" if other
+                else f"{cfg.name} (family {cfg.family!r}) on a \"model\" axis of {m}")
         raise NotImplementedError(
-            f"make_train_step on mesh axes {other}: tensor-parallel training is not ported yet "
-            "(ROADMAP.md, section 1, module item 5b); train data-parallel on an (n, 1) mesh")
+            f"make_train_step on {what}: tensor-parallel training covers the dense decoder "
+            "only; the rest is not ported yet (ROADMAP.md, section 1, module item 5b); train "
+            "it data-parallel on an (n, 1) mesh")
+    if m > 1 and cfg.n_heads % m:
+        raise ValueError(f"make_train_step: {cfg.name}'s {cfg.n_heads} heads do not divide over "
+                         f"the {m} ranks of the \"model\" axis")
 
 
 class _Layout:
-    """Where a data-parallel step's gradients go: ``grad`` the shardings of
-    ``grad_specs`` (None without them), ``moment`` the moments' (the blocks
-    the optimizer updates), ``params`` the parameters' as held
-    (:func:`state_shardings`), ``owned`` the parameters that are this
-    rank's blocks (the expert-parallel route's experts)."""
+    """Where a step's gradients go across ranks: ``grad`` the shardings of
+    ``grad_specs`` within the held parameters (None without them),
+    ``moment`` the moments' (the global layout of the blocks the optimizer
+    updates), ``params`` the parameters' as held (:func:`state_shardings`),
+    ``within`` each moment block's place in the held parameter, ``owned``
+    the parameters that are this rank's blocks over "data" (the
+    expert-parallel route's experts)."""
 
     def __init__(self, cfg, tcfg, mesh, grad_specs):
         self.mesh = mesh
         self.data = mesh.axis("data")
         held = state_shardings(cfg, mesh, tcfg)
         self.moment, self.params = held["opt"]["m"], held["params"]
-        self.owned = {n for n, sh in self.params.items() if not sh.replicated}
-        self.grad = None if grad_specs is None else shd.named(mesh, grad_specs)
+        self.within = {n: self.moment[n].within(self.params[n]) for n in self.params}
+        self.owned = {n for n, sh in self.params.items()
+                      if any("data" in names for _, names in sh.cuts())}
+        self.grad = None if grad_specs is None else {
+            n: sh.within(self.params[n]) for n, sh in shd.named(mesh, grad_specs).items()
+            if n not in self.owned}
 
     def rows(self, batch: dict):
         """(this rank's rows of ``batch``, the axis the rest lie on); the
@@ -230,7 +314,7 @@ class _Layout:
 
     def check(self, params: dict, opt: dict) -> None:
         for n, p in params.items():
-            want = tuple(p.shape if n in self.owned else self.moment[n].local(p).shape)
+            want = tuple(self.within[n].local(p).shape)
             if tuple(opt["m"][n].shape) != want:
                 raise ValueError(f"the moments of {n} are {tuple(opt['m'][n].shape)}, this "
                                  f"rank's block is {want}: cut the state with "
@@ -239,17 +323,20 @@ class _Layout:
     def reduce(self, name: str, summed, whole):
         """The gradient of ``name`` in the moments' layout, from ``summed``
         (this rank's rows' gradient, to sum over "data") and ``whole`` (the
-        global gradient of rows every rank ran), either None. An owned
-        block's gradient is complete on this rank."""
+        global gradient of rows every rank ran), either None, each in the
+        held parameter's layout. An owned block's gradient is complete on
+        this rank; a model-cut block's and a replicated leaf's are complete
+        over "model" (the same on every model rank for the latter)."""
         if name in self.owned:
             return summed
-        g_sh, m_sh = None if self.grad is None else self.grad[name], self.moment[name]
+        g_sh, m_sh = None if self.grad is None else self.grad[name], self.within[name]
         g, blk = None, None
         if summed is not None:
-            cuts = [] if g_sh is None else g_sh.cuts()
+            cuts = [] if g_sh is None else [(d, a) for d, a in g_sh.cuts() if a == ("data",)]
             if cuts:  # the reduce-scatter onto grad_specs' block (one dim, over "data")
                 (d, _), = cuts
-                g, blk = psum_scatter(summed, self.data, d, "dp"), g_sh
+                g = psum_scatter(summed, self.data, d, "dp")
+                blk = shd.Sharding(self.mesh, shd.PartitionSpec(*[None] * d, "data"))
             else:
                 g = psum(summed, self.data, "dp")
         if whole is not None:
@@ -267,16 +354,19 @@ def make_train_step(cfg, tcfg: TrainConfig, grad_specs=None, *, ops=None):
     lr. With ``microbatches`` n > 1 the batch is split as ``a[i::n]``, the
     gradients accumulated in float32 and averaged, the router state threaded through
     the microbatches, and the loss the mean of theirs. Under the ambient
-    model mesh the step is data-parallel (see the module's docstring): each
+    model mesh the step is data-parallel, and tensor-parallel over a
+    "model" axis above 1 (see the module's docstring): each
     microbatch of the global batch is cut into the ranks' rows, and
     ``grad_specs`` (``{name: PartitionSpec}``) reduce-scatters the
     gradients of the leaves it cuts over "data"."""
     mesh = get_mesh()
-    _check_mesh(mesh)
-    layout = (None if mesh is None or not mesh.member or mesh.shape["data"] == 1
+    _check_mesh(cfg, mesh)
+    layout = (None if mesh is None or not mesh.member
+              or mesh.shape["data"] == mesh.shape.get("model", 1) == 1
               else _Layout(cfg, tcfg, mesh, grad_specs))
-    loss_whole = make_loss_fn(cfg, tcfg, ops=ops)
-    loss_rows = None if layout is None else _loss_fn(cfg, tcfg, ops, layout.data)
+    tp = SOLO if layout is None else mesh.axis("model")
+    loss_whole = _loss_fn(cfg, tcfg, ops, SOLO, tp)
+    loss_rows = None if layout is None else _loss_fn(cfg, tcfg, ops, layout.data, tp)
 
     def grads_of(model, names, batch, rs, split):
         loss, (metrics, rs_new) = (loss_rows if split else loss_whole)(model, batch, rs)

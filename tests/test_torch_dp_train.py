@@ -29,8 +29,12 @@ runs every case through ``examples/torch_train_dp.py``'s rank functions:
 
 In this process: a 1x1 mesh (ZeRO-1, ``grad_specs``) is the meshless step
 bitwise; a ``"model"`` axis of more than one rank raises
-``NotImplementedError`` naming module item 5b, for a dense config and an
-MoE one (MoE training on ``(n, 1)`` meshes: ``tests/test_torch_moe_train.py``).
+``NotImplementedError`` naming module item 5b for the configs that
+tensor-parallel training does not cover (MoE by both routes, encoder,
+``vision_stub``, SSM, hybrid; MoE training on ``(n, 1)`` meshes:
+``tests/test_torch_moe_train.py``; a dense decoder's tensor-parallel step:
+``tests/test_torch_tp_train.py``), and ``ValueError`` for a dense config
+whose heads do not divide over it.
 """
 import filecmp
 import sys
@@ -322,14 +326,34 @@ def test_one_by_one_mesh_is_the_meshless_step_bitwise(tkw):
 
 def test_tensor_parallel_and_moe_across_ranks_raise():
     """A ``"model"`` axis of more than one rank raises naming module item
-    5b, for a dense config and for an MoE config (whose ``(n, 1)`` training
-    ``tests/test_torch_moe_train.py`` holds)."""
+    5b for every config but the dense decoder (an MoE config by both routes,
+    whose ``(n, 1)`` training ``tests/test_torch_moe_train.py`` holds, an
+    encoder, a ``vision_stub`` config, an SSM and a hybrid one), as does a
+    ``"pod"`` axis; a dense config whose heads do not divide over the axis
+    raises ``ValueError`` when the step is built."""
     mesh = ModelMesh((("data", Axis(None, 2, 0)), ("model", Axis(None, 2, 0))))
-    for cfg in (get_config("stablelm_3b").reduced(), get_config("granite_moe_1b").reduced(),
-                get_config("granite_moe_1b").reduced().with_(moe_ep_shardmap=True)):
+    for cfg in (get_config("granite_moe_1b").reduced(),
+                get_config("granite_moe_1b").reduced().with_(moe_ep_shardmap=True),
+                get_config("hubert_xlarge").reduced(), get_config("internvl2_1b").reduced(),
+                get_config("mamba2_1_3b").reduced(), get_config("zamba2_1_2b").reduced()):
         set_mesh(mesh)
         try:
             with pytest.raises(NotImplementedError, match="module item 5b"):
                 ptl.make_train_step(cfg, ptl.TrainConfig())
         finally:
             set_mesh(None)
+    pod = ModelMesh((("pod", Axis(None, 2, 0)), ("data", Axis()), ("model", Axis())))
+    set_mesh(pod)
+    try:
+        with pytest.raises(NotImplementedError, match="module item 5b"):
+            ptl.make_train_step(get_config("stablelm_3b").reduced(), ptl.TrainConfig())
+    finally:
+        set_mesh(None)
+    set_mesh(ModelMesh((("data", Axis()), ("model", Axis(None, 4, 1)))))
+    try:
+        with pytest.raises(ValueError, match="6 heads do not divide over the 4 ranks"):
+            ptl.make_train_step(get_config("stablelm_3b").reduced().with_(n_heads=6,
+                                                                          n_kv_heads=6),
+                                ptl.TrainConfig())
+    finally:
+        set_mesh(None)

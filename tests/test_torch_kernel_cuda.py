@@ -42,7 +42,11 @@ matches its arithmetic stated in plain PyTorch within 1e-2 and raises on a
 misaligned pointer or stride; the kernel runs under
 ``kernels.ops.flash_attention``'s autograd, and a reduced train step's gradients on the kernel route match the
 plain route within 1e-4, and on a 1x1 model mesh (ZeRO-1 moments,
-``grad_specs``) two steps equal the meshless steps bitwise; a reduced
+``grad_specs``) two steps equal the meshless steps bitwise (internvl2-1b,
+and stablelm-3b, the dense decoder that trains tensor-parallel); on a
+(1, 2) mesh of two gloo ranks sharing the card a reduced stablelm-3b step
+(each rank half the heads, kernels 5 and 5b on them) matches the one-rank
+step's loss and grad norm within rel 1e-5; a reduced
 MoE train step (granite-moe-1b's reduction, drops) on the card equals its
 run on the CPU in each layer's selections, keep masks, loads and dropped
 fractions and its router state, the loss within rel 1e-5, and gains
@@ -58,6 +62,9 @@ Run on the machine with the card:
 
 (``--noconftest``: ``tests/conftest.py`` imports the JAX package.)
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -783,14 +790,11 @@ def test_moe_train_step_card_equals_cpu(cuda_device, router):
     assert torch.equal(rg, rc)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_train_step_on_a_one_by_one_mesh_is_the_meshless_step_bitwise(cuda_device, dtype):
-    """Two reduced internvl2-1b train steps on the card under a 1x1 model
-    mesh, the moments cut by ``train_state_shardings`` (ZeRO-1) and the
-    gradients by ``grad_specs``, equal the steps without a mesh bitwise:
-    parameters, moments and metrics."""
-    from repro_torch.configs import get_config
-    from repro_torch.data.specs import make_batch
+def _one_by_one_and_meshless(cfg, batch, device):
+    """Two train steps of ``cfg`` on the card under a 1x1 model mesh, the
+    moments cut by ``train_state_shardings`` (ZeRO-1) and the gradients by
+    ``grad_specs``, and without a mesh: each run's state (flattened) and
+    last metrics."""
     from repro_torch.distributed import set_mesh
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
@@ -799,15 +803,13 @@ def test_train_step_on_a_one_by_one_mesh_is_the_meshless_step_bitwise(cuda_devic
     from repro_torch.training import train_loop as ptl
     from repro_torch.training.optimizer import OptConfig
 
-    cfg = get_config("internvl2_1b").reduced().with_(param_dtype=dtype, compute_dtype=dtype)
     tcfg = ptl.TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10))
-    batch = make_batch(np.random.default_rng(0), cfg, 4, 64, device=cuda_device)
 
     def run(mesh):
         set_mesh(mesh)
         try:
-            gen = torch.Generator(cuda_device).manual_seed(0)
-            state = ptl.init_train_state(cfg, tcfg, gen, cuda_device)
+            gen = torch.Generator(device).manual_seed(0)
+            state = ptl.init_train_state(cfg, tcfg, gen, device)
             specs = None
             if mesh is not None:
                 ptl.shard_train_state(state, shd.train_state_shardings(cfg, mesh, tcfg))
@@ -819,10 +821,68 @@ def test_train_step_on_a_one_by_one_mesh_is_the_meshless_step_bitwise(cuda_devic
             set_mesh(None)
         return ck.flatten_state(state), met
 
-    (a, ma), (b, mb) = run(None), run(make_host_mesh(1, 1))
+    return run(None), run(make_host_mesh(1, 1))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_train_step_on_a_one_by_one_mesh_is_the_meshless_step_bitwise(cuda_device, dtype):
+    """Two reduced internvl2-1b train steps on the card under a 1x1 model
+    mesh, the moments cut by ``train_state_shardings`` (ZeRO-1) and the
+    gradients by ``grad_specs``, equal the steps without a mesh bitwise:
+    parameters, moments and metrics."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.specs import make_batch
+
+    cfg = get_config("internvl2_1b").reduced().with_(param_dtype=dtype, compute_dtype=dtype)
+    batch = make_batch(np.random.default_rng(0), cfg, 4, 64, device=cuda_device)
+    (a, ma), (b, mb) = _one_by_one_and_meshless(cfg, batch, cuda_device)
     assert list(a) == list(b)
     assert all(torch.equal(a[k].detach(), b[k].detach()) for k in a)
     assert all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+def test_dense_decoder_step_on_a_one_by_one_mesh_is_the_meshless_step_bitwise(cuda_device):
+    """The tensor-parallel train step's route with a "model" axis of one
+    rank: two reduced stablelm-3b (float32) steps on the card under a 1x1
+    mesh equal the meshless steps bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.specs import make_batch
+
+    cfg = get_config("stablelm_3b").reduced()
+    batch = make_batch(np.random.default_rng(0), cfg, 4, 64, device=cuda_device)
+    (a, ma), (b, mb) = _one_by_one_and_meshless(cfg, batch, cuda_device)
+    assert list(a) == list(b)
+    assert all(torch.equal(a[k].detach(), b[k].detach()) for k in a)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+def test_tensor_parallel_step_on_two_gloo_ranks_on_the_card(cuda_device):
+    """One reduced stablelm-3b (float32) step on a (1, 2) mesh of two gloo
+    ranks sharing the card (each rank 2 of the 4 heads, half of d_ff and of
+    the vocabulary, kernels 5 and 5b on its heads) against the one-rank step
+    on the card: loss and grad norm within rel 1e-5, every rank's metrics
+    the same."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import spawn_world
+    from repro_torch.training import train_loop as ptl
+    from repro_torch.training.optimizer import OptConfig
+
+    sys.path.insert(0, str(Path(chip_smoke.__file__).parent / "examples"))
+    import torch_train_dp as ex
+
+    cfg = get_config("stablelm_3b").reduced()
+    tcfg = ptl.TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+    batch = TokenPipeline(cfg, batch=4, seq=64, seed=0).next_batch()
+    one = ex.train_rank(cfg, tcfg, None, None, [batch], device="cuda", keep_state=False)
+    outs = spawn_world(ex.train_rank, 2, "gloo", 240, (cfg, tcfg, (1, 2), None, [batch]))
+    want = one["metrics"][0]
+    for out in outs:
+        assert out["metrics"] == outs[0]["metrics"]
+        assert out["tags"][0]["tp"] > 0
+        for key in ("loss", "grad_norm"):
+            got = out["metrics"][0][key]
+            assert abs(got - want[key]) <= 1e-5 * abs(want[key]), (key, got, want[key])
 
 
 def test_sharded_one_nccl_rank_takes_the_kernel_route(cuda_device):
