@@ -149,7 +149,7 @@ I=16384 serving fleet, counting the kernel launches of each:
   router and ``models/moe_ep.py``'s expert-parallel route under
   ``make_train_step``; no kernel of its own): Q1 one NCCL rank in this
   process, granite-moe-1b at full width (32 experts, top-8, capacity
-  factor 1.25), 8 of its 24 layers, in bf16 on phase M's batch, two steps on a
+  factor 1.25), 4 of its 24 layers, in bf16 on phase M's batch, two steps on a
   1x1 mesh bitwise the meshless steps, kernels 5 and 5b once
   per layer a step, then the kernel route against the plain route at 2
   layers in f32 (within 1e-4); Q2 four gloo ranks sharing the card on a
@@ -173,7 +173,20 @@ I=16384 serving fleet, counting the kernel launches of each:
   rank's parameter blocks within the ``_param_bound`` rule, its moment
   blocks within 1e-4 of scale, replicated parameters and gradients the
   same on the ranks), kernels 5 and 5b once per layer a step on every rank
-  on its heads. R1 runs after Q1, R2 and R3 in phase N's world after Q2.
+  on its heads. R1 runs after Q1, R2 and R3 in phase N's world after Q2;
+* phase S, tensor-parallel training of the MoE decoder (``make_train_step``
+  on a ``"model"`` axis above 1 with an MoE config: ``models/moe.py``'s
+  experts cut over "model", ``models/moe_ep.py``'s F-cut experts; no kernel
+  of its own): four gloo ranks sharing the card, Q2's model, batch and
+  one-rank f32 references (no new reference run), one step each: S1 the
+  global-batch router at capacity factor 1.25 on (1, 4), S2 on (2, 2) with
+  ZeRO-1 moments over both axes, S3 the expert-parallel route at 4.0 on
+  (2, 2); each against its one-rank step (loss and grad norm within rel
+  1e-5, each layer's loads, ``dropped_frac`` and selections and the router
+  state equal, each rank's parameter blocks within the ``_param_bound``
+  rule, its moment blocks within 1e-4 of scale, replicated parameters and
+  gradients the same on the ranks), kernels 5 and 5b once per layer a step
+  on every rank on its heads. S runs in phase N's world after R2 and R3.
 
 It checks the results and prints:
 
@@ -233,6 +246,9 @@ It checks the results and prints:
   R1's step wall ms, and per mesh each rank's step wall ms, share in
   collectives, the collectives' seconds and elements by tag (``"tp"``,
   ``"dp"``) beside R1's;
+* for phase S, per step each rank's step wall ms, share in collectives, the
+  collectives' seconds and elements by tag (``"tp"``, ``"ep"``, ``"moe"``,
+  ``"dp"``) beside Q2's one-rank step's;
 * one JSON line ``{"kernels": [...]}`` (eight kernels: the seven TPU
   kernels' counterparts and the flash attention backward; the slot
   kernel's row carries its batched entry under ``"batched"`` and its
@@ -246,8 +262,9 @@ It checks the results and prints:
   launches on rank 0's P2 steps under ``"dp_launches"``, row 5 its P3
   launches under ``"pipeline_launches"``, rows 5 and 5b their launches on
   Q1's meshless steps under ``"moe_train_launches"`` and on rank 0's Q2
-  steps under ``"moe_dp_launches"``, and a step's on rank 0 of each phase R
-  mesh under ``"tp_launches"``, the backward's row its
+  steps under ``"moe_dp_launches"``, a step's on rank 0 of each phase R
+  mesh under ``"tp_launches"`` and of each phase S step under
+  ``"moe_tp_launches"``, the backward's row its
   M3 launches under ``"encoder_launches"``, its route under
   ``"kernel_route"`` and its passes' ms under ``"passes_ms"``), then, last,
   ``{"ok": true, "device": {...}}``.
@@ -4330,7 +4347,7 @@ def sharded_path(card, cuda, fleet=None, also=(), also_timeout_s=None):
     print(f"  wall ms/slot per rank: " + ", ".join(f"{w:.3f}" for w in wall_ms)
           + "; share in collectives: " + ", ".join(f"{x:.3f}" for x in share)
           + f"; the world {world_s:.1f} s"
-          + (" (with phases O's, P's and Q's calls)" if also else "")
+          + (" (with phases O's, P's, Q's, R's and S's calls)" if also else "")
           + ": the ranks up after "
           + ", ".join(f"{s['entered'] - started:.1f}" for s in stats) + " s, the dyadic cases "
           + ", ".join(f"{s['cases_s']:.1f}" for s in stats) + f" s [{card}]")
@@ -5151,13 +5168,14 @@ def dp_train_path(card, cuda, prepared=None, world=None):
 
 # granite-moe-1b, its published config (32 experts, top-8, capacity factor 1.25): Q1 one NCCL
 # rank at full width in bf16 on phase M's batch (TRAIN_B x TRAIN_S), cut to MOE_TRAIN_LAYERS of
-# its 24 layers (from all 24, to make room for phase R: its checks do not depend on the depth),
+# its 24 layers (from all 24 to 8 to make room for phase R, then to 4 for phase S: its checks
+# do not depend on the depth),
 # MOE_TRAIN_STEPS steps on a 1x1 mesh against no mesh, then one step each in turns; Q2 four gloo
 # ranks sharing the card in phase N's world, full width cut to MOE_DP_LAYERS of 24 layers, f32,
 # a global batch of MOE_DP_B x MOE_DP_S on a 4x1 mesh, one step by each route against the
 # one-rank step on the card: route (a) at the config's capacity factor (drops happen), route
 # (b) at 4.0 (cap >= N: nothing drops at either stage)
-MOE_TRAIN_ARCH, MOE_TRAIN_STEPS, MOE_TRAIN_LAYERS = "granite_moe_1b", 2, 8
+MOE_TRAIN_ARCH, MOE_TRAIN_STEPS, MOE_TRAIN_LAYERS = "granite_moe_1b", 2, 4
 MOE_DP_LAYERS, MOE_DP_B, MOE_DP_S, MOE_DP_TIMEOUT_S = 2, 8, 256, 240
 MOE_DP_ROUTES = {"a": (False, None), "b": (True, 4.0)}  # (moe_ep_shardmap, capacity factor)
 
@@ -5173,10 +5191,11 @@ def moe_train_cfg(dtype, n_layers=None, ep=False, cf=None):
                      moe_ep_shardmap=ep, capacity_factor=cf or cfg.capacity_factor)
 
 
-def moe_layers(cfg, state, batch, axis=None):
+def moe_layers(cfg, state, batch, axis=None, tp=None):
     """The forward of ``batch`` without grad (this rank's rows of a global
-    batch cut over ``axis``, None: the whole batch): each MoE layer's load
-    and ``dropped_frac`` (global) and this rank's selections, on the CPU."""
+    batch cut over ``axis``, None: the whole batch; the weights cut over the
+    model axis ``tp``, None: whole): each MoE layer's load and
+    ``dropped_frac`` (global) and this rank's selections, on the CPU."""
     import torch
 
     from repro_torch.distributed import SOLO
@@ -5184,7 +5203,7 @@ def moe_layers(cfg, state, batch, axis=None):
 
     with torch.no_grad():
         _, aux = pz.forward(state["params"], cfg, batch, state["router_state"],
-                            axis=axis or SOLO)
+                            axis=axis or SOLO, tp=tp or SOLO)
     return [dict(load=a["load"].cpu(), dropped=float(a["dropped_frac"]), top_i=a["top_i"].cpu())
             for a in aux["moe_layers"]]
 
@@ -5367,7 +5386,7 @@ def moe_world_calls(cuda, prepared):
     return [(q2_rank, (prepared[0], str(cuda)), {})]
 
 
-def moe_train_path(card, cuda, prepared=None, world=None):
+def moe_train_path(card, cuda, prepared=None, world=None, keep_refs=False):
     """Phase Q, MoE training across ranks: Q1 (:func:`moe_one_rank`); Q2
     four gloo ranks sharing the card on a 4x1 mesh, f32, one step by each
     route against the one-rank f32 step on the card: loss and grad norm
@@ -5381,10 +5400,11 @@ def moe_train_path(card, cuda, prepared=None, world=None):
     across the ranks and restored onto one rank here, bitwise every rank's
     blocks. ``prepared``: :func:`moe_prepare`'s result, ``world``: each
     rank's results of :func:`moe_world_calls` where another phase's world
-    ran them (phase N's, in a whole run); else they run here. Callable
-    alone after ``card_setup`` and ``build_kernels`` (kernels 5 and 5b).
-    Returns the launches of kernels 5 and 5b on Q1's meshless steps and on
-    rank 0's Q2 steps."""
+    ran them (phase N's, in a whole run); else they run here; ``keep_refs``:
+    leave Q2's references in their directory for phase S. Callable alone
+    after ``card_setup`` and ``build_kernels`` (kernels 5 and 5b). Returns
+    the launches of kernels 5 and 5b on Q1's meshless steps and on rank 0's
+    Q2 steps."""
     import shutil
 
     import torch
@@ -5485,7 +5505,8 @@ def moe_train_path(card, cuda, prepared=None, world=None):
         del fresh, restored
         torch.cuda.empty_cache()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not keep_refs:
+            shutil.rmtree(tmp, ignore_errors=True)
     print(f"  phase Q {time.perf_counter() - t_phase:.1f} s [{card}]")
     return {k: dict(train=q1[k], dp=sum(q2[0][r]["step"]["launches"][k] for r in MOE_DP_ROUTES))
             for k in ("flash_attention", "flash_attention_bwd")}
@@ -5739,6 +5760,197 @@ def tp_train_path(card, cuda, prepared=None, world=None):
             for k in ("flash_attention", "flash_attention_bwd")}
 
 
+# ---------------------------------------------------------------------------
+# phase S: tensor-parallel training of the MoE decoder (make_train_step on a "model" axis
+# above 1 with an MoE config: models/moe.py's experts cut over "model", models/moe_ep.py's
+# F-cut experts under distributed.copy_to/reduce_from)
+# ---------------------------------------------------------------------------
+
+# Q2's model and batch (granite-moe-1b at full width, MOE_DP_LAYERS of its 24 layers, f32, a
+# global batch of MOE_DP_B x MOE_DP_S), four gloo ranks sharing the card in phase N's world after
+# R2 and R3, one step each against Q2's one-rank f32 references (no new reference run): the
+# route of MOE_DP_ROUTES (its capacity factor) on a mesh
+MOE_TP_STEPS = {"S1": ("a", (1, 4)), "S2": ("a", (2, 2)), "S3": ("b", (2, 2))}
+MOE_TP_TIMEOUT_S = 240
+
+
+def s_rank(tmp, device):
+    """One rank of phase S: for each step of ``MOE_TP_STEPS``, the state
+    placed and cut to this rank's blocks (``dp_stepper``), the forward's MoE
+    layers on this rank's rows and heads, one step timed and counted with
+    its collectives' seconds by tag, the gaps against Q2's reference of its
+    route (``dp_gaps``) and the fingerprints of this rank's leaves."""
+    import torch
+
+    from repro_torch.distributed import set_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import train_loop as ptl
+
+    out = {}
+    for label, (route, shape) in MOE_TP_STEPS.items():
+        t0 = time.perf_counter()
+        ep, cf = MOE_DP_ROUTES[route]
+        cfg, tcfg = moe_train_cfg("float32", MOE_DP_LAYERS, ep=ep, cf=cf), dp_tcfg()
+        mesh = make_host_mesh(*shape)
+        held = ptl.state_shardings(cfg, mesh, tcfg)
+        state, step = dp_stepper(cfg, tcfg, mesh, device)
+        batch = dp_batch(cfg, MOE_DP_B, device, MOE_DP_S)
+        data, model, n = mesh.axis("data"), mesh.axis("model"), MOE_DP_B // shape[0]
+        rows = {k: v[data.index * n:(data.index + 1) * n] for k, v in batch.items()}
+        set_mesh(mesh)
+        try:
+            layers = moe_layers(cfg, state, rows, data, model)
+        finally:
+            set_mesh(None)
+        r = dict(setup_s=time.perf_counter() - t0, layers=layers,
+                 coords=(data.index, model.index))
+        state, r["step"] = timed_step(step, state, batch)
+        r["gaps"] = dp_gaps(state, Path(tmp) / f"moe_{route}.pt", held, tcfg.opt.b1, device)
+        r["router_state"] = state["router_state"].cpu()
+        r["prints"] = leaf_prints(state)
+        r["model_cut"] = sorted(
+            f"{tree}/{n}" for tree, shs in (("params", held["params"]),
+                                            ("opt/m", held["opt"]["m"]))
+            for n, sh in shs.items() if any("model" in a for _, a in sh.cuts()))
+        r["wall_s"] = time.perf_counter() - t0
+        out[label] = r
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_tp_world_calls(cuda, prepared):
+    """Phase S's call for each rank of a world of ``DP_RANKS`` gloo ranks
+    sharing the card (``spawn_world(call_each, ...)``)."""
+    return [(s_rank, (prepared[0], str(cuda)), {})]
+
+
+def moe_tp_train_path(card, cuda, prepared=None, world=None):
+    """Phase S, tensor-parallel training of the MoE decoder
+    (``make_train_step`` on a ``"model"`` axis above 1): four gloo ranks
+    sharing the card, ``MOE_TRAIN_ARCH`` at full width, ``MOE_DP_LAYERS``
+    layers, f32, one step each of ``MOE_TP_STEPS`` on Q2's global batch,
+    against Q2's one-rank step of its route: loss and grad norm within rel
+    1e-5 and the same on every rank, each MoE layer's loads,
+    ``dropped_frac`` and the data rows' selections equal to the one-rank
+    forward's (the same on a data row's model ranks), the router state
+    equal, each rank's parameter blocks within the ``_param_bound`` rule and
+    their largest gap over scale, its moment blocks within
+    ``TP_MOMENT_TOL`` of scale, every parameter that "model" does not cut
+    the same on every rank and its moment block the same on a data row's
+    model ranks, kernels 5 and 5b once per layer a step on every rank, the
+    step walls and the collectives' seconds and elements by tag.
+    ``prepared``: :func:`moe_prepare`'s result (Q2's references, kept by
+    ``moe_train_path(..., keep_refs=True)``; this removes them), ``world``:
+    each rank's results of :func:`moe_tp_world_calls` where another phase's
+    world ran them (phase N's, in a whole run); else the references and the
+    world run here. Callable alone after ``card_setup`` and ``build_kernels``
+    (kernels 5 and 5b). Returns rank 0's launches of kernels 5 and 5b a
+    step, by step."""
+    import shutil
+
+    import torch
+
+    from repro_torch.distributed import call_each, spawn_world
+
+    t_phase = time.perf_counter()
+    if prepared is None:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_tp_")
+        prepared = (tmp, moe_dp_reference(card, cuda, tmp))
+    tmp, refs = prepared[:2]
+    launches = {}
+    try:
+        if world is None:
+            t0 = time.perf_counter()
+            world = spawn_world(call_each, DP_RANKS, "gloo", MOE_TP_TIMEOUT_S,
+                                (moe_tp_world_calls(cuda, prepared),))
+            print(f"  S in a world of its own, {time.perf_counter() - t0:.1f} s [{card}]")
+        ss = [w[0] for w in world]
+        want = dict(ZERO_COUNTS, flash_attention=MOE_DP_LAYERS, flash_attention_bwd=MOE_DP_LAYERS)
+        for label, (route, (n_data, n_model)) in MOE_TP_STEPS.items():
+            ep, cf = MOE_DP_ROUTES[route]
+            cfg = moe_train_cfg("float32", MOE_DP_LAYERS, ep=ep, cf=cf)
+            ref = torch.load(Path(tmp) / f"moe_{route}.pt", weights_only=True)
+            outs = [out[label] for out in ss]
+            worst = {"loss": 0.0, "grad_norm": 0.0}
+            for r, out in enumerate(outs):
+                st = out["step"]
+                check(st["launches"] == want, f"{label} rank {r}: launches {st['launches']}")
+                check(st["metrics"] == outs[0]["step"]["metrics"],
+                      f"{label}: rank {r}'s metrics differ from rank 0's")
+                for key in worst:
+                    worst[key] = max(worst[key], rel_diff(st["metrics"][key],
+                                                          refs[route]["metrics"][key]))
+            same_rs = all(torch.equal(out["router_state"], ref["router_state"]) for out in outs)
+            loads = all(torch.equal(out["layers"][i]["load"], layer["load"])
+                        and out["layers"][i]["dropped"] == layer["dropped"]
+                        for out in outs for i, layer in enumerate(ref["layers"]))
+            picks = all(
+                torch.equal(torch.cat([outs[d * n_model]["layers"][i]["top_i"]
+                                       for d in range(n_data)]), layer["top_i"])
+                and all(torch.equal(out["layers"][i]["top_i"],
+                                    outs[out["coords"][0] * n_model]["layers"][i]["top_i"])
+                        for out in outs)
+                for i, layer in enumerate(ref["layers"]))
+            drops = [layer["dropped"] for layer in ref["layers"]]
+            excess = max(out["gaps"]["param_excess"] for out in outs)
+            p_gap = max(out["gaps"]["param_gap"] for out in outs)
+            m_gap = max(out["gaps"]["m_gap"] for out in outs)
+            cut = set(outs[0]["model_cut"])
+            same_params = all(out["prints"][k] == outs[0]["prints"][k] for out in outs[1:]
+                              for k in out["prints"] if k.startswith("params/") and k not in cut)
+            same_grads = all(a["prints"][k] == b["prints"][k] for a in outs for b in outs
+                             if a["coords"][0] == b["coords"][0]
+                             for k in a["prints"] if k.startswith("opt/m/") and k not in cut)
+            name = "global-batch router" if route == "a" else "expert-parallel route"
+            sts = [out["step"] for out in outs]
+            print(f"{label} {DP_RANKS} gloo ranks on the card, ({n_data}, {n_model}) mesh, the "
+                  f"{name}, {cfg.name} {MOE_DP_LAYERS} of 24 layers f32 (a rank: "
+                  f"{cfg.n_heads // n_model} heads, "
+                  + (f"{cfg.n_experts // n_model} of {cfg.n_experts} experts of d_ff {cfg.d_ff}"
+                     if route == "a" else f"{cfg.n_experts // n_data} of {cfg.n_experts} experts "
+                     f"of d_ff {cfg.d_ff // n_model}")
+                  + f", the vocabulary of {cfg.vocab_size} whole; {MOE_DP_B // n_data} rows), "
+                  f"capacity factor {cfg.capacity_factor}, ZeRO-1 moments, grad_specs: loss "
+                  f"{sts[0]['metrics']['loss']:.6f}, moe_aux {sts[0]['metrics']['moe_aux']:.6f}; "
+                  f"against Q2's one-rank step: loss rel {worst['loss']:.3e}, grad norm rel "
+                  f"{worst['grad_norm']:.3e} (limit 1e-5); each layer's loads and dropped_frac "
+                  f"equal: {loads} (dropped_frac " + ", ".join(f"{d:.6f}" for d in drops)
+                  + f"); the selections equal: {picks}; router state equal: {same_rs}; the "
+                  f"parameters' largest gap {p_gap:.3e} of scale, largest excess over the "
+                  f"_param_bound rule {excess:.3e} (held <= 0); the moment blocks {m_gap:.3e} "
+                  f"of scale (limit {TP_MOMENT_TOL}); every rank's replicated parameters "
+                  f"identical: {same_params}; the replicated leaves' gradients (moment blocks) "
+                  f"identical on a data row's model ranks: {same_grads}; launches a step on "
+                  f"every rank flash_attention={MOE_DP_LAYERS} "
+                  f"flash_attention_bwd={MOE_DP_LAYERS} [{card}]")
+            check(max(worst.values()) <= 1e-5, f"{label}: loss/grad norm beyond rel 1e-5: {worst}")
+            check(loads and picks and same_rs, f"{label}: loads, dropped_frac, selections or "
+                                               "router state differ from the one-rank step")
+            check(excess <= 0.0, f"{label}: a parameter beyond the _param_bound rule by {excess}")
+            check(m_gap <= TP_MOMENT_TOL, f"{label}: moment blocks {m_gap} of scale off")
+            check(same_params and same_grads,
+                  f"{label}: replicated parameters or gradients differ across ranks")
+            if route == "b":  # cap >= N: nothing can drop
+                check(max(drops) == 0.0, f"{label}: dropped_frac {drops}")
+            print(f"  {label} step wall ms per rank " + ", ".join(f"{s['wall_s'] * 1e3:.2f}"
+                                                                for s in sts)
+                  + "; share in collectives " + ", ".join(
+                      f"{s['collective_s'] / s['wall_s']:.3f}" for s in sts)
+                  + "; collective seconds by tag (rank 0) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(sts[0]["tag_seconds"].items()))
+                  + f"; elements by tag {sts[0]['tags']} in {sts[0]['calls']} collectives; "
+                  f"Q2's one rank without a mesh {refs[route]['wall_s'] * 1e3:.2f} ms; the "
+                  f"rank's set-up {outs[0]['setup_s']:.1f} s [{card}]")
+            launches[f"{label} {(n_data, n_model)}"] = {
+                k: sts[0]["launches"][k] for k in ("flash_attention", "flash_attention_bwd")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase S {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {k: {step: n[k] for step, n in launches.items()}
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
 def slot_kernel(card, cuda):
     """Section 2: the slot kernel against its plain version on the card: the
     dyadic system bitwise (potus, shuffle, jsq; K=1 and 8), the I=16384
@@ -5885,7 +6097,8 @@ def card_setup():
     (``slot_kernel``, ``main_path``, ``drain_kernel``, ``ssm_path``,
     ``sweep_path``, ``obs_path``, ``oracle_path``, ``moe_path``,
     ``training_path``, ``sharded_path``, ``moe_ep_path``,
-    ``dp_train_path``, ``moe_train_path``, ``tp_train_path``) starts with this and
+    ``dp_train_path``, ``moe_train_path``, ``tp_train_path``,
+    ``moe_tp_train_path``) starts with this and
     :func:`build_kernels`."""
     import torch
 
@@ -5991,12 +6204,14 @@ def run_phases(pt, cf, card, cuda) -> int:
     tp_prepared = tp_prepare(card, cuda)
 
     # -- 14. phase N: the instance-sharded engines (kernel 1 on one rank); its world of
-    # four gloo ranks then runs phase O's O2 and O3, phase P's P2 and P3, phase Q's Q2 and
-    # phase R's R2 and R3 (one start-up for all) ---------------------------------------------
+    # four gloo ranks then runs phase O's O2 and O3, phase P's P2 and P3, phase Q's Q2,
+    # phase R's R2 and R3 and phase S (one start-up for all) ----------------------------------
     slot.row["sharded_launches"], world = sharded_path(
         card, cuda, slot.fleet, also=ep_world_calls(cuda) + dp_world_calls(cuda, dp_prepared)
-        + moe_world_calls(cuda, moe_prepared) + tp_world_calls(cuda, tp_prepared),
-        also_timeout_s=EP_TIMEOUT_S + DP_TIMEOUT_S + MOE_DP_TIMEOUT_S + TP_TIMEOUT_S)
+        + moe_world_calls(cuda, moe_prepared) + tp_world_calls(cuda, tp_prepared)
+        + moe_tp_world_calls(cuda, moe_prepared),
+        also_timeout_s=EP_TIMEOUT_S + DP_TIMEOUT_S + MOE_DP_TIMEOUT_S + TP_TIMEOUT_S
+        + MOE_TP_TIMEOUT_S)
 
     # -- 15. phase O: expert-parallel MoE serving (kernels 2, 5 and 6 on every rank) ----
     ep = moe_ep_path(card, cuda, world=[out[:2] for out in world])
@@ -6011,7 +6226,8 @@ def run_phases(pt, cf, card, cuda) -> int:
     bwd_kernel["dp_launches"] = dp["flash_attention_bwd"]
 
     # -- 17. phase Q: MoE training across ranks (kernels 5 and 5b on every rank) --------
-    moe_train = moe_train_path(card, cuda, moe_prepared, world=[out[4:] for out in world])
+    moe_train = moe_train_path(card, cuda, moe_prepared, world=[out[4:] for out in world],
+                               keep_refs=True)
     for row, name in ((attention_kernels[0], "flash_attention"),
                       (bwd_kernel, "flash_attention_bwd")):
         row["moe_train_launches"] = moe_train[name]["train"]
@@ -6023,7 +6239,13 @@ def run_phases(pt, cf, card, cuda) -> int:
                       (bwd_kernel, "flash_attention_bwd")):
         row["tp_launches"] = tp[name]
 
-    # -- 19. the kernels line, 20. the last line ---------------------------------
+    # -- 19. phase S: tensor-parallel MoE training (kernels 5 and 5b on every rank's heads) --
+    moe_tp = moe_tp_train_path(card, cuda, moe_prepared, world=[out[6:] for out in world])
+    for row, name in ((attention_kernels[0], "flash_attention"),
+                      (bwd_kernel, "flash_attention_bwd")):
+        row["moe_tp_launches"] = moe_tp[name]
+
+    # -- 20. the kernels line, 21. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel, bwd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,8 +13,9 @@ repository root:
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py
 
 prints one JSON line: the step wall ms of each rank (median over the timed
-steps), the share of that wall in collectives, the ``"dp"`` elements a step
-and the losses. Under NCCL a collective returns once it is queued on the
+steps), the share of that wall in collectives, each rank's peak device
+memory (``max_memory_allocated``), the ``"dp"`` elements a step and the
+losses. Under NCCL a collective returns once it is queued on the
 card, so the share is then that of enqueueing them
 (``collective_enqueue_share``); under gloo it is the exchanges' own.
 ``--arch`` picks the model (internvl2-1b by default) at its full width,
@@ -26,12 +27,16 @@ route (``moe_ep_shardmap``: each rank holds E/n experts):
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
       --arch granite_moe_1b --ep
 
-``--model-axis m`` trains a dense decoder tensor-parallel on a (ranks/m, m)
-mesh (each rank holds its blocks of the heads, d_ff and the vocabulary;
-``models.common``), its moments ZeRO-1 blocks over both axes:
+``--model-axis m`` trains a dense or MoE decoder tensor-parallel on a
+(ranks/m, m) mesh (each rank holds its blocks of the heads, d_ff and the
+vocabulary, ``models.common``, and of an MoE model E/m of the experts, or
+with ``--ep`` E/(ranks/m) experts cut to their F/m block), its moments
+ZeRO-1 blocks over both axes:
 
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
       --arch stablelm_3b --layers 2 --model-axis 4
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
+      --arch granite_moe_1b --layers 8 --model-axis 2 --ep
 
 The module-level functions run on one rank of a world that is already up
 (``repro_torch.distributed.spawn_world`` starts one in child processes):
@@ -112,11 +117,12 @@ def _rows(batch: dict, mesh):
 @torch.no_grad()
 def moe_probe(cfg, state, batch, mesh):
     """The forward of an MoE model on this rank's rows of ``batch`` (numpy),
-    as the train step runs it: each MoE layer's ``load``, ``dropped_frac``,
-    ``aux_loss`` and ``router_state`` (global) and this rank's ``top_i``
-    and ``keep``, on the CPU."""
+    as the train step runs it (over the mesh's "model" axis too): each MoE
+    layer's ``load``, ``dropped_frac``, ``aux_loss`` and ``router_state``
+    (global) and this rank's ``top_i`` and ``keep``, on the CPU."""
     rows, axis = _rows(as_tensors(batch, cfg, state["router_state"].device), mesh)
-    _, aux = pz.forward(state["params"], cfg, rows, state["router_state"], axis=axis)
+    tp = SOLO if mesh is None else mesh.axis("model")
+    _, aux = pz.forward(state["params"], cfg, rows, state["router_state"], axis=axis, tp=tp)
     keys = ("load", "dropped_frac", "aux_loss", "router_state", "top_i", "keep")
     return [{k: None if a[k] is None else a[k].detach().cpu() for k in keys}
             for a in aux["moe_layers"]]
@@ -231,7 +237,8 @@ def main() -> None:
     ap.add_argument("--ep", action="store_true",
                     help="an MoE model by the expert-parallel route (moe_ep_shardmap)")
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="ranks of the mesh's \"model\" axis (tensor-parallel, a dense decoder)")
+                    help="ranks of the mesh's \"model\" axis (tensor-parallel, a dense or MoE "
+                         "decoder)")
     args = ap.parse_args()
     if "RANK" in os.environ:  # started by torchrun: one rank per card
         if args.device == "cuda":
@@ -254,7 +261,9 @@ def main() -> None:
     out = train_rank(cfg, tcfg, mesh_shape, None, batches, grad_specs=True, device=device,
                      keep_state=False)
     walls = out["wall_s"][1:]  # the first step's launches load the kernels
-    mine = (float(np.median(walls)), float(np.sum(out["collective_s"][1:]) / np.sum(walls)))
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    mine = (float(np.median(walls)), float(np.sum(out["collective_s"][1:]) / np.sum(walls)),
+            peak)
     per_rank = [mine] * world
     if dist.is_initialized():
         dist.all_gather_object(per_rank, mine)
@@ -269,6 +278,7 @@ def main() -> None:
             "step_ms_median_per_rank": [r[0] * 1e3 for r in per_rank],
             ("collective_enqueue_share" if nccl else "collective_share"):
                 [r[1] for r in per_rank],
+            "peak_memory_bytes_per_rank": [r[2] for r in per_rank],
             "dp_elements_per_step": out["elements"][-1],
             "elements_per_step_by_tag": out["tags"][-1], "moe_route":
                 (None if not cfg.moe else "expert-parallel" if args.ep else "global-batch"),

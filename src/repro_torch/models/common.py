@@ -127,20 +127,20 @@ class MLP(nn.Module):
             raise ValueError(f"unknown mlp_type {mlp_type!r}")
         self.w_out = nn.Linear(d_ff, d_model, **kw)
 
-    def forward(self, x, tp=SOLO):
+    def forward(self, x, tp=SOLO, tag: str = "tp"):
         """``tp``: the model axis; when it cuts ``d_ff`` (:func:`tp_cut`) this
         rank holds its block of the inner units and the output is summed over
-        the ranks."""
+        the ranks, the collectives counted under ``tag``."""
         cut = tp_cut(self.d_ff, tp)
         if cut:
-            x = copy_to(x, tp)
+            x = copy_to(x, tp, tag)
         if self.mlp_type == "swiglu":
             h = F.silu(self.w_gate(x)) * self.w_up(x)
         elif self.mlp_type == "geglu":
             h = F.gelu(self.w_gate(x), approximate="tanh") * self.w_up(x)
         else:
             h = F.gelu(self.w_in(x), approximate="tanh")
-        return reduce_from(self.w_out(h), tp) if cut else self.w_out(h)
+        return reduce_from(self.w_out(h), tp, tag) if cut else self.w_out(h)
 
 
 # ---------------------------------------------------------------------------

@@ -64,15 +64,20 @@ mesh, takes and returns this rank's rows (``moe_ep.moe_ffn_ep``'s
 the caller set, issues the same collectives.
 
 ``forward(..., tp=)`` is the tensor-parallel train step's: the model mesh's
-``"model"`` axis, over which each rank holds its blocks of the dense
-decoder's weights (``models.common``; ``training.train_loop.shard_train_state``
-cuts them). The embedding ``(vocab, embed)`` is vocab-parallel: each rank
-looks up the ids in its range of the vocabulary, writes zeros elsewhere,
-and the ranks' lookups are summed (``distributed.reduce_from``); the LM head
-is cut by its vocabulary rows, so the logits are this rank's vocabulary
-block (with ``tie_embeddings`` the one cut leaf serves both). A vocabulary
-that does not divide over the ranks stays whole on every rank, with whole
-logits. It travels down to the blocks as ``axis`` does.
+``"model"`` axis, over which each rank holds its blocks of the decoder's
+weights (``models.common``; ``training.train_loop.shard_train_state`` cuts
+them): in an MoE layer E/m of the experts (``moe.moe_ffn``'s ``tp``), or
+under the expert-parallel route its F/m block of each of its experts
+(``moe_ep.moe_ffn_ep``, which reads the mesh's "model" axis). The embedding
+``(vocab, embed)`` is vocab-parallel: each rank looks up the ids in its
+range of the vocabulary, writes zeros elsewhere, and the ranks' lookups
+are summed (``distributed.reduce_from``); the LM head is cut by its
+vocabulary rows, so the logits are this rank's vocabulary block (with
+``tie_embeddings`` the one cut leaf serves both). A vocabulary that does
+not divide over the ranks (granite-moe-1b's 49155 over 2 or 4) stays whole
+on every rank: the lookup and the head then take no ``copy_to`` or
+``reduce_from`` (their gradients are the same on every model rank) and the
+logits are whole. It travels down to the blocks as ``axis`` does.
 """
 from __future__ import annotations
 
@@ -137,7 +142,8 @@ class Block(nn.Module):
         state on (the given one without a state) and its layer's ``aux``
         (``moe.moe_ffn``'s); an MLP block the state as given and None.
         ``axis``: the axis ``x``'s rows are cut over, ``tp`` the model axis
-        that cuts the MLP (:func:`forward`)."""
+        that cuts the MLP or the experts (:func:`forward`; the
+        expert-parallel route reads the mesh's own "model" axis)."""
         h_in = self.ln2(x)
         if self.moe is None:
             return x + self.mlp(h_in, tp), router_state, None
@@ -145,7 +151,7 @@ class Block(nn.Module):
         if mesh is not None:
             h, aux = moe_ffn_ep(self.moe, h_in, cfg, mesh, router_state, axis)
         else:
-            h, aux = moe_ffn(self.moe, h_in, cfg, router_state, axis)
+            h, aux = moe_ffn(self.moe, h_in, cfg, router_state, axis, tp)
         rs = aux["router_state"] if aux["router_state"] is not None else router_state
         return x + h, rs, aux
 

@@ -58,6 +58,23 @@ share of the global one. On :data:`~repro_torch.distributed.SOLO` (every
 caller but training across ranks) ``aux_term`` is ``aux_loss`` and the
 function is the one-rank layer, bitwise. The collectives count under
 ``"moe"``.
+
+The experts over a model axis (``tp``). Under tensor-parallel training each
+rank of the mesh's ``"model"`` axis holds E/m of the experts, by the
+reference's rule (``"experts"`` over "model", where E divides; the
+reference also cuts F over "data", FSDP, which the port leaves whole). The
+routing (the selections, capacity, positions, loads, the router state, the
+aux loss and ``dropped_frac``) is computed whole, the same on every model
+rank. A rank runs the expert products only for the kept entries routed to
+its own experts, every other entry going to the cut-off row, and its
+combine is a partial sum that leaves the layer through
+``distributed.reduce_from``. Two ``distributed.copy_to`` carry the
+gradients the ranks split: one on the token rows entering the buffer, one
+on the combine weights (a rank's products cover only its experts, so its
+router gradient through them would be partial). The router's input gets
+none: its path runs whole on every rank. The shared expert runs its own cut
+of ``d_ff`` (``common.MLP``). Where E does not divide, the experts stay
+whole on every rank and the layer runs as without ``tp``.
 """
 from __future__ import annotations
 
@@ -68,8 +85,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.context import SOLO, all_gather, psum
-from .common import MLP
+from ..distributed.context import SOLO, all_gather, copy_to, psum, reduce_from
+from .common import MLP, tp_cut
 
 __all__ = ["MoE", "moe_ffn", "init_router_state", "moe_capacity"]
 
@@ -130,7 +147,7 @@ def _bmm(a, b):
     return torch.bmm(a.to(dtype), b.to(dtype))
 
 
-def moe_ffn(moe, x, cfg, router_state=None, axis=SOLO):
+def moe_ffn(moe, x, cfg, router_state=None, axis=SOLO, tp=SOLO):
     """x: (B, S, D), this rank's rows of the batch whose other rows the
     ranks of ``axis`` hold (:data:`SOLO`: the whole batch). Returns ``(y
     (B, S, D), aux)``; ``aux`` holds the tensors ``aux_loss``,
@@ -138,7 +155,9 @@ def moe_ffn(moe, x, cfg, router_state=None, axis=SOLO):
     drops) and ``router_state``, the updated virtual queues (None without a
     state), all global, ``aux_term``, this rank's term of ``aux_loss``
     (with the gradient), and this rank's ``keep`` (N*k,) and ``top_i``
-    (N, k)."""
+    (N, k). ``tp``: the model axis whose ranks each hold E/m of the experts
+    where E divides over it (``moe``'s ``w_gate``, ``w_up`` and ``w_down``
+    are then this rank's block) and the shared expert's block of ``d_ff``."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     N = B * S
@@ -176,21 +195,33 @@ def moe_ffn(moe, x, cfg, router_state=None, axis=SOLO):
         pos = local + ranks[:axis.index, :E].sum(dim=0).to(torch.int32)[flat_e]
         load, imp_sums = ranks[:, :E].sum(dim=0), ranks[:, E:].sum(dim=0)
     keep = pos < cap  # a kept entry's local position is below cap too: its rank's row
-    slot = torch.where(keep, flat_e * cap + local, E * cap).view(N, k)  # E*cap: the cut-off row
+    cut = tp_cut(E, tp)
+    xin, w = xf, top_w
+    if cut:  # this model rank's experts: the others' entries go to the cut-off row
+        E_loc = E // tp.size
+        mine = keep & (flat_e // E_loc == tp.index)
+        slot = torch.where(mine, (flat_e - tp.index * E_loc) * cap + local, E_loc * cap)
+        xin, w = copy_to(xf, tp), copy_to(top_w, tp)
+    else:
+        E_loc = E
+        slot = torch.where(keep, flat_e * cap + local, E * cap)  # E*cap: the cut-off row
+    slot = slot.view(N, k)
 
-    buf = x.new_zeros((E * cap + 1, D))
-    buf[slot] = xf[:, None, :]  # each token into its k rows; no two kept entries share one
-    expert_in = buf[:E * cap].view(E, cap, D)
+    buf = x.new_zeros((E_loc * cap + 1, D))
+    buf[slot] = xin[:, None, :]  # each token into its k rows; no two kept entries share one
+    expert_in = buf[:E_loc * cap].view(E_loc, cap, D)
 
     h = F.silu(_bmm(expert_in, moe.w_gate)) * _bmm(expert_in, moe.w_up)
     # the products as rows 0..E*cap-1 above one zero row, so that a dropped
     # entry gathers 0 (a new tensor, not an out= write: autograd flows)
-    out = F.pad(_bmm(h, moe.w_down).view(E * cap, D), (0, 0, 0, 1))
+    out = F.pad(_bmm(h, moe.w_down).view(E_loc * cap, D), (0, 0, 0, 1))
     y_tok = out[slot]  # (N, k, D)
-    y = (y_tok * top_w[..., None].to(x.dtype)).sum(dim=1)
+    y = (y_tok * w[..., None].to(x.dtype)).sum(dim=1)
+    if cut:  # this rank's experts' share of the combine
+        y = reduce_from(y, tp)
 
     if moe.shared is not None:
-        y = y + moe.shared(xf)
+        y = y + moe.shared(xf, tp)
 
     # --- balance metrics + POTUS virtual-queue update -----------------------
     frac = load / float(max(Ng * k, 1))  # load.sum() is Ng*k, exactly in f32

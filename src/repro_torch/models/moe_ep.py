@@ -39,12 +39,18 @@ The reference's ``psum`` and ``pmean`` over "data" (the load, the
 importance and the kept share) travel as one all-reduce here; the sums of
 each element are the same.
 
-Under the train step (``training.train_loop`` on an ``(n, 1)`` mesh) each
-rank passes its own rows of the batch and gets its rows' ``y``
-(``moe_ffn_ep(..., rows=data)``): no cut and no gather. The layer is
-differentiable: the ``all_to_all`` exchanges and the ``psum`` over
-"model" carry their gradients back (``distributed.context``), so an
-expert block's gradient is complete on its rank, summed over every rank's
+Under the train step (``training.train_loop`` on an ``(n, 1)``, ``(1, m)``
+or ``(d, m)`` mesh) each rank passes its own rows of the batch and gets
+its rows' ``y`` (``moe_ffn_ep(..., rows=data)``): no cut and no gather.
+The layer is differentiable: the ``all_to_all`` exchanges carry their
+gradients back (``distributed.context``), and the sum over "model" is the
+conjugate pair of tensor-parallel training, every model rank computing the
+same loss: ``distributed.copy_to`` on the expert buffer entering the F-cut
+products (the sum of the model ranks' cotangents), ``reduce_from`` on
+their partial output (the ``psum`` forward, the identity backward), and
+the shared expert's own pair (``common.MLP``'s cut of its ``d_ff``). The
+router and the send buffers are whole on every model rank. So an expert
+block's gradient is complete on its rank, summed over every rank's
 tokens, and is not summed over "data". The folded all-reduce carries none:
 ``aux["aux_term"]``, this rank's term of the load-balance loss (as
 ``moe.moe_ffn`` builds it), carries the importance's gradient, and its sum
@@ -59,7 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.context import SOLO, all_gather, all_to_all, psum
+from ..distributed.context import SOLO, all_gather, all_to_all, copy_to, psum, reduce_from
 from .moe import MoE, _aux_term, _bmm, _mean, init_router_state, moe_capacity
 
 __all__ = ["moe_ffn_ep", "place_", "check_mesh"]
@@ -125,10 +131,11 @@ def _local_moe(moe, xf, cfg, router_state, data, model):
     slot2 = torch.where(keep2, rec_e * cap_loc + pos2, E_loc * cap_loc)
     buf = xf.new_zeros((E_loc * cap_loc + 1, D))
     buf[slot2] = rec_tok
-    expert_in = buf[:-1].view(E_loc, cap_loc, D)
+    # the F-cut products' entry: each model rank's cotangent is its part of the whole one
+    expert_in = copy_to(buf[:-1].view(E_loc, cap_loc, D), model, "ep")
 
     h = F.silu(_bmm(expert_in, moe.w_gate)) * _bmm(expert_in, moe.w_up)
-    y_exp = psum(_bmm(h, moe.w_down), model, "ep")  # partial over F_loc: summed over "model"
+    y_exp = reduce_from(_bmm(h, moe.w_down), model, "ep")  # partial over F_loc: summed
     back = F.pad(y_exp.view(E_loc * cap_loc, D), (0, 0, 0, 1))[slot2]  # (R, D); dropped -> 0
     ret = F.pad(all_to_all(back, data), (0, 0, 0, 1))  # our entries' results, one zero row
     y_tok = ret[slot.view(N_loc, k)]  # (N_loc, k, D); dropped -> 0
@@ -136,7 +143,7 @@ def _local_moe(moe, xf, cfg, router_state, data, model):
 
     if moe.shared is not None:
         # the shared expert runs tensor-parallel: its F/mp columns give a partial sum
-        y = y + psum(moe.shared(xf), model, "ep")
+        y = y + moe.shared(xf, model, "ep")
 
     # ---- aux metrics: one all-reduce over "data" of load, importance, kept share ----
     load_loc = (flat_e[None, :] == torch.arange(E, device=dev)[:, None]).sum(1).float()

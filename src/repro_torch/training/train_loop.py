@@ -29,12 +29,13 @@ mesh takes no part: its state comes back as given, with the mesh's metrics.
 On a mesh of one rank the step is the one-rank step, bitwise.
 
 A ``"model"`` axis of m > 1 ranks trains a dense decoder (family
-``"dense"``, no frontend, no MoE) tensor-parallel, composed with the
-``"data"`` axis on (1, m) and (d, m) meshes (Megatron's layout,
-``models.common``): each rank holds its blocks of the weights that the
-reference's rules cut over "model" (heads, kv heads, d_ff and the
-vocabulary, ``distributed.sharding.param_rules``) and whole the others
-(the norms); :func:`shard_train_state` cuts them. Every rank of a data row
+``"dense"``) or an MoE decoder (family ``"moe"``), with no frontend,
+tensor-parallel, composed with the ``"data"`` axis on (1, m) and (d, m)
+meshes (Megatron's layout, ``models.common``): each rank holds its blocks
+of the weights that the reference's rules cut over "model" (heads, kv
+heads, d_ff and the vocabulary, ``distributed.sharding.param_rules``) and
+whole the others (the norms, the MoE router); :func:`shard_train_state`
+cuts them. Every rank of a data row
 computes the same loss. On vocabulary-cut logits the loss takes ``logz``
 by a ``pmax`` and a sum of ``exp`` over "model", and the gold logit by a
 masked local gather summed over "model" (the reference's one-hot
@@ -46,10 +47,11 @@ model-cut leaf are cut over both axes; AdamW updates the moment block
 within the rank's parameter block and all-gathers over "data" alone. The
 heads must divide over the ranks (``ValueError``); kv heads that do not
 leave ``wk``/``wv`` whole on every rank (:func:`state_shardings`, a layout
-that parts from the reference's, whose flat kv dim may cut a head). MoE,
-``vision_stub``, encoder, SSM and hybrid configs on such a mesh, and any
-axis other than "data" and "model", raise ``NotImplementedError`` (module
-item 5b).
+that parts from the reference's, whose flat kv dim may cut a head). A
+vocabulary that does not divide stays whole on every rank, as the
+reference drops the cut, and the loss takes whole logits. ``vision_stub``,
+encoder, SSM and hybrid configs on such a mesh, and any axis other than
+"data" and "model", raise ``NotImplementedError`` (module item 5b).
 
 An MoE config trains across ranks by either of the reference's routes:
 
@@ -58,15 +60,21 @@ An MoE config trains across ranks by either of the reference's routes:
   positions, loads, the router state and ``dropped_frac`` are the
   reference's under GSPMD, from collectives), with the whole expert weights
   on every rank. The reference's layout cuts the experts' inner dim F over
-  "data" (FSDP); here the parameters stay whole, their moments cut by the
-  ZeRO-1 rules as any leaf's; holding them as blocks and gathering them a
-  layer at a time is left for later (ROADMAP.md, module item 5b);
+  "data" (FSDP); here F stays whole, the moments cut by the ZeRO-1 rules
+  within the held block; holding F as blocks and gathering it a layer at
+  a time is left for later (ROADMAP.md, module item 5b). On a "model" axis
+  of m > 1 ranks each rank holds E/m of the experts by the reference's
+  rule (whole where E does not divide): the routing is computed whole on
+  every model rank and each rank runs its own experts' entries
+  (``moe_ffn``'s ``tp``); their gradients are complete on the rank and
+  summed over "data";
 * the expert-parallel route (``moe_ep_shardmap`` with the mesh set, the
-  model placed by ``models.moe_ep.place_``): each rank holds E/n experts,
-  whose gradients are complete on their rank (the ``all_to_all``'s
-  backward) and are not summed; their moments are blocks of the same
-  layout, updated in place with no gather. Its batch must split over
-  "data".
+  model placed by ``models.moe_ep.place_``): each rank holds E/d experts,
+  each cut to its F/m block over "model", whose gradients are complete on
+  their rank (the ``all_to_all``'s backward, the model ranks' cotangents
+  summed by ``copy_to``) and are not summed; their moments are blocks of
+  the same layout, updated in place with no gather. Its batch must split
+  over "data".
 
 :func:`state_shardings` gives the layout a rank holds the state in, which
 :func:`shard_train_state` cuts and ``training.checkpoint`` gathers and
@@ -197,34 +205,51 @@ def _kv_leaves(names) -> list[str]:
     return [n for n in names if n.split(".")[-3:-1] in (["attn", "wk"], ["attn", "wv"])]
 
 
+def _expert_leaves(names) -> list[str]:
+    """The experts' ``w_gate``, ``w_up`` and ``w_down`` among ``names`` (not the
+    shared expert's)."""
+    return [n for n in names if n.rpartition(".")[0].endswith(".moe")
+            and n.rpartition(".")[2] in _EXPERT_BLOCKS]
+
+
 def state_shardings(cfg, mesh, tcfg: TrainConfig) -> dict:
     """The layout a rank holds the training state in on ``mesh``, in
     ``distributed.sharding.train_state_shardings``'s tree; the moments (and
-    the compression's ``err``) always by its (ZeRO-1) specs. On an ``(n,
-    1)`` mesh the parameters are whole, but under the expert-parallel route
-    (``cfg.moe_ep_shardmap``) the experts' ``w_gate``, ``w_up`` and
-    ``w_down``, which are this rank's blocks of E/n experts, their moments
-    as their parameters' blocks. On a ``"model"`` axis of m > 1 ranks the
-    parameters are cut by ``train_state_shardings``'s rules (heads, kv
+    the compression's ``err``) by its (ZeRO-1) specs, but under the
+    expert-parallel route (``cfg.moe_ep_shardmap``) the experts' ``w_gate``,
+    ``w_up`` and ``w_down`` and their moments are held as the blocks
+    ``moe_ep.place_`` cuts, E/d experts by "data" and F/m by "model". On an
+    ``(n, 1)`` mesh the other parameters are whole. On a ``"model"`` axis of
+    m > 1 ranks they are cut by ``train_state_shardings``'s rules (heads, kv
     heads, d_ff and the vocabulary over "model" where they divide), but
     where ``n_kv_heads`` does not divide by m the ``wk``/``wv`` leaves stay
     whole (the reference cuts their flat dim whenever it divides, which can
-    leave part of a head on a rank; their moments keep its layout)."""
+    leave part of a head on a rank; their moments keep its layout); the MoE
+    router stays whole (every model rank routes the whole batch); and under
+    the global-batch router the experts are held as E/m of them where E
+    divides, F whole (the reference also cuts F over "data", its FSDP
+    storage), their moments the ZeRO-1 blocks within that block."""
     out = shd.train_state_shardings(cfg, mesh, tcfg)
     whole = shd.Sharding(mesh, shd.PartitionSpec())
+    params = out["params"]
     if mesh.shape.get("model", 1) > 1:
-        if not tp_cut(cfg.n_kv_heads, mesh.axis("model")):
-            out["params"].update(dict.fromkeys(_kv_leaves(out["params"]), whole))
-        return out
-    out["params"] = {n: whole for n in out["params"]}
+        model = mesh.axis("model")
+        if not tp_cut(cfg.n_kv_heads, model):
+            params.update(dict.fromkeys(_kv_leaves(params), whole))
+        if cfg.moe:
+            params.update({n: whole for n in params if n.endswith(".moe.router")})
+            if not cfg.moe_ep_shardmap:
+                experts = (shd.Sharding(mesh, shd.PartitionSpec("model"))
+                           if tp_cut(cfg.n_experts, model) else whole)
+                params.update(dict.fromkeys(_expert_leaves(params), experts))
+    else:
+        out["params"] = params = {n: whole for n in params}
     if cfg.moe and cfg.moe_ep_shardmap:
-        for n in out["params"]:
-            owner, _, leaf = n.rpartition(".")
-            if owner.endswith(".moe") and leaf in _EXPERT_BLOCKS:
-                blk = shd.Sharding(mesh, shd.PartitionSpec(*_EXPERT_BLOCKS[leaf]))
-                out["params"][n] = out["opt"]["m"][n] = out["opt"]["v"][n] = blk
-                if "err" in out:
-                    out["err"][n] = blk
+        for n in _expert_leaves(params):
+            blk = shd.Sharding(mesh, shd.PartitionSpec(*_EXPERT_BLOCKS[n.rpartition(".")[2]]))
+            params[n] = out["opt"]["m"][n] = out["opt"]["v"][n] = blk
+            if "err" in out:
+                out["err"][n] = blk
     return out
 
 
@@ -234,9 +259,12 @@ def shard_train_state(state: dict, shardings: dict) -> dict:
     and ``v`` (and the compression's ``err``), made at the parameters' whole
     shapes, replaced by this rank's blocks, new tensors; the parameters that
     the layout cuts over "model" (tensor-parallel training) replaced by this
-    rank's blocks, new parameters of the model. The other parameters are
-    left as they are: whole, or under the expert-parallel route the blocks
-    ``models.moe_ep.place_`` cut. In place; returns ``state``."""
+    rank's blocks, new parameters of the model, unless they are that block
+    already: under the expert-parallel route ``models.moe_ep.place_`` cut the
+    experts and the shared expert's columns (a parameter whose shape is not
+    its moments' whole one is left as it is), and cutting them again would
+    cut a block of the block. The other parameters are left whole. In place;
+    returns ``state``."""
 
     def cut(tree, sh):
         return {n: sh[n].local(t).clone() for n, t in tree.items()}
@@ -247,6 +275,8 @@ def shard_train_state(state: dict, shardings: dict) -> dict:
             owner, _, leaf = n.rpartition(".")
             module = model.get_submodule(owner) if owner else model
             p = getattr(module, leaf)
+            if p.shape != state["opt"]["m"][n].shape:  # placed: this rank's block already
+                continue
             with torch.no_grad():
                 setattr(module, leaf, nn.Parameter(sh.local(p).clone(),
                                                    requires_grad=p.requires_grad))
@@ -265,14 +295,15 @@ def _check_mesh(cfg, mesh) -> None:
         return
     other = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
     m = mesh.shape.get("model", 1)
-    dense = cfg.family == "dense" and not (cfg.moe or cfg.ssm or cfg.is_encoder or cfg.frontend)
-    if other or (m > 1 and not dense):
+    decoder = (cfg.family == ("moe" if cfg.moe else "dense")
+               and not (cfg.ssm or cfg.is_encoder or cfg.frontend))
+    if other or (m > 1 and not decoder):
         what = (f"mesh axes {other}" if other
                 else f"{cfg.name} (family {cfg.family!r}) on a \"model\" axis of {m}")
         raise NotImplementedError(
-            f"make_train_step on {what}: tensor-parallel training covers the dense decoder "
-            "only; the rest is not ported yet (ROADMAP.md, section 1, module item 5b); train "
-            "it data-parallel on an (n, 1) mesh")
+            f"make_train_step on {what}: tensor-parallel training covers the dense and MoE "
+            "decoders only; the rest is not ported yet (ROADMAP.md, section 1, module item "
+            "5b); train it data-parallel on an (n, 1) mesh")
     if m > 1 and cfg.n_heads % m:
         raise ValueError(f"make_train_step: {cfg.name}'s {cfg.n_heads} heads do not divide over "
                          f"the {m} ranks of the \"model\" axis")
@@ -284,8 +315,8 @@ class _Layout:
     ``moment`` the moments' (the global layout of the blocks the optimizer
     updates), ``params`` the parameters' as held (:func:`state_shardings`),
     ``within`` each moment block's place in the held parameter, ``owned``
-    the parameters that are this rank's blocks over "data" (the
-    expert-parallel route's experts)."""
+    the parameters whose gradient is complete on this rank and is not
+    summed (the expert-parallel route's experts)."""
 
     def __init__(self, cfg, tcfg, mesh, grad_specs):
         self.mesh = mesh
@@ -293,8 +324,7 @@ class _Layout:
         held = state_shardings(cfg, mesh, tcfg)
         self.moment, self.params = held["opt"]["m"], held["params"]
         self.within = {n: self.moment[n].within(self.params[n]) for n in self.params}
-        self.owned = {n for n, sh in self.params.items()
-                      if any("data" in names for _, names in sh.cuts())}
+        self.owned = set(_expert_leaves(self.params) if cfg.moe and cfg.moe_ep_shardmap else ())
         self.grad = None if grad_specs is None else {
             n: sh.within(self.params[n]) for n, sh in shd.named(mesh, grad_specs).items()
             if n not in self.owned}
@@ -327,8 +357,8 @@ class _Layout:
         held parameter's layout. An owned block's gradient is complete on
         this rank; a model-cut block's and a replicated leaf's are complete
         over "model" (the same on every model rank for the latter)."""
-        if name in self.owned:
-            return summed
+        if name in self.owned:  # rows over a "data" axis of one rank are not split
+            return whole if summed is None else summed
         g_sh, m_sh = None if self.grad is None else self.grad[name], self.within[name]
         g, blk = None, None
         if summed is not None:

@@ -30,11 +30,11 @@ runs every case through ``examples/torch_train_dp.py``'s rank functions:
 In this process: a 1x1 mesh (ZeRO-1, ``grad_specs``) is the meshless step
 bitwise; a ``"model"`` axis of more than one rank raises
 ``NotImplementedError`` naming module item 5b for the configs that
-tensor-parallel training does not cover (MoE by both routes, encoder,
-``vision_stub``, SSM, hybrid; MoE training on ``(n, 1)`` meshes:
-``tests/test_torch_moe_train.py``; a dense decoder's tensor-parallel step:
-``tests/test_torch_tp_train.py``), and ``ValueError`` for a dense config
-whose heads do not divide over it.
+tensor-parallel training does not cover (encoder, ``vision_stub``, SSM,
+hybrid; MoE training on ``(n, 1)`` meshes: ``tests/test_torch_moe_train.py``;
+a dense decoder's tensor-parallel step: ``tests/test_torch_tp_train.py``;
+an MoE decoder's: ``tests/test_torch_moe_tp_train.py``), and ``ValueError``
+for a dense config whose heads do not divide over it.
 """
 import filecmp
 import sys
@@ -326,15 +326,13 @@ def test_one_by_one_mesh_is_the_meshless_step_bitwise(tkw):
 
 def test_tensor_parallel_and_moe_across_ranks_raise():
     """A ``"model"`` axis of more than one rank raises naming module item
-    5b for every config but the dense decoder (an MoE config by both routes,
-    whose ``(n, 1)`` training ``tests/test_torch_moe_train.py`` holds, an
-    encoder, a ``vision_stub`` config, an SSM and a hybrid one), as does a
-    ``"pod"`` axis; a dense config whose heads do not divide over the axis
-    raises ``ValueError`` when the step is built."""
+    5b for every config but the dense and MoE decoders (an encoder, a
+    ``vision_stub`` config, an SSM and a hybrid one; the MoE decoder's
+    tensor-parallel training ``tests/test_torch_moe_tp_train.py`` holds), as
+    does a ``"pod"`` axis; a dense config whose heads do not divide over the
+    axis raises ``ValueError`` when the step is built."""
     mesh = ModelMesh((("data", Axis(None, 2, 0)), ("model", Axis(None, 2, 0))))
-    for cfg in (get_config("granite_moe_1b").reduced(),
-                get_config("granite_moe_1b").reduced().with_(moe_ep_shardmap=True),
-                get_config("hubert_xlarge").reduced(), get_config("internvl2_1b").reduced(),
+    for cfg in (get_config("hubert_xlarge").reduced(), get_config("internvl2_1b").reduced(),
                 get_config("mamba2_1_3b").reduced(), get_config("zamba2_1_2b").reduced()):
         set_mesh(mesh)
         try:

@@ -458,20 +458,22 @@ def test_payload_counter_counts_nothing_on_one_rank():
 
 def test_item_5b_raises_across_ranks():
     """What the multi-rank model half still lacks raises across ranks, naming
-    item 5b: tensor-parallel training, of an MoE config too (a ``"model"``
-    axis of more than one rank). (An MoE config trains on an ``(n, 1)``
-    mesh: ``tests/test_torch_moe_train.py``; the MoE block across ranks
-    runs the expert-parallel dispatch under a mesh:
-    ``tests/test_torch_moe_ep.py``.)"""
+    item 5b: tensor-parallel training (a ``"model"`` axis of more than one
+    rank) of a ``vision_stub`` config; an MoE config's step, by the
+    expert-parallel route, builds on the same mesh (its tensor-parallel
+    training: ``tests/test_torch_moe_tp_train.py``; on an ``(n, 1)`` mesh:
+    ``tests/test_torch_moe_train.py``; the MoE block across ranks runs the
+    expert-parallel dispatch under a mesh: ``tests/test_torch_moe_ep.py``)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import Axis, set_mesh
     from repro_torch.launch.mesh import ModelMesh
     from repro_torch.training import train_loop as ptl
 
-    cfg = get_config("granite_moe_1b").reduced().with_(moe_ep_shardmap=True)
     set_mesh(ModelMesh((("data", Axis(None, 2, 0)), ("model", Axis(None, 2, 0)))))
     try:
         with pytest.raises(NotImplementedError, match="module item 5b"):
-            ptl.make_train_step(cfg, ptl.TrainConfig())
+            ptl.make_train_step(get_config("internvl2_1b").reduced(), ptl.TrainConfig())
+        cfg = get_config("granite_moe_1b").reduced().with_(moe_ep_shardmap=True)
+        assert callable(ptl.make_train_step(cfg, ptl.TrainConfig()))
     finally:
         set_mesh(None)
