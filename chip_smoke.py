@@ -186,7 +186,23 @@ I=16384 serving fleet, counting the kernel launches of each:
   state equal, each rank's parameter blocks within the ``_param_bound``
   rule, its moment blocks within 1e-4 of scale, replicated parameters and
   gradients the same on the ranks), kernels 5 and 5b once per layer a step
-  on every rank on its heads. S runs in phase N's world after R2 and R3.
+  on every rank on its heads. S runs in phase N's world after R2 and R3;
+* phase T, tensor-parallel training of the ``vision_stub`` and encoder
+  configs (``make_train_step`` on a ``"model"`` axis above 1 for
+  internvl2-1b and hubert-xlarge; no kernel of its own): kernels 5 and 5b
+  alone at the ranks' shapes (f32; internvl2-1b's 7/1 heads of 64 causal,
+  hubert-xlarge's 4 and 8 heads of 80 bidirectional, S=512) against their
+  plain versions; T1 each config at full width, 2 layers, f32, one step
+  without a mesh in this process on a global batch of 4 x 512
+  (internvl2-1b's first 256 positions patches, their labels -1); four gloo
+  ranks sharing the card, one step each: T2 internvl2-1b on (1, 2) (ranks
+  2 and 3 off the mesh), T3 hubert-xlarge on (1, 4) and on (2, 2) (ZeRO-1
+  moments over both axes); each against T1 (loss and grad norm within rel
+  1e-5, the token count T1's, each rank's parameter blocks within the
+  ``_param_bound`` rule, its moment blocks within 1e-4 of scale,
+  replicated parameters and gradients the same on the ranks), kernels 5
+  and 5b once per layer a step on every member rank on its heads. T1 runs
+  after R1, T2 and T3 in phase N's world after S.
 
 It checks the results and prints:
 
@@ -249,6 +265,10 @@ It checks the results and prints:
 * for phase S, per step each rank's step wall ms, share in collectives, the
   collectives' seconds and elements by tag (``"tp"``, ``"ep"``, ``"moe"``,
   ``"dp"``) beside Q2's one-rank step's;
+* for phase T, kernels 5 and 5b's event ms per call at the ranks' shapes,
+  T1's step wall ms, per step each member rank's step wall ms, share in
+  collectives, the collectives' seconds and elements by tag beside T1's,
+  and each rank's seconds in the phase;
 * one JSON line ``{"kernels": [...]}`` (eight kernels: the seven TPU
   kernels' counterparts and the flash attention backward; the slot
   kernel's row carries its batched entry under ``"batched"`` and its
@@ -263,8 +283,9 @@ It checks the results and prints:
   launches under ``"pipeline_launches"``, rows 5 and 5b their launches on
   Q1's meshless steps under ``"moe_train_launches"`` and on rank 0's Q2
   steps under ``"moe_dp_launches"``, a step's on rank 0 of each phase R
-  mesh under ``"tp_launches"`` and of each phase S step under
-  ``"moe_tp_launches"``, the backward's row its
+  mesh under ``"tp_launches"``, of each phase S step under
+  ``"moe_tp_launches"`` and of each phase T step under
+  ``"frontend_tp_launches"``, the backward's row its
   M3 launches under ``"encoder_launches"``, its route under
   ``"kernel_route"`` and its passes' ms under ``"passes_ms"``), then, last,
   ``{"ok": true, "device": {...}}``.
@@ -4347,7 +4368,7 @@ def sharded_path(card, cuda, fleet=None, also=(), also_timeout_s=None):
     print(f"  wall ms/slot per rank: " + ", ".join(f"{w:.3f}" for w in wall_ms)
           + "; share in collectives: " + ", ".join(f"{x:.3f}" for x in share)
           + f"; the world {world_s:.1f} s"
-          + (" (with phases O's, P's, Q's, R's and S's calls)" if also else "")
+          + (" (with phases O's, P's, Q's, R's, S's and T's calls)" if also else "")
           + ": the ranks up after "
           + ", ".join(f"{s['entered'] - started:.1f}" for s in stats) + " s, the dyadic cases "
           + ", ".join(f"{s['cases_s']:.1f}" for s in stats) + f" s [{card}]")
@@ -5530,6 +5551,66 @@ TP_MESHES = {"R2": (1, 4), "R3": (2, 2)}
 TP_MOMENT_TOL = 1e-4
 
 
+def model_cut_keys(held):
+    """The flattened keys (``params/<name>``, ``opt/m/<name>``) of the
+    leaves that ``held`` (``state_shardings``) cuts over "model"."""
+    return sorted(f"{tree}/{n}" for tree, shs in (("params", held["params"]),
+                                                  ("opt/m", held["opt"]["m"]))
+                  for n, sh in shs.items() if any("model" in a for _, a in sh.cuts()))
+
+
+def tp_agreement(outs, ref_metrics):
+    """What phases R, S and T hold of one tensor-parallel step on the mesh's
+    ranks (each rank's ``gaps``, ``prints``, ``model_cut`` and ``coords``):
+    the worst rel gaps of loss and grad norm to ``ref_metrics``, the
+    parameters' largest gap over scale and excess over the ``_param_bound``
+    rule, the moment blocks' largest gap over scale, whether every
+    replicated parameter is identical on the ranks and every moment block
+    of a leaf that "model" does not cut identical on a data row's model
+    ranks, and the text that reports them."""
+    a = dict(worst={k: max(rel_diff(o["step"]["metrics"][k], ref_metrics[k]) for o in outs)
+                    for k in ("loss", "grad_norm")},
+             excess=max(o["gaps"]["param_excess"] for o in outs),
+             p_gap=max(o["gaps"]["param_gap"] for o in outs),
+             m_gap=max(o["gaps"]["m_gap"] for o in outs))
+    cut = set(outs[0]["model_cut"])
+    a["same_params"] = all(o["prints"][k] == outs[0]["prints"][k] for o in outs[1:]
+                           for k in o["prints"] if k.startswith("params/") and k not in cut)
+    a["same_grads"] = all(x["prints"][k] == y["prints"][k] for x in outs for y in outs
+                          if x["coords"][0] == y["coords"][0]
+                          for k in x["prints"] if k.startswith("opt/m/") and k not in cut)
+    a["text"] = (f"loss rel {a['worst']['loss']:.3e}, grad norm rel {a['worst']['grad_norm']:.3e} "
+                 f"(limit 1e-5); the parameters' largest gap {a['p_gap']:.3e} of scale, largest "
+                 f"excess over the _param_bound rule {a['excess']:.3e} (held <= 0); the moment "
+                 f"blocks {a['m_gap']:.3e} of scale (limit {TP_MOMENT_TOL}); every rank's "
+                 f"replicated parameters identical: {a['same_params']}; the replicated leaves' "
+                 f"gradients (moment blocks) identical on a data row's model ranks: "
+                 f"{a['same_grads']}")
+    return a
+
+
+def hold_tp_agreement(label, a):
+    """Fail unless :func:`tp_agreement`'s ``a`` is within the CPU tests' bounds."""
+    check(max(a["worst"].values()) <= 1e-5,
+          f"{label}: loss/grad norm beyond rel 1e-5: {a['worst']}")
+    check(a["excess"] <= 0.0, f"{label}: a parameter beyond the _param_bound rule by "
+                              f"{a['excess']}")
+    check(a["m_gap"] <= TP_MOMENT_TOL, f"{label}: moment blocks {a['m_gap']} of scale off")
+    check(a["same_params"] and a["same_grads"],
+          f"{label}: replicated parameters or gradients differ across ranks")
+
+
+def step_walls(sts):
+    """Each rank's step wall ms and share in collectives, rank 0's
+    collective seconds and elements by tag, from ``timed_step``'s stats."""
+    return ("step wall ms per rank " + ", ".join(f"{s['wall_s'] * 1e3:.2f}" for s in sts)
+            + "; share in collectives " + ", ".join(f"{s['collective_s'] / s['wall_s']:.3f}"
+                                                    for s in sts)
+            + "; collective seconds by tag (rank 0) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(sts[0]["tag_seconds"].items()))
+            + f"; elements by tag {sts[0]['tags']} in {sts[0]['calls']} collectives")
+
+
 def tp_cfg():
     from repro_torch.configs import get_config
 
@@ -5537,53 +5618,59 @@ def tp_cfg():
                                      compute_dtype="float32")
 
 
-def tp_kernel_checks(card, cuda):
-    """Kernels 5 and 5b alone at each R mesh's per-rank shapes (the rank's
-    rows of the global batch, its n_heads/m heads of 80, S = ``TP_S``,
-    causal, f32: the SIMT routes) against their plain versions on the card:
-    the output and dQ, dK, dV within ``ATT_TOL`` of scale; each call's
-    event ms beside the plain version's, SDPA's (forward, and backward) and
-    the bound."""
+def rank_attention_checks(card, cuda, name, B, Hq, Hkv, D, S, causal):
+    """Kernels 5 and 5b alone at one rank's shapes in f32 (the SIMT routes)
+    against their plain versions on the card: the output and dQ, dK, dV
+    within ``ATT_TOL`` of scale; prints each call's event ms beside the
+    plain version's, SDPA's (forward, and backward) and the bound."""
     import torch
 
     from repro_torch.kernels import flash_attention as kf
 
+    g = torch.Generator(device=cuda).manual_seed(Hq)
+    q, k, v, dout = (torch.randn((B, h, S, D), generator=g, device=cuda)
+                     for h in (Hq, Hkv, Hkv, Hq))
+    fwd_err = attention_close(f"{name}: flash_attention",
+                              kf.flash_attention_call(q, k, v, causal),
+                              kf.flash_attention_plain(q, k, v, causal), "float32")
+    got = kf.flash_attention_bwd_call(q, k, v, dout, causal)
+    want = kf.flash_attention_bwd_plain(q, k, v, dout, causal)
+    gaps = [float((a - w).abs().max()) / float(w.abs().max()) for a, w in zip(got, want)]
+    check(max(gaps) <= ATT_TOL["float32"],
+          f"{name}: flash_attention_bwd beyond {ATT_TOL['float32']} of scale: {gaps}")
+    fwd = {"kernel": partial(kf.flash_attention_call, q, k, v, causal),
+           "plain": partial(kf.flash_attention_plain, q, k, v, causal),
+           "SDPA": partial(library_sdpa, q, k, v, is_causal=causal)}
+    bwd = {"kernel": partial(kf.flash_attention_bwd_call, q, k, v, dout, causal),
+           "plain": partial(kf.flash_attention_bwd_plain, q, k, v, dout, causal),
+           "SDPA": library_sdpa_backward(q, k, v, dout, causal)}
+    fwd_ms = {w: time_calls(fn, 5 if w != "plain" else 2) for w, fn in fwd.items()}
+    bwd_ms = {w: time_calls(fn, 5 if w != "plain" else 2) for w, fn in bwd.items()}
+    fwd_bound = attention_bound((2 * q.numel() + k.numel() + v.numel()) * 4,
+                                4 * B * Hq * D * S * S // (2 if causal else 1), torch.float32)
+    *_, bwd_bound_ms, bwd_bound_by = bwd_bound(B, Hq, Hkv, S, D, causal, torch.float32)
+    print(f"{name}: flash_attention max_abs_err {fwd_err:.3e} (limit "
+          f"{ATT_TOL['float32']}), event ms per call "
+          + ", ".join(f"{w} {t:.4f}" for w, t in fwd_ms.items())
+          + f", bound {fwd_bound[0]:.4f} ({fwd_bound[1]}); flash_attention_bwd dq/dk/dv gap "
+          f"of scale {gaps[0]:.3e}/{gaps[1]:.3e}/{gaps[2]:.3e} (limit "
+          f"{ATT_TOL['float32']}), event ms per call "
+          + ", ".join(f"{w} {t:.4f}" for w, t in bwd_ms.items())
+          + f", bound {bwd_bound_ms:.4f} ({bwd_bound_by}) [{card}]")
+    del q, k, v, dout, got, want, fwd, bwd
+    torch.cuda.empty_cache()
+
+
+def tp_kernel_checks(card, cuda):
+    """Kernels 5 and 5b alone at each R mesh's per-rank shapes (the rank's
+    rows of the global batch, its n_heads/m heads of 80, S = ``TP_S``,
+    causal, f32: the SIMT routes) against their plain versions on the card
+    (:func:`rank_attention_checks`)."""
     cfg = tp_cfg()
     for label, (n_data, n_model) in TP_MESHES.items():
         B, H, D = TP_B // n_data, cfg.n_heads // n_model, cfg.resolved_head_dim
-        g = torch.Generator(device=cuda).manual_seed(H)
-        q, k, v, dout = (torch.randn((B, H, TP_S, D), generator=g, device=cuda)
-                         for _ in range(4))
-        name = f"{label} kernels at a rank's shapes (B {B}, {H} heads of {D}, S {TP_S}, f32)"
-        fwd_err = attention_close(f"{name}: flash_attention",
-                                  kf.flash_attention_call(q, k, v, True),
-                                  kf.flash_attention_plain(q, k, v, True), "float32")
-        got = kf.flash_attention_bwd_call(q, k, v, dout, True)
-        want = kf.flash_attention_bwd_plain(q, k, v, dout, True)
-        gaps = [float((a - w).abs().max()) / float(w.abs().max()) for a, w in zip(got, want)]
-        check(max(gaps) <= ATT_TOL["float32"],
-              f"{name}: flash_attention_bwd beyond {ATT_TOL['float32']} of scale: {gaps}")
-        fwd = {"kernel": partial(kf.flash_attention_call, q, k, v, True),
-               "plain": partial(kf.flash_attention_plain, q, k, v, True),
-               "SDPA": partial(library_sdpa, q, k, v, is_causal=True)}
-        bwd = {"kernel": partial(kf.flash_attention_bwd_call, q, k, v, dout, True),
-               "plain": partial(kf.flash_attention_bwd_plain, q, k, v, dout, True),
-               "SDPA": library_sdpa_backward(q, k, v, dout, True)}
-        fwd_ms = {w: time_calls(fn, 5 if w != "plain" else 2) for w, fn in fwd.items()}
-        bwd_ms = {w: time_calls(fn, 5 if w != "plain" else 2) for w, fn in bwd.items()}
-        fwd_bound = attention_bound((2 * q.numel() + k.numel() + v.numel()) * 4,
-                                    4 * B * H * D * TP_S * TP_S // 2, torch.float32)
-        *_, bwd_bound_ms, bwd_bound_by = bwd_bound(B, H, H, TP_S, D, True, torch.float32)
-        print(f"{name}: flash_attention max_abs_err {fwd_err:.3e} (limit "
-              f"{ATT_TOL['float32']}), event ms per call "
-              + ", ".join(f"{w} {t:.4f}" for w, t in fwd_ms.items())
-              + f", bound {fwd_bound[0]:.4f} ({fwd_bound[1]}); flash_attention_bwd dq/dk/dv gap "
-              f"of scale {gaps[0]:.3e}/{gaps[1]:.3e}/{gaps[2]:.3e} (limit "
-              f"{ATT_TOL['float32']}), event ms per call "
-              + ", ".join(f"{w} {t:.4f}" for w, t in bwd_ms.items())
-              + f", bound {bwd_bound_ms:.4f} ({bwd_bound_by}) [{card}]")
-        del q, k, v, dout, got, want, fwd, bwd
-        torch.cuda.empty_cache()
+        rank_attention_checks(card, cuda, f"{label} kernels at a rank's shapes (B {B}, {H} "
+                              f"heads of {D}, S {TP_S}, f32)", B, H, H, D, TP_S, True)
 
 
 def tp_reference(card, cuda, tmp):
@@ -5638,10 +5725,7 @@ def r_rank(tmp, device):
         state, r["step"] = timed_step(step, state, batch)
         r["gaps"] = dp_gaps(state, Path(tmp) / "tp_reference.pt", held, tcfg.opt.b1, device)
         r["prints"] = leaf_prints(state)
-        r["model_cut"] = sorted(
-            f"{tree}/{n}" for tree, shs in (("params", held["params"]),
-                                            ("opt/m", held["opt"]["m"]))
-            for n, sh in shs.items() if any("model" in a for _, a in sh.cuts()))
+        r["model_cut"] = model_cut_keys(held)
         r["wall_s"] = time.perf_counter() - t0
         out[label] = r
         del state, step
@@ -5709,50 +5793,22 @@ def tp_train_path(card, cuda, prepared=None, world=None):
     launches = {}
     for label, (n_data, n_model) in TP_MESHES.items():
         outs = [out[label] for out in rr]
-        worst = {"loss": 0.0, "grad_norm": 0.0}
         for r, out in enumerate(outs):
             st = out["step"]
             check(st["launches"] == want, f"{label} rank {r}: launches {st['launches']}")
             check(st["metrics"] == outs[0]["step"]["metrics"],
                   f"{label}: rank {r}'s metrics differ from rank 0's")
-            for key in worst:
-                worst[key] = max(worst[key], rel_diff(st["metrics"][key], ref["metrics"][key]))
-        excess = max(out["gaps"]["param_excess"] for out in outs)
-        p_gap = max(out["gaps"]["param_gap"] for out in outs)
-        m_gap = max(out["gaps"]["m_gap"] for out in outs)
-        cut = set(outs[0]["model_cut"])
-        same_params = all(out["prints"][k] == outs[0]["prints"][k] for out in outs[1:]
-                          for k in out["prints"] if k.startswith("params/") and k not in cut)
-        same_grads = all(a["prints"][k] == b["prints"][k] for a in outs for b in outs
-                         if a["coords"][0] == b["coords"][0]
-                         for k in a["prints"] if k.startswith("opt/m/") and k not in cut)
+        agree = tp_agreement(outs, ref["metrics"])
         sts = [out["step"] for out in outs]
         print(f"{label} {DP_RANKS} gloo ranks on the card, ({n_data}, {n_model}) mesh, "
               f"{cfg.name} {TP_LAYERS} of 32 layers f32 (a rank: {cfg.n_heads // n_model} heads, "
               f"d_ff {cfg.d_ff // n_model}, vocab {cfg.vocab_size // n_model}; "
               f"{TP_B // n_data} rows), ZeRO-1 moments, grad_specs: loss "
-              f"{sts[0]['metrics']['loss']:.6f}; against R1: loss rel {worst['loss']:.3e}, grad "
-              f"norm rel {worst['grad_norm']:.3e} (limit 1e-5); the parameters' largest gap "
-              f"{p_gap:.3e} of scale, largest excess over the _param_bound rule {excess:.3e} "
-              f"(held <= 0); the moment blocks {m_gap:.3e} of scale (limit {TP_MOMENT_TOL}); "
-              f"every rank's replicated parameters identical: {same_params}; the replicated "
-              f"leaves' gradients (moment blocks) identical on a data row's model ranks: "
-              f"{same_grads}; launches a step on every rank flash_attention={TP_LAYERS} "
-              f"flash_attention_bwd={TP_LAYERS} [{card}]")
-        check(max(worst.values()) <= 1e-5, f"{label}: loss/grad norm beyond rel 1e-5: {worst}")
-        check(excess <= 0.0, f"{label}: a parameter beyond the _param_bound rule by {excess}")
-        check(m_gap <= TP_MOMENT_TOL, f"{label}: moment blocks {m_gap} of scale off")
-        check(same_params and same_grads,
-              f"{label}: replicated parameters or gradients differ across ranks")
-        print(f"  {label} step wall ms per rank " + ", ".join(f"{s['wall_s'] * 1e3:.2f}"
-                                                            for s in sts)
-              + "; share in collectives " + ", ".join(f"{s['collective_s'] / s['wall_s']:.3f}"
-                                                      for s in sts)
-              + f"; collective seconds by tag (rank 0) "
-              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(sts[0]['tag_seconds'].items()))
-              + f"; elements by tag {sts[0]['tags']} in {sts[0]['calls']} collectives; R1 "
-              f"{ref['wall_s'] * 1e3:.2f} ms; the rank's set-up {outs[0]['setup_s']:.1f} s "
-              f"[{card}]")
+              f"{sts[0]['metrics']['loss']:.6f}; against R1: {agree['text']}; launches a step on "
+              f"every rank flash_attention={TP_LAYERS} flash_attention_bwd={TP_LAYERS} [{card}]")
+        hold_tp_agreement(label, agree)
+        print(f"  {label} {step_walls(sts)}; R1 {ref['wall_s'] * 1e3:.2f} ms; the rank's set-up "
+              f"{outs[0]['setup_s']:.1f} s [{card}]")
         launches[f"{(n_data, n_model)}"] = {k: sts[0]["launches"][k]
                                              for k in ("flash_attention", "flash_attention_bwd")}
     print(f"  phase R {time.perf_counter() - t_phase:.1f} s [{card}]")
@@ -5808,10 +5864,7 @@ def s_rank(tmp, device):
         r["gaps"] = dp_gaps(state, Path(tmp) / f"moe_{route}.pt", held, tcfg.opt.b1, device)
         r["router_state"] = state["router_state"].cpu()
         r["prints"] = leaf_prints(state)
-        r["model_cut"] = sorted(
-            f"{tree}/{n}" for tree, shs in (("params", held["params"]),
-                                            ("opt/m", held["opt"]["m"]))
-            for n, sh in shs.items() if any("model" in a for _, a in sh.cuts()))
+        r["model_cut"] = model_cut_keys(held)
         r["wall_s"] = time.perf_counter() - t0
         out[label] = r
         del state, step
@@ -5872,15 +5925,11 @@ def moe_tp_train_path(card, cuda, prepared=None, world=None):
             cfg = moe_train_cfg("float32", MOE_DP_LAYERS, ep=ep, cf=cf)
             ref = torch.load(Path(tmp) / f"moe_{route}.pt", weights_only=True)
             outs = [out[label] for out in ss]
-            worst = {"loss": 0.0, "grad_norm": 0.0}
             for r, out in enumerate(outs):
                 st = out["step"]
                 check(st["launches"] == want, f"{label} rank {r}: launches {st['launches']}")
                 check(st["metrics"] == outs[0]["step"]["metrics"],
                       f"{label}: rank {r}'s metrics differ from rank 0's")
-                for key in worst:
-                    worst[key] = max(worst[key], rel_diff(st["metrics"][key],
-                                                          refs[route]["metrics"][key]))
             same_rs = all(torch.equal(out["router_state"], ref["router_state"]) for out in outs)
             loads = all(torch.equal(out["layers"][i]["load"], layer["load"])
                         and out["layers"][i]["dropped"] == layer["dropped"]
@@ -5893,15 +5942,7 @@ def moe_tp_train_path(card, cuda, prepared=None, world=None):
                         for out in outs)
                 for i, layer in enumerate(ref["layers"]))
             drops = [layer["dropped"] for layer in ref["layers"]]
-            excess = max(out["gaps"]["param_excess"] for out in outs)
-            p_gap = max(out["gaps"]["param_gap"] for out in outs)
-            m_gap = max(out["gaps"]["m_gap"] for out in outs)
-            cut = set(outs[0]["model_cut"])
-            same_params = all(out["prints"][k] == outs[0]["prints"][k] for out in outs[1:]
-                              for k in out["prints"] if k.startswith("params/") and k not in cut)
-            same_grads = all(a["prints"][k] == b["prints"][k] for a in outs for b in outs
-                             if a["coords"][0] == b["coords"][0]
-                             for k in a["prints"] if k.startswith("opt/m/") and k not in cut)
+            agree = tp_agreement(outs, refs[route]["metrics"])
             name = "global-batch router" if route == "a" else "expert-parallel route"
             sts = [out["step"] for out in outs]
             print(f"{label} {DP_RANKS} gloo ranks on the card, ({n_data}, {n_model}) mesh, the "
@@ -5913,40 +5954,254 @@ def moe_tp_train_path(card, cuda, prepared=None, world=None):
                   + f", the vocabulary of {cfg.vocab_size} whole; {MOE_DP_B // n_data} rows), "
                   f"capacity factor {cfg.capacity_factor}, ZeRO-1 moments, grad_specs: loss "
                   f"{sts[0]['metrics']['loss']:.6f}, moe_aux {sts[0]['metrics']['moe_aux']:.6f}; "
-                  f"against Q2's one-rank step: loss rel {worst['loss']:.3e}, grad norm rel "
-                  f"{worst['grad_norm']:.3e} (limit 1e-5); each layer's loads and dropped_frac "
-                  f"equal: {loads} (dropped_frac " + ", ".join(f"{d:.6f}" for d in drops)
-                  + f"); the selections equal: {picks}; router state equal: {same_rs}; the "
-                  f"parameters' largest gap {p_gap:.3e} of scale, largest excess over the "
-                  f"_param_bound rule {excess:.3e} (held <= 0); the moment blocks {m_gap:.3e} "
-                  f"of scale (limit {TP_MOMENT_TOL}); every rank's replicated parameters "
-                  f"identical: {same_params}; the replicated leaves' gradients (moment blocks) "
-                  f"identical on a data row's model ranks: {same_grads}; launches a step on "
-                  f"every rank flash_attention={MOE_DP_LAYERS} "
-                  f"flash_attention_bwd={MOE_DP_LAYERS} [{card}]")
-            check(max(worst.values()) <= 1e-5, f"{label}: loss/grad norm beyond rel 1e-5: {worst}")
+                  f"against Q2's one-rank step: each layer's loads and dropped_frac equal: "
+                  f"{loads} (dropped_frac " + ", ".join(f"{d:.6f}" for d in drops)
+                  + f"); the selections equal: {picks}; router state equal: {same_rs}; "
+                  f"{agree['text']}; launches a step on every rank flash_attention="
+                  f"{MOE_DP_LAYERS} flash_attention_bwd={MOE_DP_LAYERS} [{card}]")
             check(loads and picks and same_rs, f"{label}: loads, dropped_frac, selections or "
                                                "router state differ from the one-rank step")
-            check(excess <= 0.0, f"{label}: a parameter beyond the _param_bound rule by {excess}")
-            check(m_gap <= TP_MOMENT_TOL, f"{label}: moment blocks {m_gap} of scale off")
-            check(same_params and same_grads,
-                  f"{label}: replicated parameters or gradients differ across ranks")
+            hold_tp_agreement(label, agree)
             if route == "b":  # cap >= N: nothing can drop
                 check(max(drops) == 0.0, f"{label}: dropped_frac {drops}")
-            print(f"  {label} step wall ms per rank " + ", ".join(f"{s['wall_s'] * 1e3:.2f}"
-                                                                for s in sts)
-                  + "; share in collectives " + ", ".join(
-                      f"{s['collective_s'] / s['wall_s']:.3f}" for s in sts)
-                  + "; collective seconds by tag (rank 0) "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(sts[0]["tag_seconds"].items()))
-                  + f"; elements by tag {sts[0]['tags']} in {sts[0]['calls']} collectives; "
-                  f"Q2's one rank without a mesh {refs[route]['wall_s'] * 1e3:.2f} ms; the "
-                  f"rank's set-up {outs[0]['setup_s']:.1f} s [{card}]")
+            print(f"  {label} {step_walls(sts)}; Q2's one rank without a mesh "
+                  f"{refs[route]['wall_s'] * 1e3:.2f} ms; the rank's set-up "
+                  f"{outs[0]['setup_s']:.1f} s [{card}]")
             launches[f"{label} {(n_data, n_model)}"] = {
                 k: sts[0]["launches"][k] for k in ("flash_attention", "flash_attention_bwd")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"  phase S {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {k: {step: n[k] for step, n in launches.items()}
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
+# ---------------------------------------------------------------------------
+# phase T: tensor-parallel training of the vision_stub and encoder configs (make_train_step on
+# a "model" axis above 1 for internvl2-1b and hubert-xlarge: the patches and the frame
+# embeddings whole on every model rank, the gelu MLP cut, the patch labels masked in the loss)
+# ---------------------------------------------------------------------------
+
+# each config at full width cut to FRONTEND_TP_LAYERS layers, f32, one step on a global batch
+# of FRONTEND_TP_B x FRONTEND_TP_S (internvl2-1b's first 256 positions patches, their labels
+# -1): T1 one rank without a mesh in this process for each config, the reference; four gloo
+# ranks sharing the card in phase N's world after phase S: T2 internvl2-1b on (1, 2) (ranks 2
+# and 3 off the mesh), T3 hubert-xlarge on (1, 4) and on (2, 2) with ZeRO-1 moments over both
+# axes; no (2, 2) mesh for internvl2-1b, whose whole embedding and head (151655 x 896 each: the
+# vocabulary is odd) would be summed over "data" through gloo
+FRONTEND_TP_LAYERS, FRONTEND_TP_B, FRONTEND_TP_S, FRONTEND_TP_TIMEOUT_S = 2, 4, 512, 240
+FRONTEND_TP_STEPS = {"T2": ("internvl2_1b", (1, 2)), "T3 (1, 4)": ("hubert_xlarge", (1, 4)),
+                     "T3 (2, 2)": ("hubert_xlarge", (2, 2))}
+
+
+def frontend_tp_cfg(arch):
+    from repro_torch.configs import get_config
+
+    return get_config(arch).with_(n_layers=FRONTEND_TP_LAYERS, param_dtype="float32",
+                                  compute_dtype="float32")
+
+
+def frontend_tp_batch(cfg, device):
+    """``dp_batch``'s global batch of ``FRONTEND_TP_B`` x ``FRONTEND_TP_S``,
+    a ``vision_stub`` batch's labels at the patch positions -1 (the loss
+    masks them)."""
+    batch = dp_batch(cfg, FRONTEND_TP_B, device, FRONTEND_TP_S)
+    if "patches" in batch:
+        batch["labels"][:, :batch["patches"].shape[1]] = -1
+    return batch
+
+
+def frontend_tp_kernel_checks(card, cuda):
+    """Kernels 5 and 5b alone at each T mesh's per-rank shapes (the rank's
+    rows, its n_heads/m query heads and n_kv_heads/m kv heads, S =
+    ``FRONTEND_TP_S``; causal for internvl2-1b, bidirectional for
+    hubert-xlarge; f32: the SIMT routes) against their plain versions on
+    the card (:func:`rank_attention_checks`)."""
+    for label, (arch, (n_data, n_model)) in FRONTEND_TP_STEPS.items():
+        cfg = frontend_tp_cfg(arch)
+        check(cfg.n_kv_heads % n_model == 0, f"{label}: the kv heads do not divide")
+        B, D = FRONTEND_TP_B // n_data, cfg.resolved_head_dim
+        Hq, Hkv = cfg.n_heads // n_model, cfg.n_kv_heads // n_model
+        rank_attention_checks(card, cuda, f"{label} kernels at a rank's shapes ({cfg.name}: B "
+                              f"{B}, {Hq}/{Hkv} heads of {D}, S {FRONTEND_TP_S}, "
+                              f"{'causal' if cfg.causal else 'bidirectional'}, f32)",
+                              B, Hq, Hkv, D, FRONTEND_TP_S, cfg.causal)
+
+
+def frontend_tp_reference(card, cuda, tmp):
+    """T1: for each config of ``FRONTEND_TP_STEPS``, the one-rank f32 step
+    without a mesh on the card from the seed and global batch T2's and T3's
+    ranks use; writes the parameters and the first moments after it to
+    ``tmp/frontend_<arch>.pt`` for the ranks. Returns its stats by arch."""
+    import torch
+
+    out = {}
+    for arch in dict.fromkeys(a for a, _ in FRONTEND_TP_STEPS.values()):
+        cfg, tcfg = frontend_tp_cfg(arch), dp_tcfg()
+        state, step = dp_stepper(cfg, tcfg, None, cuda)
+        batch = frontend_tp_batch(cfg, cuda)
+        n_tok = int((batch["labels"] >= 0).sum())
+        state, st = timed_step(step, state, batch)
+        torch.save({"params": {n: p.detach().cpu() for n, p in
+                               state["params"].named_parameters()},
+                    "m": {n: t.cpu() for n, t in state["opt"]["m"].items()},
+                    "lr": st["metrics"]["lr"]}, Path(tmp) / f"frontend_{arch}.pt")
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        want = dict(ZERO_COUNTS, flash_attention=FRONTEND_TP_LAYERS,
+                    flash_attention_bwd=FRONTEND_TP_LAYERS)
+        check(st["launches"] == want, f"T1 {cfg.name} launches {st['launches']}")
+        check(np.isfinite(st["metrics"]["loss"]) and np.isfinite(st["metrics"]["grad_norm"])
+              and st["metrics"]["ntok"] == n_tok, f"T1 {cfg.name}: metrics {st['metrics']}")
+        print(f"T1 one rank, {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+              f"heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_type}), vocab "
+              f"{cfg.vocab_size}, {FRONTEND_TP_LAYERS} layers f32 "
+              f"({'causal' if cfg.causal else 'bidirectional'}), {n_params} parameters, global "
+              f"batch {FRONTEND_TP_B} x {FRONTEND_TP_S}"
+              + (f" ({batch['patches'].shape[1]} patch positions, labels -1)"
+                 if "patches" in batch else " (frame embeddings)")
+              + f": step wall {st['wall_s'] * 1e3:.2f} ms, loss {st['metrics']['loss']:.6f}, "
+              f"grad norm {st['metrics']['grad_norm']:.6f}, ntok {n_tok}; launches "
+              f"flash_attention={FRONTEND_TP_LAYERS} flash_attention_bwd={FRONTEND_TP_LAYERS} "
+              f"[{card}]")
+        out[arch] = st
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def t_rank(tmp, device):
+    """One rank of T2 and T3: for each step of ``FRONTEND_TP_STEPS``, the
+    state cut to this rank's blocks (``dp_stepper``), one step timed and
+    counted with its collectives' seconds by tag and, on a member of the
+    mesh, the gaps against T1 (``dp_gaps``) and the fingerprints of this
+    rank's leaves; and the rank's seconds in phase T."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import train_loop as ptl
+
+    t_all = time.perf_counter()
+    out = {}
+    for label, (arch, shape) in FRONTEND_TP_STEPS.items():
+        t0 = time.perf_counter()
+        cfg, tcfg = frontend_tp_cfg(arch), dp_tcfg()
+        mesh = make_host_mesh(*shape)
+        held = ptl.state_shardings(cfg, mesh, tcfg)
+        state, step = dp_stepper(cfg, tcfg, mesh, device)
+        batch = frontend_tp_batch(cfg, device)
+        r = dict(setup_s=time.perf_counter() - t0, member=mesh.member)
+        state, r["step"] = timed_step(step, state, batch)
+        if mesh.member:
+            r["coords"] = (mesh.axis("data").index, mesh.axis("model").index)
+            r["gaps"] = dp_gaps(state, Path(tmp) / f"frontend_{arch}.pt", held, tcfg.opt.b1,
+                                device)
+            r["prints"] = leaf_prints(state)
+            r["model_cut"] = model_cut_keys(held)
+        r["wall_s"] = time.perf_counter() - t0
+        out[label] = r
+        del state, step
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_all
+    return out
+
+
+def frontend_tp_prepare(card, cuda):
+    """Phase T's parts in this process before the world of ranks: kernels 5
+    and 5b at T's per-rank shapes, and T1 in a temporary directory.
+    Returns (the directory, T1's stats by arch)."""
+    t0 = time.perf_counter()
+    frontend_tp_kernel_checks(card, cuda)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_frontend_tp_")
+    ref = frontend_tp_reference(card, cuda, tmp)
+    print(f"  T's kernel checks and T1 {time.perf_counter() - t0:.1f} s [{card}]")
+    return tmp, ref
+
+
+def frontend_tp_world_calls(cuda, prepared):
+    """T2's and T3's call for each rank of a world of ``DP_RANKS`` gloo ranks
+    sharing the card (``spawn_world(call_each, ...)``)."""
+    return [(t_rank, (prepared[0], str(cuda)), {})]
+
+
+def frontend_tp_train_path(card, cuda, prepared=None, world=None):
+    """Phase T, tensor-parallel training of the ``vision_stub`` and encoder
+    configs (``make_train_step`` on a ``"model"`` axis above 1): kernels 5
+    and 5b at the ranks' shapes and T1 (:func:`frontend_tp_prepare`); four
+    gloo ranks sharing the card, each config at full width,
+    ``FRONTEND_TP_LAYERS`` layers, f32, one step of each of
+    ``FRONTEND_TP_STEPS`` on T1's global batch: on every member rank loss
+    and grad norm within rel 1e-5 of T1, ``ntok`` T1's (the token labels
+    alone), the parameters (the rank's blocks) within the ``_param_bound``
+    rule and their largest gap over scale, the moment blocks within
+    ``TP_MOMENT_TOL`` of scale, every replicated parameter the same on every
+    member and every moment block of a leaf that "model" does not cut the
+    same on a data row's model ranks, kernels 5 and 5b once per layer a step
+    on the rank's heads; every rank's metrics the same (the ranks off the
+    mesh take rank 0's, and launch nothing); the step walls, the
+    collectives' seconds and elements by tag and the ranks' seconds in the
+    phase. ``prepared``: :func:`frontend_tp_prepare`'s result, ``world``:
+    each rank's results of :func:`frontend_tp_world_calls` where another
+    phase's world ran them (phase N's, in a whole run); else they run here.
+    Callable alone after ``card_setup`` and ``build_kernels`` (kernels 5
+    and 5b). Returns rank 0's launches of kernels 5 and 5b a step, by
+    step."""
+    import shutil
+
+    from repro_torch.distributed import call_each, spawn_world
+
+    t_phase = time.perf_counter()
+    if prepared is None:
+        prepared = frontend_tp_prepare(card, cuda)
+    tmp, refs = prepared
+    try:
+        if world is None:
+            t0 = time.perf_counter()
+            world = spawn_world(call_each, DP_RANKS, "gloo", FRONTEND_TP_TIMEOUT_S,
+                                (frontend_tp_world_calls(cuda, prepared),))
+            print(f"  T2 and T3 in a world of their own, {time.perf_counter() - t0:.1f} s "
+                  f"[{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tt = [w[0] for w in world]
+    want = dict(ZERO_COUNTS, flash_attention=FRONTEND_TP_LAYERS,
+                flash_attention_bwd=FRONTEND_TP_LAYERS)
+    launches = {}
+    for label, (arch, (n_data, n_model)) in FRONTEND_TP_STEPS.items():
+        cfg, ref = frontend_tp_cfg(arch), refs[arch]
+        outs = [out[label] for out in tt]
+        members = [out for out in outs if out["member"]]
+        check(len(members) == n_data * n_model and all(o["member"] for o in outs[:len(members)]),
+              f"{label}: members {[o['member'] for o in outs]}")
+        for r, out in enumerate(outs):
+            st = out["step"]
+            check(st["launches"] == (want if out["member"] else ZERO_COUNTS),
+                  f"{label} rank {r}: launches {st['launches']}")
+            check(st["metrics"] == outs[0]["step"]["metrics"],
+                  f"{label}: rank {r}'s metrics differ from rank 0's")
+        ntok = outs[0]["step"]["metrics"]["ntok"]
+        agree = tp_agreement(members, ref["metrics"])
+        vocab = (f"vocab {cfg.vocab_size // n_model} of {cfg.vocab_size}"
+                 if cfg.vocab_size % n_model == 0 else f"the vocabulary of {cfg.vocab_size} whole")
+        sts = [out["step"] for out in members]
+        print(f"{label} {DP_RANKS} gloo ranks on the card, ({n_data}, {n_model}) mesh"
+              + (f" (ranks {len(members)}-{DP_RANKS - 1} off it)" if len(members) < DP_RANKS
+                 else "")
+              + f", {cfg.name} {FRONTEND_TP_LAYERS} layers f32 (a rank: "
+              f"{cfg.n_heads // n_model}/{cfg.n_kv_heads // n_model} heads, d_ff "
+              f"{cfg.d_ff // n_model}, {vocab}; {FRONTEND_TP_B // n_data} rows), ZeRO-1 moments, "
+              f"grad_specs: loss {sts[0]['metrics']['loss']:.6f}, ntok {ntok:.0f} (T1 "
+              f"{ref['metrics']['ntok']:.0f}); against T1: {agree['text']}; launches a step on "
+              f"every member flash_attention={FRONTEND_TP_LAYERS} "
+              f"flash_attention_bwd={FRONTEND_TP_LAYERS} [{card}]")
+        check(ntok == ref["metrics"]["ntok"], f"{label}: ntok {ntok}")
+        hold_tp_agreement(label, agree)
+        print(f"  {label} {step_walls(sts)} (the members); T1 {ref['wall_s'] * 1e3:.2f} ms; the "
+              f"rank's set-up {outs[0]['setup_s']:.1f} s [{card}]")
+        launches[f"{label.split()[0]} {cfg.name} {(n_data, n_model)}"] = {
+            k: sts[0]["launches"][k] for k in ("flash_attention", "flash_attention_bwd")}
+    print(f"  T2 and T3 on the ranks: " + ", ".join(f"{out['phase_s']:.1f}" for out in tt)
+          + f" s (the phase's share of the world) [{card}]")
+    print(f"  phase T {time.perf_counter() - t_phase:.1f} s [{card}]")
     return {k: {step: n[k] for step, n in launches.items()}
             for k in ("flash_attention", "flash_attention_bwd")}
 
@@ -6098,7 +6353,7 @@ def card_setup():
     ``sweep_path``, ``obs_path``, ``oracle_path``, ``moe_path``,
     ``training_path``, ``sharded_path``, ``moe_ep_path``,
     ``dp_train_path``, ``moe_train_path``, ``tp_train_path``,
-    ``moe_tp_train_path``) starts with this and
+    ``moe_tp_train_path``, ``frontend_tp_train_path``) starts with this and
     :func:`build_kernels`."""
     import torch
 
@@ -6202,16 +6457,18 @@ def run_phases(pt, cf, card, cuda) -> int:
     moe_prepared = moe_prepare(card, cuda)
     print(f"  Q1 and Q2's references {time.perf_counter() - t_phase:.1f} s [{card}]")
     tp_prepared = tp_prepare(card, cuda)
+    frontend_prepared = frontend_tp_prepare(card, cuda)
 
     # -- 14. phase N: the instance-sharded engines (kernel 1 on one rank); its world of
     # four gloo ranks then runs phase O's O2 and O3, phase P's P2 and P3, phase Q's Q2,
-    # phase R's R2 and R3 and phase S (one start-up for all) ----------------------------------
+    # phase R's R2 and R3, phase S and phase T's T2 and T3 (one start-up for all) -------------
     slot.row["sharded_launches"], world = sharded_path(
         card, cuda, slot.fleet, also=ep_world_calls(cuda) + dp_world_calls(cuda, dp_prepared)
         + moe_world_calls(cuda, moe_prepared) + tp_world_calls(cuda, tp_prepared)
-        + moe_tp_world_calls(cuda, moe_prepared),
+        + moe_tp_world_calls(cuda, moe_prepared)
+        + frontend_tp_world_calls(cuda, frontend_prepared),
         also_timeout_s=EP_TIMEOUT_S + DP_TIMEOUT_S + MOE_DP_TIMEOUT_S + TP_TIMEOUT_S
-        + MOE_TP_TIMEOUT_S)
+        + MOE_TP_TIMEOUT_S + FRONTEND_TP_TIMEOUT_S)
 
     # -- 15. phase O: expert-parallel MoE serving (kernels 2, 5 and 6 on every rank) ----
     ep = moe_ep_path(card, cuda, world=[out[:2] for out in world])
@@ -6245,7 +6502,15 @@ def run_phases(pt, cf, card, cuda) -> int:
                       (bwd_kernel, "flash_attention_bwd")):
         row["moe_tp_launches"] = moe_tp[name]
 
-    # -- 20. the kernels line, 21. the last line ---------------------------------
+    # -- 20. phase T: tensor-parallel training of the vision_stub and encoder configs
+    # (kernels 5 and 5b on every member rank's heads) ---------------------------------------
+    frontend_tp = frontend_tp_train_path(card, cuda, frontend_prepared,
+                                         world=[out[7:] for out in world])
+    for row, name in ((attention_kernels[0], "flash_attention"),
+                      (bwd_kernel, "flash_attention_bwd")):
+        row["frontend_tp_launches"] = frontend_tp[name]
+
+    # -- 21. the kernels line, 22. the last line ---------------------------------
     print(json.dumps({"kernels": [slot.row, *scan_kernels, drain_kernel, *attention_kernels,
                                   ssd_kernel, bwd_kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,16 +27,21 @@ route (``moe_ep_shardmap``: each rank holds E/n experts):
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
       --arch granite_moe_1b --ep
 
-``--model-axis m`` trains a dense or MoE decoder tensor-parallel on a
-(ranks/m, m) mesh (each rank holds its blocks of the heads, d_ff and the
-vocabulary, ``models.common``, and of an MoE model E/m of the experts, or
-with ``--ep`` E/(ranks/m) experts cut to their F/m block), its moments
-ZeRO-1 blocks over both axes:
+``--model-axis m`` trains a dense or MoE decoder, a ``vision_stub`` config
+or an encoder tensor-parallel on a (ranks/m, m) mesh (each rank holds its
+blocks of the heads, d_ff and the vocabulary, ``models.common``, and of an
+MoE model E/m of the experts, or with ``--ep`` E/(ranks/m) experts cut to
+their F/m block), its moments ZeRO-1 blocks over both axes; the heads must
+divide by m (internvl2-1b's 14 by 2, hubert-xlarge's 16 by 2 or 4):
 
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
       --arch stablelm_3b --layers 2 --model-axis 4
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
       --arch granite_moe_1b --layers 8 --model-axis 2 --ep
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
+      --arch internvl2_1b --layers 8 --model-axis 2
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 examples/torch_train_dp.py \
+      --arch hubert_xlarge --layers 8 --model-axis 4
 
 The module-level functions run on one rank of a world that is already up
 (``repro_torch.distributed.spawn_world`` starts one in child processes):
@@ -237,8 +242,8 @@ def main() -> None:
     ap.add_argument("--ep", action="store_true",
                     help="an MoE model by the expert-parallel route (moe_ep_shardmap)")
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="ranks of the mesh's \"model\" axis (tensor-parallel, a dense or MoE "
-                         "decoder)")
+                    help="ranks of the mesh's \"model\" axis (tensor-parallel; not an SSM or "
+                         "hybrid model)")
     args = ap.parse_args()
     if "RANK" in os.environ:  # started by torchrun: one rank per card
         if args.device == "cuda":

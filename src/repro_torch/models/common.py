@@ -26,7 +26,9 @@ its bias) and the matching input columns of ``wo``, ``n_kv_heads/m`` kv
 heads of ``wk``/``wv``, and ``d_ff/m`` of the MLP's inner dim (rows of
 ``w_gate``/``w_up``/``w_in``, input columns of ``w_out``); the norms stay
 whole. Each cut block starts with ``distributed.copy_to`` and ends with
-``distributed.reduce_from`` over ``tp``. Where the kv heads do not divide
+``distributed.reduce_from`` over ``tp``: the gelu MLP (an encoder's) as
+the gated ones, ``gelu(w_in x)`` on the rank's inner units and ``w_out``'s
+matching columns, the ranks' outputs summed. Where the kv heads do not divide
 over the ranks (:func:`tp_cut`), ``wk``/``wv`` stay whole on every rank,
 their gradients summed over the ranks, and each rank uses the kv heads its
 query heads read; where ``d_ff`` does not, the MLP runs whole on every

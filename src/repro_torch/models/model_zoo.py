@@ -77,7 +77,11 @@ vocabulary rows, so the logits are this rank's vocabulary block (with
 not divide over the ranks (granite-moe-1b's 49155 over 2 or 4) stays whole
 on every rank: the lookup and the head then take no ``copy_to`` or
 ``reduce_from`` (their gradients are the same on every model rank) and the
-logits are whole. It travels down to the blocks as ``axis`` does.
+logits are whole. A ``vision_stub`` config's patches join after the
+lookup's sum, whole on every rank, and an encoder's frame embeddings enter
+the first block whole (the blocks' ``copy_to`` gives these inputs no
+gradient); an encoder's head is cut as a decoder's. It travels down to the
+blocks as ``axis`` does.
 """
 from __future__ import annotations
 
@@ -360,7 +364,8 @@ def _embed_input(model, cfg, batch, tp=SOLO):
     else the embedded ``tokens``, after the ``patches`` for a
     ``vision_stub`` config that has them. Over a model axis ``tp`` that
     cuts the vocabulary, each rank looks up the ids of its block (zeros for
-    the others) and the lookups are summed."""
+    the others) and the lookups are summed; the patches and an encoder's
+    embeddings are whole on every rank and are not summed."""
     cdt = DTYPES[cfg.compute_dtype]
     if cfg.is_encoder:
         return batch["embeddings"].to(cdt)

@@ -29,13 +29,13 @@ mesh takes no part: its state comes back as given, with the mesh's metrics.
 On a mesh of one rank the step is the one-rank step, bitwise.
 
 A ``"model"`` axis of m > 1 ranks trains a dense decoder (family
-``"dense"``) or an MoE decoder (family ``"moe"``), with no frontend,
-tensor-parallel, composed with the ``"data"`` axis on (1, m) and (d, m)
-meshes (Megatron's layout, ``models.common``): each rank holds its blocks
-of the weights that the reference's rules cut over "model" (heads, kv
-heads, d_ff and the vocabulary, ``distributed.sharding.param_rules``) and
-whole the others (the norms, the MoE router); :func:`shard_train_state`
-cuts them. Every rank of a data row
+``"dense"``), an MoE decoder (family ``"moe"``), a ``vision_stub`` config
+or an encoder tensor-parallel, composed with the ``"data"`` axis on (1, m)
+and (d, m) meshes (Megatron's layout, ``models.common``): each rank holds
+its blocks of the weights that the reference's rules cut over "model"
+(heads, kv heads, d_ff and the vocabulary,
+``distributed.sharding.param_rules``) and whole the others (the norms, the
+MoE router); :func:`shard_train_state` cuts them. Every rank of a data row
 computes the same loss. On vocabulary-cut logits the loss takes ``logz``
 by a ``pmax`` and a sum of ``exp`` over "model", and the gold logit by a
 masked local gather summed over "model" (the reference's one-hot
@@ -49,9 +49,14 @@ heads must divide over the ranks (``ValueError``); kv heads that do not
 leave ``wk``/``wv`` whole on every rank (:func:`state_shardings`, a layout
 that parts from the reference's, whose flat kv dim may cut a head). A
 vocabulary that does not divide stays whole on every rank, as the
-reference drops the cut, and the loss takes whole logits. ``vision_stub``,
-encoder, SSM and hybrid configs on such a mesh, and any axis other than
-"data" and "model", raise ``NotImplementedError`` (module item 5b).
+reference drops the cut, and the loss takes whole logits. A ``vision_stub``
+config's patches join the lookup's output whole on every model rank, and an
+encoder's frame embeddings enter the first block whole (it has no lookup;
+its head is cut by the vocabulary as a decoder's is); neither is summed over
+"model" or takes a gradient. Labels below 0 (say, at the patch positions)
+are masked in either branch of the loss, and ``ntok`` counts the others.
+SSM and hybrid configs on such a mesh, and any axis other than "data" and
+"model", raise ``NotImplementedError`` (module item 5b).
 
 An MoE config trains across ranks by either of the reference's routes:
 
@@ -115,7 +120,8 @@ class TrainConfig:
 def make_loss_fn(cfg, tcfg: TrainConfig, *, ops=None):
     """``loss_fn(model, batch, router_state) -> (loss, (metrics,
     router_state))``: mean cross-entropy over the labels >= 0 (a
-    ``vision_stub`` batch's labels cover patches and tokens), plus
+    ``vision_stub`` batch's labels cover patches and tokens; -1 at the
+    patch positions leaves them out), plus
     ``z_loss * mean(logsumexp^2)`` and ``moe_aux_weight`` times the mean
     MoE load-balance loss over the layers. ``ops`` picks the attention route
     as ``model_zoo.forward`` does (``kernels.ops.plain`` to compare)."""
@@ -148,8 +154,10 @@ def _loss_fn(cfg, tcfg: TrainConfig, ops, axis, tp=SOLO):
     """:func:`make_loss_fn`'s loss on this rank's rows of a batch whose other
     rows the ranks of ``axis`` hold: the loss (and the metrics' ``loss`` and
     ``ce``) is this rank's term of the global loss, whose sum over ``axis``
-    is the global loss; ``ntok`` is the global token count. ``tp``: the
-    model axis the weights are cut over, whose ranks compute the same loss."""
+    is the global loss; ``ntok`` is the global count of labels >= 0. ``tp``:
+    the model axis the weights are cut over, whose ranks compute the same
+    loss, from vocabulary-cut or whole logits (:func:`_logz_gold`), the
+    labels below 0 masked either way."""
 
     def loss_fn(model, batch, router_state):
         logits, aux = model_zoo.forward(model, cfg, batch, router_state, ops=ops,
@@ -224,7 +232,9 @@ def state_shardings(cfg, mesh, tcfg: TrainConfig) -> dict:
     heads, d_ff and the vocabulary over "model" where they divide), but
     where ``n_kv_heads`` does not divide by m the ``wk``/``wv`` leaves stay
     whole (the reference cuts their flat dim whenever it divides, which can
-    leave part of a head on a rank; their moments keep its layout); the MoE
+    leave part of a head on a rank; their moments keep its layout); an
+    encoder has no ``embed`` leaf and its ``lm_head`` is cut by the
+    vocabulary, and a ``vision_stub`` config's leaves are a decoder's; the MoE
     router stays whole (every model rank routes the whole batch); and under
     the global-batch router the experts are held as E/m of them where E
     divides, F whole (the reference also cuts F over "data", its FSDP
@@ -289,21 +299,22 @@ def shard_train_state(state: dict, shardings: dict) -> dict:
 
 
 def _check_mesh(cfg, mesh) -> None:
-    """Raise for what training across ranks does not cover yet, and for
-    heads that do not divide over the "model" axis; before any collective."""
+    """Raise for what training across ranks does not cover yet (an SSM or
+    hybrid config on a "model" axis above 1, an axis other than "data" and
+    "model"), and for heads that do not divide over the "model" axis; before
+    any collective."""
     if mesh is None:
         return
     other = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
     m = mesh.shape.get("model", 1)
-    decoder = (cfg.family == ("moe" if cfg.moe else "dense")
-               and not (cfg.ssm or cfg.is_encoder or cfg.frontend))
-    if other or (m > 1 and not decoder):
+    if other or (m > 1 and cfg.ssm):
         what = (f"mesh axes {other}" if other
                 else f"{cfg.name} (family {cfg.family!r}) on a \"model\" axis of {m}")
         raise NotImplementedError(
             f"make_train_step on {what}: tensor-parallel training covers the dense and MoE "
-            "decoders only; the rest is not ported yet (ROADMAP.md, section 1, module item "
-            "5b); train it data-parallel on an (n, 1) mesh")
+            "decoders, the vision_stub configs and the encoders only; the SSM and hybrid "
+            "configs are not ported yet (ROADMAP.md, section 1, module item 5b); train them "
+            "data-parallel on an (n, 1) mesh")
     if m > 1 and cfg.n_heads % m:
         raise ValueError(f"make_train_step: {cfg.name}'s {cfg.n_heads} heads do not divide over "
                          f"the {m} ranks of the \"model\" axis")

@@ -326,14 +326,15 @@ def test_one_by_one_mesh_is_the_meshless_step_bitwise(tkw):
 
 def test_tensor_parallel_and_moe_across_ranks_raise():
     """A ``"model"`` axis of more than one rank raises naming module item
-    5b for every config but the dense and MoE decoders (an encoder, a
-    ``vision_stub`` config, an SSM and a hybrid one; the MoE decoder's
-    tensor-parallel training ``tests/test_torch_moe_tp_train.py`` holds), as
-    does a ``"pod"`` axis; a dense config whose heads do not divide over the
-    axis raises ``ValueError`` when the step is built."""
+    5b for an SSM and a hybrid config (the dense and MoE decoders', the
+    ``vision_stub`` configs' and the encoders' tensor-parallel training
+    ``tests/test_torch_tp_train.py``, ``tests/test_torch_moe_tp_train.py``
+    and ``tests/test_torch_frontend_tp_train.py`` hold), as does a
+    ``"pod"`` axis; a config whose heads do not divide over the axis (a
+    dense one, the full internvl2-1b's 14 over 4) raises ``ValueError``
+    when the step is built."""
     mesh = ModelMesh((("data", Axis(None, 2, 0)), ("model", Axis(None, 2, 0))))
-    for cfg in (get_config("hubert_xlarge").reduced(), get_config("internvl2_1b").reduced(),
-                get_config("mamba2_1_3b").reduced(), get_config("zamba2_1_2b").reduced()):
+    for cfg in (get_config("mamba2_1_3b").reduced(), get_config("zamba2_1_2b").reduced()):
         set_mesh(mesh)
         try:
             with pytest.raises(NotImplementedError, match="module item 5b"):
@@ -353,5 +354,7 @@ def test_tensor_parallel_and_moe_across_ranks_raise():
             ptl.make_train_step(get_config("stablelm_3b").reduced().with_(n_heads=6,
                                                                           n_kv_heads=6),
                                 ptl.TrainConfig())
+        with pytest.raises(ValueError, match="14 heads do not divide over the 4 ranks"):
+            ptl.make_train_step(get_config("internvl2_1b"), ptl.TrainConfig())
     finally:
         set_mesh(None)

@@ -46,7 +46,9 @@ plain route within 1e-4, and on a 1x1 model mesh (ZeRO-1 moments,
 and stablelm-3b, the dense decoder that trains tensor-parallel); on a
 (1, 2) mesh of two gloo ranks sharing the card a reduced stablelm-3b step
 (each rank half the heads, kernels 5 and 5b on them) matches the one-rank
-step's loss and grad norm within rel 1e-5; a reduced
+step's loss and grad norm within rel 1e-5, as do a reduced internvl2-1b
+step on (1, 2) (patch labels masked) and a reduced hubert-xlarge step on
+(1, 4) of gloo ranks on the card; a reduced
 MoE train step (granite-moe-1b's reduction, drops) on the card equals its
 run on the CPU in each layer's selections, keep masks, loads and dropped
 fractions and its router state, the loss within rel 1e-5, and gains
@@ -856,12 +858,12 @@ def test_dense_decoder_step_on_a_one_by_one_mesh_is_the_meshless_step_bitwise(cu
     assert all(torch.equal(ma[k], mb[k]) for k in ma)
 
 
-def test_tensor_parallel_step_on_two_gloo_ranks_on_the_card(cuda_device):
-    """One reduced stablelm-3b (float32) step on a (1, 2) mesh of two gloo
-    ranks sharing the card (each rank 2 of the 4 heads, half of d_ff and of
-    the vocabulary, kernels 5 and 5b on its heads) against the one-rank step
-    on the card: loss and grad norm within rel 1e-5, every rank's metrics
-    the same."""
+def _tp_step_against_one_rank(arch, mesh):
+    """One reduced (float32) step of ``arch`` on a ``mesh`` of gloo ranks
+    sharing the card (kernels 5 and 5b on each rank's heads) against the
+    one-rank step on the card, on a batch whose patch positions' labels are
+    -1: loss and grad norm within rel 1e-5, the token count the one rank's,
+    every rank's metrics the same."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.distributed import spawn_world
@@ -871,18 +873,39 @@ def test_tensor_parallel_step_on_two_gloo_ranks_on_the_card(cuda_device):
     sys.path.insert(0, str(Path(chip_smoke.__file__).parent / "examples"))
     import torch_train_dp as ex
 
-    cfg = get_config("stablelm_3b").reduced()
+    cfg = get_config(arch).reduced()
     tcfg = ptl.TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=10))
     batch = TokenPipeline(cfg, batch=4, seq=64, seed=0).next_batch()
+    if "patches" in batch:
+        batch["labels"][:, :batch["patches"].shape[1]] = -1
     one = ex.train_rank(cfg, tcfg, None, None, [batch], device="cuda", keep_state=False)
-    outs = spawn_world(ex.train_rank, 2, "gloo", 240, (cfg, tcfg, (1, 2), None, [batch]))
+    outs = spawn_world(ex.train_rank, mesh[0] * mesh[1], "gloo", 240,
+                       (cfg, tcfg, mesh, None, [batch]))
     want = one["metrics"][0]
     for out in outs:
         assert out["metrics"] == outs[0]["metrics"]
         assert out["tags"][0]["tp"] > 0
+        assert out["metrics"][0]["ntok"] == want["ntok"]
         for key in ("loss", "grad_norm"):
             got = out["metrics"][0][key]
             assert abs(got - want[key]) <= 1e-5 * abs(want[key]), (key, got, want[key])
+
+
+def test_tensor_parallel_step_on_two_gloo_ranks_on_the_card(cuda_device):
+    """A reduced stablelm-3b step on a (1, 2) mesh (each rank 2 of the 4
+    heads, half of d_ff and of the vocabulary) against the one-rank step
+    (:func:`_tp_step_against_one_rank`)."""
+    _tp_step_against_one_rank("stablelm_3b", (1, 2))
+
+
+@pytest.mark.parametrize("arch,mesh", [("internvl2_1b", (1, 2)), ("hubert_xlarge", (1, 4))])
+def test_frontend_tensor_parallel_step_on_gloo_ranks_on_the_card(cuda_device, arch, mesh):
+    """A reduced ``vision_stub`` config's step (internvl2-1b on (1, 2): 2 of
+    the 4 heads and 1 of the 2 kv heads a rank, the patches whole on both,
+    their labels -1) and an encoder's (hubert-xlarge on (1, 4): 1 head a
+    rank, bidirectional, the gelu MLP and the head cut) against the
+    one-rank step (:func:`_tp_step_against_one_rank`)."""
+    _tp_step_against_one_rank(arch, mesh)
 
 
 def test_sharded_one_nccl_rank_takes_the_kernel_route(cuda_device):

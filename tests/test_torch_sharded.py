@@ -459,7 +459,7 @@ def test_payload_counter_counts_nothing_on_one_rank():
 def test_item_5b_raises_across_ranks():
     """What the multi-rank model half still lacks raises across ranks, naming
     item 5b: tensor-parallel training (a ``"model"`` axis of more than one
-    rank) of a ``vision_stub`` config; an MoE config's step, by the
+    rank) of an SSM config; an MoE config's step, by the
     expert-parallel route, builds on the same mesh (its tensor-parallel
     training: ``tests/test_torch_moe_tp_train.py``; on an ``(n, 1)`` mesh:
     ``tests/test_torch_moe_train.py``; the MoE block across ranks runs the
@@ -472,7 +472,7 @@ def test_item_5b_raises_across_ranks():
     set_mesh(ModelMesh((("data", Axis(None, 2, 0)), ("model", Axis(None, 2, 0)))))
     try:
         with pytest.raises(NotImplementedError, match="module item 5b"):
-            ptl.make_train_step(get_config("internvl2_1b").reduced(), ptl.TrainConfig())
+            ptl.make_train_step(get_config("mamba2_1_3b").reduced(), ptl.TrainConfig())
         cfg = get_config("granite_moe_1b").reduced().with_(moe_ep_shardmap=True)
         assert callable(ptl.make_train_step(cfg, ptl.TrainConfig()))
     finally:
